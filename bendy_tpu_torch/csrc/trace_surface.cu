@@ -1,0 +1,722 @@
+// trace_surface.cu: the surface path tracer as one CUDA kernel for Hopper (sm_90a).
+//
+// Replaces bendy_tpu/ops/pallas_trace.py::make_pallas_tracer in its surface
+// configuration (the pl.pallas_call at pallas_trace.py:255, running
+// bendy_tpu/ops/wavefront.py::trace_core). Its plain PyTorch version is
+// bendy_tpu_torch/ops/wavefront.py::trace_core; the wrapper and the table
+// layout are in bendy_tpu_torch/ops/trace_kernel.py.
+//
+// What it computes: for every lane (one pixel x subpixel) the whole
+// regenerating wavefront loop over spp samples: finalize a dead path and
+// regenerate its camera ray, apply the bounce cap, find the nearest hit over
+// spheres, rects and three-slab boxes, draw the pcg4d uniforms, shade the
+// surface (diffuse next-event mixture, metallic fuzz, glass) or add the
+// environment on a miss, update radiance and throughput, claim the AOVs.
+//
+// What bounds it on the H100: FP32 issue and warp divergence across paths of
+// unequal length, not bytes (the scene is a few KB, each lane reads 8 bytes
+// and writes 12 or 40). Design:
+//   - one thread per lane; the thread runs its own loop over all its samples
+//     and exits on its own (Hopper's per-thread control flow in place of the
+//     TPU's per-block masked loop). A warp runs until its slowest lane is
+//     done; this first version accepts that divergence (wavefront sorting and
+//     persistent threads are later work).
+//   - lane state stays in registers; each lane shades only its own material
+//     instead of evaluating every branch under a mask.
+//   - the scene is NOT baked: the compiled tables arrive as one flat f32
+//     buffer with run-time counts and are staged into shared memory per
+//     block, so editing or moving an object rebuilds nothing.
+//   - the TPU workarounds are gone: bool state, native uint32_t RNG words,
+//     no lane-varying zero seeds.
+//
+// Numerics (held per lane to the plain version at rtol 5e-4, atol 1e-5):
+//   - Trig: the same range-free polynomials as ops/distr.py::sin_cos_tau and
+//     sin_cos_small, not sinf/cosf (frustum trig falls back to sinf/cosf only
+//     when the renderer does not set frustum_poly, as the reference does).
+//   - Never built with --use_fast_math: it flushes denormals and
+//     approximates division and sqrt, and lanes near a branch edge would
+//     drift. Normalization is 1.0f / sqrtf(x), both correctly rounded (the
+//     plain version computes the same; torch.rsqrt on the card is rsqrtf).
+//   - Built with --fmad=false: every expression is written in the plain
+//     version's operation order, so without contraction the kernel rounds
+//     as the plain version's separate PyTorch ops do. Contraction is allowed
+//     by the tolerance, but the large ground sphere of scene.json is
+//     ill-conditioned (|oc|^2 - r^2 cancels at r = 1000): there one rounding
+//     more or less (a contracted multiply-add) moves t enough to shift summed
+//     AOV normals by ~1e-4, past atol 1e-5. Turning FMA back on is a speed
+//     question for later.
+//   - Float constants are written (float)(double expression), which is how
+//     the reference rounds its Python-double constants to f32.
+//   - Infinities: the per-sample depth starts at +INF and an emissive
+//     environment reports INF depth; depth_n clamps it to 1 as jnp.clip does.
+//   - Float -> int: the light pick (int)(u0 * nl) truncates toward zero, as
+//     jax's astype does (materials.py:231-233).
+//   - RNG words are bit-equal to utils/rng.py: pcg4d, top-24-bit unit
+//     floats, tags path_step*16+block and CAMERA_TAG*16, stream id
+//     (pix*spp_total + sample0 + s)*nn + sub in wrapping u32.
+//   - Host calls: the C entry takes every pointer and the stream as void*
+//     (the wrapper declares ctypes argtypes), and returns cudaGetLastError()
+//     after the launch, because a refused launch (too many registers or too
+//     much shared memory) never runs and synchronize() does not report it.
+
+#include <cstdint>
+#include <limits>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// table layout (ops/trace_kernel.py::scene_table): row-major f32 blocks
+constexpr int SPH_COLS = 15;         // center xyz, radius, mtype, color rgb, rough, ior, vol x4, valid
+constexpr int RCT_COLS = 21;         // center, x, y, z (xyz each), hw, hh, mtype, color rgb, rough, ior, valid
+constexpr int BOX_COLS = 28;         // normals 3x3, dlo, dhi, sgn_lo, sgn_hi (xyz), mtype, color rgb, rough, ior, valid
+constexpr int LIGHT_HEAD = 5;        // kind, sphere center xyz, sphere radius
+constexpr int LIGHT_FACE_COLS = 23;  // center, fx, fy, ux, uy, z (xyz), hw, hh, area, cdf, valid
+// then the environment: root mtype, albedo rgb, emitted rgb
+
+constexpr int MAT_FLAT = 0, MAT_DIFFUSE = 1, MAT_METALLIC = 2, MAT_GLASS = 3, MAT_EMISSIVE = 4;
+constexpr int FACE_FRONT = 0, FACE_BACK = 1;
+
+constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16;
+
+constexpr uint32_t CAMERA_TAG = 0x100000u;
+constexpr float INF = std::numeric_limits<float>::infinity();
+constexpr float PI_F = (float)3.14159265358979323846;
+constexpr float EPS_PAR = (float)1e-5;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 normalize(V3 a) { return a * (1.0f / sqrtf(dot(a, a))); }
+__device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
+
+struct Params {
+  const float* table;  // global copy; staged into shared memory
+  const float* cam;    // packed camera [32] (trace_kernel.pack_camera_host)
+  const int32_t* pix;
+  const int32_t* sub;
+  float* out;          // [n_out, n] channel-major
+  int32_t* rays;       // [n]
+  int32_t* iters;      // [n]
+  int n, table_floats;
+  int width, height, spp, subsample;
+  uint32_t spp_total, key0, key1, sample0;
+  int max_bounces, max_iters, flags;
+  float clip_min, clip_max, dep_den;  // dep_den = f32(clip_max - clip_min) in double
+  float pw, ph, pw_n, ph_n;            // f32(2/W), f32(2/H), f32(2/W/n), f32(2/H/n)
+  int n_sph, n_rct, n_box, n_light, n_face;
+};
+
+// ---- RNG (utils/rng.py) -------------------------------------------------
+
+__device__ __forceinline__ void pcg4d(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d) {
+  const uint32_t m = 1664525u, inc = 1013904223u;
+  a = a * m + inc;
+  b = b * m + inc;
+  c = c * m + inc;
+  d = d * m + inc;
+  a += b * d;
+  b += c * a;
+  c += a * b;
+  d += b * c;
+  a ^= a >> 16;
+  b ^= b >> 16;
+  c ^= c >> 16;
+  d ^= d >> 16;
+  a += b * d;
+  b += c * a;
+  c += a * b;
+  d += b * c;
+}
+
+__device__ __forceinline__ float unit_float(uint32_t w) {
+  return (float)(w >> 8) * (float)(1.0 / 16777216.0);
+}
+
+// four uniforms of lane_uniforms(key, sid, tag, n) block `block`
+__device__ __forceinline__ void uniforms4(uint32_t sid, uint32_t tag, uint32_t block, uint32_t k0,
+                                          uint32_t k1, float u[4]) {
+  uint32_t a = sid, b = tag * 16u + block, c = k0, d = k1;
+  pcg4d(a, b, c, d);
+  u[0] = unit_float(a);
+  u[1] = unit_float(b);
+  u[2] = unit_float(c);
+  u[3] = unit_float(d);
+}
+
+// ---- distributions (ops/distr.py) ---------------------------------------
+
+__device__ __forceinline__ void sin_cos_tau(float u, float& s, float& c) {
+  float h = (u - 0.5f) * PI_F;
+  float h2 = h * h;
+  float s_h = h * (1.0f + h2 * ((float)(-1.0 / 6.0) +
+                                h2 * ((float)(1.0 / 120.0) +
+                                      h2 * ((float)(-1.0 / 5040.0) + h2 * (float)(1.0 / 362880.0)))));
+  float c_h = 1.0f + h2 * (-0.5f + h2 * ((float)(1.0 / 24.0) +
+                                         h2 * ((float)(-1.0 / 720.0) +
+                                               h2 * ((float)(1.0 / 40320.0) +
+                                                     h2 * (float)(-1.0 / 3628800.0)))));
+  s = -2.0f * s_h * c_h;
+  c = 2.0f * (s_h * s_h) - 1.0f;
+}
+
+__device__ __forceinline__ void sin_cos_small(float x, float& s, float& c) {
+  float x2 = x * x;
+  s = x * (1.0f + x2 * ((float)(-1.0 / 6.0) +
+                        x2 * ((float)(1.0 / 120.0) +
+                              x2 * ((float)(-1.0 / 5040.0) + x2 * (float)(1.0 / 362880.0)))));
+  c = 1.0f + x2 * (-0.5f + x2 * ((float)(1.0 / 24.0) +
+                                 x2 * ((float)(-1.0 / 720.0) +
+                                       x2 * ((float)(1.0 / 40320.0) +
+                                             x2 * (float)(-1.0 / 3628800.0)))));
+}
+
+// branchless tangent frame (Duff et al. 2017), utils/v3.py::orthonormal_frame
+__device__ __forceinline__ void frame(V3 n, V3& t, V3& b) {
+  float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  float a = -1.0f / (sign + n.z);
+  float bb = n.x * n.y * a;
+  t = {1.0f + sign * n.x * n.x * a, sign * bb, -sign * n.x};
+  b = {bb, sign + n.y * n.y * a, -n.y};
+}
+
+__device__ __forceinline__ V3 unit_sphere(float u1, float u2) {
+  float s1, c1;
+  sin_cos_tau(u1, s1, c1);
+  float s = 2.0f * sqrtf(u2 * (1.0f - u2));
+  return {c1 * s, s1 * s, 1.0f - 2.0f * u2};
+}
+
+__device__ __forceinline__ V3 unit_hemisphere(V3 n, float u1, float u2) {
+  float s1, c1;
+  sin_cos_tau(u1, s1, c1);
+  float s = 2.0f * sqrtf(u2 * (1.0f - u2));
+  V3 t, b;
+  frame(n, t, b);
+  return t * (c1 * s) + b * (s1 * s) + n * (1.0f - u2);
+}
+
+__device__ __forceinline__ V3 cosine_hemisphere(V3 n, float u1, float u2) {
+  float s1, c1;
+  sin_cos_tau(u1, s1, c1);
+  float sq = sqrtf(u2);
+  V3 t, b;
+  frame(n, t, b);
+  return t * (c1 * sq) + b * (s1 * sq) + n * sqrtf(1.0f - u2);
+}
+
+// ---- BSDF vector math (utils/v3.py) -------------------------------------
+
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) { return d - n * (2.0f * dot(d, n)); }
+
+__device__ __forceinline__ V3 refract(V3 d, V3 n, float ior) {
+  float cos_theta = fminf(dot(-d, n), 1.0f);
+  V3 perp = (n * cos_theta + d) * ior;
+  V3 parallel = n * -sqrtf(fabsf(1.0f - dot(perp, perp)));
+  return perp + parallel;
+}
+
+__device__ __forceinline__ float fresnel(V3 d, V3 n, float ior) {
+  float cos_theta = fminf(dot(-d, n), 1.0f);
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  float c = 1.0f - cos_theta;
+  float c2 = c * c;
+  return r0 + (1.0f - r0) * (c * (c2 * c2));
+}
+
+// ---- intersection (ops/intersect.py) ------------------------------------
+
+__device__ __forceinline__ float sphere_t(V3 org, V3 dir, float cmin, float cmax, V3 center,
+                                          float radius) {
+  V3 oc = org - center;
+  float half_b = dot(oc, dir);
+  float c = dot(oc, oc) - radius * radius;
+  float disc = half_b * half_b - c;
+  if (!(disc >= 0.0f)) return INF;
+  float sq = sqrtf(disc);
+  float t_near = -half_b - sq;
+  float t_far = -half_b + sq;
+  if (t_near >= cmin && t_near <= cmax) return t_near;
+  if (t_far >= cmin && t_far <= cmax) return t_far;
+  return INF;
+}
+
+// t (+INF on miss); p = (c-o)·n, whose sign says the side
+__device__ __forceinline__ float rect_t(V3 org, V3 dir, float cmin, float cmax, V3 center, V3 xb,
+                                        V3 yb, V3 zb, float hw, float hh, float& p) {
+  float q = dot(dir, zb);
+  p = dot(center - org, zb);
+  float q_safe = fabsf(q) <= EPS_PAR ? 1.0f : q;
+  float t = p / q_safe;
+  V3 local = (org + dir * t) - center;
+  float lx = dot(local, xb);
+  float ly = dot(local, yb);
+  bool ok = fabsf(q) > EPS_PAR && t >= cmin && t <= cmax && lx * lx <= hw * hw && ly * ly <= hh * hh;
+  return ok ? t : INF;
+}
+
+// three-slab box (ops/intersect.py::box_t): t, p_sign (<0 = front) and
+// the normal the rect manifold expects
+__device__ __forceinline__ float box_t(V3 org, V3 dir, float cmin, float cmax, const float* row,
+                                       float& p_sign, V3& zb_like) {
+  float tnear = -INF, tfar = INF;
+  V3 near_n = {0.0f, 0.0f, 0.0f}, far_n = {0.0f, 0.0f, 0.0f};
+  float fr_near = 1.0f, fr_far = 1.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    V3 n_i = ld3(row + 3 * i);
+    float dlo = row[9 + i], dhi = row[12 + i];
+    float slo = row[15 + i], shi = row[18 + i];
+    float q = dot(dir, n_i);
+    float p = dot(org, n_i);
+    bool par = fabsf(q) <= EPS_PAR;
+    float inv = 1.0f / (par ? 1.0f : q);
+    float t1 = (dlo - p) * inv;
+    float t2 = (dhi - p) * inv;
+    float tno = fminf(t1, t2);
+    float tfo = fmaxf(t1, t2);
+    if (par) {
+      // parallel: between the planes -> slab is unbounded, else empty
+      bool inside = p >= dlo && p <= dhi;
+      tno = inside ? -INF : INF;
+      tfo = inside ? INF : -INF;
+    }
+    bool pos_q = q > 0.0f;
+    V3 oriented = n_i * (pos_q ? -1.0f : 1.0f);
+    if (tno > tnear) {
+      tnear = tno;
+      near_n = oriented;
+      fr_near = pos_q ? slo : -shi;
+    }
+    if (tfo < tfar) {
+      tfar = tfo;
+      far_n = oriented;
+      fr_far = pos_q ? shi : -slo;
+    }
+  }
+  bool nonempty = tnear <= tfar;
+  bool near_ok = nonempty && tnear >= cmin && tnear <= cmax;
+  bool far_ok = nonempty && tfar >= cmin && tfar <= cmax;
+  p_sign = near_ok ? fr_near : fr_far;
+  zb_like = (near_ok ? near_n : far_n) * (-p_sign);
+  return near_ok ? tnear : (far_ok ? tfar : INF);
+}
+
+struct Hit {
+  float t;
+  V3 position, normal;
+  int face, mtype;
+  V3 color;  // merged: emitted for Flat/Emissive, albedo otherwise
+  float rough, ior;
+};
+
+// nearest hit over spheres, traced rects, then boxes; a later primitive wins
+// only on a strictly smaller t (ops/intersect.py::nearest_hit + _manifold)
+__device__ __forceinline__ Hit nearest_hit(const float* tab, int n_sph, int n_rct, int n_box,
+                                           float cmin, float cmax, V3 org, V3 dir) {
+  float t_best = INF;
+  const float* win = nullptr;
+  int kind = 0;  // 0 sphere, 1 rect, 2 box
+  float c_p = 0.0f;
+  V3 c_zb = {0.0f, 0.0f, 0.0f};
+  const float* row = tab;
+  for (int k = 0; k < n_sph; ++k, row += SPH_COLS) {
+    float t = sphere_t(org, dir, cmin, cmax, ld3(row), row[3]);
+    if (t < t_best) {
+      t_best = t;
+      win = row;
+      kind = 0;
+    }
+  }
+  for (int k = 0; k < n_rct; ++k, row += RCT_COLS) {
+    float p;
+    float t = rect_t(org, dir, cmin, cmax, ld3(row), ld3(row + 3), ld3(row + 6), ld3(row + 9),
+                     row[12], row[13], p);
+    if (t < t_best) {
+      t_best = t;
+      win = row;
+      kind = 1;
+      c_p = p;
+      c_zb = ld3(row + 9);
+    }
+  }
+  for (int k = 0; k < n_box; ++k, row += BOX_COLS) {
+    float p_sign;
+    V3 zb_like;
+    float t = box_t(org, dir, cmin, cmax, row, p_sign, zb_like);
+    if (t < t_best) {
+      t_best = t;
+      win = row;
+      kind = 2;
+      c_p = p_sign;
+      c_zb = zb_like;
+    }
+  }
+  Hit h;
+  h.t = t_best;
+  h.face = -1;
+  h.mtype = 0;
+  h.position = org + dir * t_best;
+  h.normal = {0.0f, 0.0f, 0.0f};
+  h.color = {0.0f, 0.0f, 0.0f};
+  h.rough = 0.0f;
+  h.ior = 1.0f;
+  if (win == nullptr) return h;
+  if (kind == 0) {
+    // sphere manifold (sphere.rs:85-119)
+    float r = win[3];
+    V3 c = ld3(win);
+    V3 n = {(h.position.x - c.x) / r, (h.position.y - c.y) / r, (h.position.z - c.z) / r};
+    bool front = dot(dir, n) < 0.0f;
+    h.normal = front ? n : -n;
+    h.face = front ? FACE_FRONT : FACE_BACK;
+    h.mtype = (int)win[4];
+    h.color = ld3(win + 5);
+    h.rough = win[8];
+    h.ior = win[9];
+  } else {
+    // rect manifold (rect.rs:138-142); boxes share it
+    bool front = c_p < 0.0f;
+    h.normal = front ? c_zb : -c_zb;
+    h.face = front ? FACE_FRONT : FACE_BACK;
+    int m = kind == 1 ? 14 : 21;
+    h.mtype = (int)win[m];
+    h.color = ld3(win + m + 1);
+    h.rough = win[m + 4];
+    h.ior = win[m + 5];
+  }
+  return h;
+}
+
+// ---- lights (ops/materials.py::sample_light_point, intersect.light_pdf) --
+
+__device__ __forceinline__ V3 sample_light_point(const float* lrow, int n_face, float u_a, float u_b, float u_face) {
+  if (lrow[0] == 0.0f) return ld3(lrow + 1) + unit_sphere(u_a, u_b) * lrow[4];
+  // first valid face whose cdf exceeds u_face
+  for (int f = 0; f < n_face; ++f) {
+    const float* fr = lrow + LIGHT_HEAD + LIGHT_FACE_COLS * f;
+    if (fr[22] > 0.0f && u_face < fr[21]) {
+      float x = (u_a * 2.0f - 1.0f) * fr[18];
+      float y = (u_b * 2.0f - 1.0f) * fr[19];
+      return ld3(fr) + ld3(fr + 3) * x + ld3(fr + 6) * y;
+    }
+  }
+  return {0.0f, 0.0f, 0.0f};
+}
+
+__device__ __forceinline__ float light_pdf(const float* lrow, int n_face, V3 org, V3 dir, float cmin, float cmax) {
+  if (lrow[0] == 0.0f) {
+    float r = lrow[4];
+    float t = sphere_t(org, dir, cmin, cmax, ld3(lrow + 1), r);
+    return t < INF ? t * t / (PI_F * r * r) : 0.0f;
+  }
+  float t_b = INF, q_b = 1.0f, area_b = 1.0f;
+  for (int f = 0; f < n_face; ++f) {
+    const float* fr = lrow + LIGHT_HEAD + LIGHT_FACE_COLS * f;
+    if (!(fr[22] > 0.0f)) continue;
+    V3 zb = ld3(fr + 15);
+    float p;
+    // containment bases are the inverse-transposed ones (ux, uy)
+    float t = rect_t(org, dir, cmin, cmax, ld3(fr), ld3(fr + 9), ld3(fr + 12), zb, fr[18], fr[19], p);
+    if (t < t_b) {
+      t_b = t;
+      q_b = dot(dir, zb);
+      area_b = fr[20];
+    }
+  }
+  return t_b < INF ? t_b * t_b / (area_b * fabsf(q_b)) : 0.0f;
+}
+
+// normalized, clamped per-sample depth; the +INF of an unclaimed or
+// emissive-environment sample clamps to 1, and NaN passes through, as jnp.clip
+__device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den) {
+  float x = (d - clip_min) / dep_den;
+  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+}
+
+template <bool AOVS>
+__global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
+  extern __shared__ float tab[];
+  for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) tab[i] = P.table[i];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P.n) return;  // ragged last block
+
+  const float* lights = tab + P.n_sph * SPH_COLS + P.n_rct * RCT_COLS + P.n_box * BOX_COLS;
+  const int lstride = LIGHT_HEAD + LIGHT_FACE_COLS * P.n_face;
+  const float* env = lights + P.n_light * lstride;
+  const int env_m = (int)env[0];
+  const bool env_const = env_m == MAT_FLAT || env_m == MAT_EMISSIVE;
+  const V3 env_color = env_const ? ld3(env + 4) : ld3(env + 1);
+
+  // camera (pack_camera_host layout)
+  const float* cam = P.cam;
+  const float focal = cam[1], aspect = cam[2], fstop = cam[3], focus = cam[4], yfov = cam[5];
+  const float* R = cam + 6;
+  const V3 cam_t = ld3(cam + 15);
+  const bool dof = (P.flags & FLAG_DOF) && focus > 0.0f;
+
+  const uint32_t pixv = (uint32_t)P.pix[lane], subv = (uint32_t)P.sub[lane];
+  const int n = P.subsample > 1 ? P.subsample : 1;
+  const uint32_t nn = (uint32_t)(n * n);
+  const float px = (float)(pixv % (uint32_t)P.width), py = (float)(pixv / (uint32_t)P.width);
+  const float si = (float)(subv % (uint32_t)n), sj = (float)(subv / (uint32_t)n);
+  const float u_base = px * P.pw - 1.0f + (si / (float)n) * P.pw;
+  const float v_base = py * P.ph - 1.0f + (sj / (float)n) * P.ph;
+
+  int sample = -1, path_step = 0, bounce = 0, rays = 0, it = 0;
+  bool alive = false, path_open = false, aov_open = false;
+  uint32_t sid = 0;
+  V3 org = {0.0f, 0.0f, 0.0f}, dir = {0.0f, 0.0f, -1.0f};
+  V3 thr = {0.0f, 0.0f, 0.0f}, rad = {0.0f, 0.0f, 0.0f}, acc_rad = {0.0f, 0.0f, 0.0f};
+  V3 aov_alb = {0.0f, 0.0f, 0.0f}, aov_nrm = {0.0f, 0.0f, 0.0f};
+  V3 acc_alb = {0.0f, 0.0f, 0.0f}, acc_nrm = {0.0f, 0.0f, 0.0f};
+  float aov_dep = INF, acc_dep = 0.0f;
+
+  for (; it < P.max_iters; ++it) {
+    if (!alive) {
+      if (sample + 1 >= P.spp) break;  // this lane is done
+      // === finalize the dead path, regenerate a camera ray ==============
+      if (path_open) {
+        acc_rad = acc_rad + rad;
+        if (AOVS) {
+          acc_alb = acc_alb + aov_alb;
+          acc_nrm = acc_nrm + aov_nrm;
+          acc_dep = acc_dep + depth_n(aov_dep, P.clip_min, P.dep_den);
+        }
+      }
+      ++sample;
+      path_open = true;
+      path_step = 0;
+      sid = (pixv * P.spp_total + (P.sample0 + (uint32_t)sample)) * nn + subv;
+      float uj[4];
+      uniforms4(sid, CAMERA_TAG, 0u, P.key0, P.key1, uj);
+      float u = u_base + (uj[0] - 0.5f) * P.pw_n;
+      float v = v_base + (uj[1] - 0.5f) * P.ph_n;
+      float xfov = yfov * aspect;
+      float yrot = xfov * 0.5f * -u;
+      float xrot = yfov * 0.5f * -v;
+      float sin_x, cos_x, sin_y, cos_y;
+      if (P.flags & FLAG_POLY) {
+        sin_cos_small(xrot, sin_x, cos_x);
+        sin_cos_small(yrot, sin_y, cos_y);
+      } else {
+        sin_x = sinf(xrot);
+        cos_x = cosf(xrot);
+        sin_y = sinf(yrot);
+        cos_y = cosf(yrot);
+      }
+      V3 d_fr = {-cos_x * sin_y, sin_x, -cos_x * cos_y};
+      V3 d_world = normalize(V3{R[0] * d_fr.x + R[1] * d_fr.y + R[2] * d_fr.z,
+                                R[3] * d_fr.x + R[4] * d_fr.y + R[5] * d_fr.z,
+                                R[6] * d_fr.x + R[7] * d_fr.y + R[8] * d_fr.z});
+      org = cam_t;
+      dir = d_world;
+      if (dof) {
+        // thin lens: unit disk about -Z is (cos, -sin, 0)·r
+        float s1, c1;
+        sin_cos_tau(uj[2], s1, c1);
+        float aperture = 0.5f * focal / fstop;
+        float dx = (c1 * uj[3]) * aperture;
+        float dy = (-s1 * uj[3]) * aperture;
+        V3 off = {R[0] * dx + R[1] * dy, R[3] * dx + R[4] * dy, R[6] * dx + R[7] * dy};
+        float frac = focus / fabsf(d_fr.z);
+        org = cam_t + off;
+        dir = normalize(d_world * frac - off);
+      }
+      thr = {1.0f, 1.0f, 1.0f};
+      rad = {0.0f, 0.0f, 0.0f};
+      bounce = 0;
+      alive = true;
+      if (AOVS) {
+        aov_open = true;
+        aov_alb = {0.0f, 0.0f, 0.0f};
+        aov_nrm = {0.0f, 0.0f, 0.0f};
+        aov_dep = INF;
+      }
+    }
+    // === bounce-cap kill at path entry (tracer/mod.rs:323-325) ===========
+    if (bounce > P.max_bounces) {
+      alive = false;
+      ++path_step;
+      continue;
+    }
+    ++rays;
+    Hit h = nearest_hit(tab, P.n_sph, P.n_rct, P.n_box, P.clip_min, P.clip_max, org, dir);
+    if (h.face < 0) {
+      // === miss: environment (tracer/mod.rs:429-452) =====================
+      rad = rad + thr * env_color;
+      if (AOVS && aov_open) {
+        aov_alb = env_const ? V3{0.0f, 0.0f, 0.0f} : env_color;
+        aov_nrm = env_m == MAT_EMISSIVE ? V3{0.0f, 0.0f, 0.0f} : -dir;
+        aov_dep = env_m == MAT_EMISSIVE ? INF : P.clip_max;
+        aov_open = false;
+      }
+      alive = false;
+      ++path_step;
+      continue;
+    }
+    // === shade the surface (ops/materials.py::shade_surface) =============
+    float u[4];
+    uniforms4(sid, (uint32_t)path_step, 0u, P.key0, P.key1, u);
+    const V3 n = h.normal;
+    bool scatter = false;
+    V3 weight = h.color, new_dir = dir;
+    if (h.mtype == MAT_DIFFUSE && (P.flags & FLAG_DIFFUSE)) {
+      float u45[4];
+      uniforms4(sid, (uint32_t)path_step, 1u, P.key0, P.key1, u45);
+      const int nl = P.n_light;
+      float scaled = u[0] * (float)nl;
+      int li = (int)scaled;  // truncation toward zero, as astype(int32)
+      li = li < 0 ? 0 : (li > nl - 1 ? nl - 1 : li);
+      float u_face = scaled - floorf(scaled);
+      const float* lrow = lights + li * lstride;
+      V3 d_cos = cosine_hemisphere(n, u[2], u[3]);
+      V3 lp = sample_light_point(lrow, P.n_face, u45[0], u45[1], u_face);
+      V3 d_light = normalize(lp - h.position);
+      V3 d_diff = u[1] < 0.5f ? d_light : d_cos;
+      float pdf_cos = dot(n, d_diff) * (float)(1.0 / 3.14159265358979323846);
+      float pdf_light = light_pdf(lrow, P.n_face, h.position, d_diff, P.clip_min, P.clip_max);
+      float pdf_mix = pdf_cos + (pdf_light - pdf_cos) * 0.5f;
+      scatter = !(fabsf(pdf_mix) <= EPS_PAR);  // |shader_pdf| <= 1e-5 absorbs
+      weight = h.color * (pdf_cos / (scatter ? pdf_mix : 1.0f));
+      new_dir = d_diff;
+    } else if (h.mtype == MAT_METALLIC && (P.flags & FLAG_METALLIC)) {
+      V3 fuzz = unit_hemisphere(n, u[2], u[3]);
+      new_dir = normalize(reflect(dir, n) + fuzz * h.rough);
+      scatter = true;
+    } else if (h.mtype == MAT_GLASS && (P.flags & FLAG_GLASS)) {
+      V3 fuzz = unit_hemisphere(n, u[2], u[3]);
+      float ior_eff = h.face == FACE_FRONT ? 1.0f / h.ior : h.ior;
+      float cos_theta = fminf(dot(-dir, n), 1.0f);
+      float sin_theta = sqrtf(fmaxf(1.0f - cos_theta * cos_theta, 0.0f));
+      float fr = fresnel(dir, n, ior_eff);
+      bool do_reflect = ior_eff * sin_theta > 1.0f || u[1] < fr;
+      V3 base = do_reflect ? reflect(dir, n) : refract(dir, n, ior_eff);
+      new_dir = normalize(base + fuzz * h.rough);
+      scatter = true;
+    }
+    const bool emitting = h.mtype == MAT_FLAT || h.mtype == MAT_EMISSIVE;
+    if (emitting) rad = rad + thr * h.color;
+    if (AOVS && aov_open) {
+      aov_alb = scatter ? h.color : (emitting ? h.color : V3{0.0f, 0.0f, 0.0f});
+      aov_nrm = scatter ? n : V3{0.0f, 0.0f, 0.0f};
+      aov_dep = scatter ? h.t : INF;
+      aov_open = false;
+    }
+    if (scatter) {
+      thr = thr * weight;
+      org = h.position;
+      dir = new_dir;
+      ++bounce;
+    } else {
+      alive = false;
+    }
+    ++path_step;
+  }
+
+  // fold in the lane's last completed path
+  if (!alive && path_open) {
+    acc_rad = acc_rad + rad;
+    if (AOVS) {
+      acc_alb = acc_alb + aov_alb;
+      acc_nrm = acc_nrm + aov_nrm;
+      acc_dep = acc_dep + depth_n(aov_dep, P.clip_min, P.dep_den);
+    }
+  }
+  const int N = P.n;
+  P.out[lane] = acc_rad.x;
+  P.out[N + lane] = acc_rad.y;
+  P.out[2 * N + lane] = acc_rad.z;
+  if (AOVS) {
+    P.out[3 * N + lane] = acc_alb.x;
+    P.out[4 * N + lane] = acc_alb.y;
+    P.out[5 * N + lane] = acc_alb.z;
+    P.out[6 * N + lane] = acc_nrm.x;
+    P.out[7 * N + lane] = acc_nrm.y;
+    P.out[8 * N + lane] = acc_nrm.z;
+    P.out[9 * N + lane] = acc_dep;
+  }
+  P.rays[lane] = rays;
+  P.iters[lane] = it;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+int bendy_trace_surface(const void* table, int table_floats, const void* cam, const void* pix,
+                        const void* sub, void* out, void* rays, void* iters, int n, int width,
+                        int height, int spp, int subsample, unsigned spp_total, unsigned key0,
+                        unsigned key1, unsigned sample0, int max_bounces, int max_iters,
+                        float clip_min, float clip_max, int flags, int n_sph, int n_rct,
+                        int n_box, int n_light, int n_face, int want_aovs, void* stream) {
+  Params P;
+  P.table = static_cast<const float*>(table);
+  P.cam = static_cast<const float*>(cam);
+  P.pix = static_cast<const int32_t*>(pix);
+  P.sub = static_cast<const int32_t*>(sub);
+  P.out = static_cast<float*>(out);
+  P.rays = static_cast<int32_t*>(rays);
+  P.iters = static_cast<int32_t*>(iters);
+  P.n = n;
+  P.table_floats = table_floats;
+  P.width = width;
+  P.height = height;
+  P.spp = spp;
+  P.subsample = subsample;
+  P.spp_total = spp_total;
+  P.key0 = key0;
+  P.key1 = key1;
+  P.sample0 = sample0;
+  P.max_bounces = max_bounces;
+  P.max_iters = max_iters;
+  P.flags = flags;
+  P.clip_min = clip_min;
+  P.clip_max = clip_max;
+  // the reference's Python-double constants, rounded once to f32
+  P.dep_den = (float)((double)clip_max - (double)clip_min);
+  const int ns = subsample > 1 ? subsample : 1;
+  P.pw = (float)(2.0 / width);
+  P.ph = (float)(2.0 / height);
+  P.pw_n = (float)(2.0 / width / ns);
+  P.ph_n = (float)(2.0 / height / ns);
+  P.n_sph = n_sph;
+  P.n_rct = n_rct;
+  P.n_box = n_box;
+  P.n_light = n_light;
+  P.n_face = n_face;
+  const size_t smem = (size_t)table_floats * sizeof(float);
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (want_aovs) {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(trace_surface_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    trace_surface_kernel<true><<<blocks, threads, smem, s>>>(P);
+  } else {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(trace_surface_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    trace_surface_kernel<false><<<blocks, threads, smem, s>>>(P);
+  }
+  // a launch refused for registers or shared memory never runs, and a later
+  // synchronize() does not report it: the wrapper raises on this code
+  return (int)cudaGetLastError();
+}
+
+const char* bendy_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,334 @@
+"""Batched, branchless primitive intersection: the unrolled sweep.
+
+Counterpart of ``bendy_tpu/ops/intersect.py`` (its unrolled subset). The
+nearest hit is a Python loop over the compiled primitive rows; the running
+winner's attributes are carried through ``torch.where`` selects of 0-d
+scene scalars, so each lane ends with the winning primitive's geometry and
+material. The plain path of the CUDA tracer (:mod:`.trace_kernel`); the
+kernel runs the same sweep per thread over the tables in shared memory.
+
+Face codes (``src/tracer/ray.rs:8-15``):
+    0 FRONT, 1 BACK, 2 VOLUME, 3 VOLUME_FRONT, 4 VOLUME_BACK.  MISS = -1.
+
+Formulas:
+- sphere: half-b quadratic, near root preferred, far root fallback within
+  clip (``src/scene/object/sphere.rs:121-148``),
+- rect: plane hit t = ((c-o)·n)/(d·n) with |d·n| <= 1e-5 parallel reject
+  and in-plane containment via basis projection
+  (``src/scene/object/rect.rs:110-142``); front when (c-o)·n < 0,
+- box: three slabs in place of six rect faces, same hits and face codes
+  (``src/scene/object/cuboid.rs:83-105``).
+
+Not ported yet: the volume march pseudo-hit and volume carries (surface
+mode only), and the looped table sweeps (``nearest_hit_looped``,
+``light_pdf_looped``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import math
+
+import torch
+
+from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
+from bendy_tpu_torch.utils.v3 import V3
+
+INF = math.inf
+
+FACE_FRONT = 0
+FACE_BACK = 1
+FACE_VOLUME = 2
+FACE_VOLUME_FRONT = 3
+FACE_VOLUME_BACK = 4
+FACE_MISS = -1
+
+
+def row3(a: torch.Tensor, k) -> V3:
+    """Row ``k`` of an [N,3] tensor as a V3 of 0-d tensors."""
+    return V3(a[k, 0], a[k, 1], a[k, 2])
+
+
+class Hit(NamedTuple):
+    """Nearest-hit record for a batch of lanes, with the winning
+    primitive's material baked in."""
+
+    t: torch.Tensor  # [B] distance, +inf on miss
+    valid: torch.Tensor  # [B] bool
+    position: V3
+    normal: V3
+    face: torch.Tensor  # [B] int32 face code
+    mtype: torch.Tensor  # [B] int32 material code
+    albedo: V3  # valid on scattering kinds only: Flat/Emissive winners
+    #   carry their *emitted* color here (one merged color per primitive)
+    rough: torch.Tensor  # [B]
+    ior: torch.Tensor  # [B]
+    emitted: V3
+
+
+def sphere_t(org: V3, dir: V3, cmin, cmax, center: V3, radius) -> torch.Tensor:
+    """Hit distance against one sphere, +inf on miss."""
+    oc = org - center
+    half_b = oc.dot(dir)
+    c = oc.length_squared() - radius * radius
+    disc = half_b * half_b - c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t_near = -half_b - sq
+    t_far = -half_b + sq
+    near_ok = (t_near >= cmin) & (t_near <= cmax)
+    far_ok = (t_far >= cmin) & (t_far <= cmax)
+    t = torch.where(near_ok, t_near, torch.where(far_ok, t_far, INF))
+    return torch.where(disc >= 0.0, t, INF)
+
+
+def rect_t(org: V3, dir: V3, cmin, cmax, center: V3, xb: V3, yb: V3, zb: V3,
+           hw, hh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(t, p) against one rect; t=+inf on miss, p = (c-o)·n plane-side sign."""
+    q = dir.dot(zb)
+    p = (center - org).dot(zb)
+    q_safe = torch.where(torch.abs(q) <= 1e-5, 1.0, q)
+    t = p / q_safe
+    local = org + dir * t - center
+    lx = local.dot(xb)
+    ly = local.dot(yb)
+    ok = (
+        (torch.abs(q) > 1e-5)
+        & (t >= cmin)
+        & (t <= cmax)
+        & (lx * lx <= hw * hw)
+        & (ly * ly <= hh * hh)
+    )
+    return torch.where(ok, t, INF), p
+
+
+def box_t(org: V3, dir: V3, cmin, cmax, bn, bdlo, bdhi, bslo, bshi):
+    """(t, p_sign, zb_like) against one three-slab box; t=+inf on miss.
+
+    Slab i admits n_i·(o + t·d) in [dlo_i, dhi_i]; the winner is the entry
+    plane (tnear in clip) or else the exit plane. Parallel slabs
+    (|d·n| <= 1e-5) pass freely when the origin lies between the planes.
+    The face code follows the winning face's stored orientation (baked
+    ``bslo``/``bshi`` signs); p_sign < 0 means front, and zb_like is the
+    normal the rect manifold expects (it negates it on back faces).
+    """
+    B = org.x.shape
+    dev = org.x.device
+    tnear = torch.full(B, -INF, device=dev)
+    tfar = torch.full(B, INF, device=dev)
+    near_n = V3.zeros(B, dev)
+    far_n = V3.zeros(B, dev)
+    fr_near = torch.ones(B, device=dev)
+    fr_far = torch.ones(B, device=dev)
+    for i in range(3):
+        n_i = V3(bn[i, 0], bn[i, 1], bn[i, 2])
+        q = dir.dot(n_i)
+        p = org.dot(n_i)
+        par = torch.abs(q) <= 1e-5
+        inv = 1.0 / torch.where(par, 1.0, q)
+        t1 = (bdlo[i] - p) * inv
+        t2 = (bdhi[i] - p) * inv
+        tno = torch.minimum(t1, t2)
+        tfo = torch.maximum(t1, t2)
+        inside = (p >= bdlo[i]) & (p <= bdhi[i])
+        # parallel: between the planes -> slab is unbounded, else empty
+        tno = torch.where(par, torch.where(inside, -INF, INF), tno)
+        tfo = torch.where(par, torch.where(inside, INF, -INF), tfo)
+        pos_q = q > 0.0
+        oriented = n_i * torch.where(pos_q, -1.0, 1.0)
+        # front iff sign(q)·sigma_winning_plane == -1: q>0 enters through
+        # the lo plane and exits through hi
+        sgn_entry = torch.where(pos_q, bslo[i], -bshi[i])
+        sgn_exit = torch.where(pos_q, bshi[i], -bslo[i])
+        upd_n = tno > tnear
+        upd_f = tfo < tfar
+        tnear = torch.where(upd_n, tno, tnear)
+        near_n = V3.where(upd_n, oriented, near_n)
+        fr_near = torch.where(upd_n, sgn_entry, fr_near)
+        tfar = torch.where(upd_f, tfo, tfar)
+        far_n = V3.where(upd_f, oriented, far_n)
+        fr_far = torch.where(upd_f, sgn_exit, fr_far)
+    nonempty = tnear <= tfar
+    near_ok = nonempty & (tnear >= cmin) & (tnear <= cmax)
+    far_ok = nonempty & (tfar >= cmin) & (tfar <= cmax)
+    t = torch.where(near_ok, tnear, torch.where(far_ok, tfar, INF))
+    p_sign = torch.where(near_ok, fr_near, fr_far)  # <0 = front
+    winning_n = V3.where(near_ok, near_n, far_n)
+    zb_like = winning_n * (-p_sign)
+    return t, p_sign, zb_like
+
+
+def _prim_color(mtype, albedo: V3, emitted: V3) -> V3:
+    """The one rgb a primitive's shading can read: ``emitted`` for the
+    terminating kinds (Flat, Emissive), ``albedo`` for scattering kinds."""
+    is_em = (mtype == MAT_FLAT) | (mtype == MAT_EMISSIVE)
+    return V3.where(is_em, emitted, albedo)
+
+
+def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
+    """Nearest hit across all primitives for each lane: spheres, then the
+    traced rects, then boxes, each replacing the winner on a strictly
+    smaller t."""
+    B = org.x.shape
+    dev = org.x.device
+    zero = torch.zeros(B, device=dev)
+    i0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    has_sph = scn.n_spheres > 0
+    has_rct = scn.n_trace_rects > 0 or scn.n_boxes > 0
+
+    t_best = torch.full(B, INF, device=dev)
+    is_sph = torch.zeros(B, dtype=torch.bool, device=dev)
+    c_center = V3(zero, zero, zero)
+    c_radius = zero + 1.0
+    c_zb = V3(zero, zero, zero)
+    c_p = zero
+    c_mtype = i0
+    c_color = V3(zero, zero, zero)
+    c_rough = zero
+    c_ior = zero + 1.0
+
+    def take(better, mtype, color, rough, ior):
+        nonlocal c_mtype, c_color, c_rough, c_ior
+        c_mtype = torch.where(better, mtype, c_mtype)
+        c_color = V3.where(better, color, c_color)
+        c_rough = torch.where(better, rough, c_rough)
+        c_ior = torch.where(better, ior, c_ior)
+
+    for k in range(scn.n_spheres):
+        center = row3(scn.sph_center, k)
+        radius = scn.sph_radius[k]
+        t_k = sphere_t(org, dir, cmin, cmax, center, radius)
+        better = t_k < t_best
+        t_best = torch.where(better, t_k, t_best)
+        is_sph = is_sph | better
+        c_center = V3.where(better, center, c_center)
+        c_radius = torch.where(better, radius, c_radius)
+        take(better, scn.sph_mtype[k],
+             _prim_color(scn.sph_mtype[k], row3(scn.sph_albedo, k),
+                         row3(scn.sph_emitted, k)),
+             scn.sph_rough[k], scn.sph_ior[k])
+
+    for k in range(scn.n_trace_rects):
+        zb = row3(scn.rct_z, k)
+        t_k, p_k = rect_t(
+            org, dir, cmin, cmax, row3(scn.rct_center, k),
+            row3(scn.rct_x, k), row3(scn.rct_y, k), zb,
+            scn.rct_hw[k], scn.rct_hh[k],
+        )
+        better = t_k < t_best
+        t_best = torch.where(better, t_k, t_best)
+        is_sph = is_sph & ~better
+        c_zb = V3.where(better, zb, c_zb)
+        c_p = torch.where(better, p_k, c_p)
+        take(better, scn.rct_mtype[k],
+             _prim_color(scn.rct_mtype[k], row3(scn.rct_albedo, k),
+                         row3(scn.rct_emitted, k)),
+             scn.rct_rough[k], scn.rct_ior[k])
+
+    for k in range(scn.n_boxes):
+        t_k, p_k, zb_k = box_t(
+            org, dir, cmin, cmax, scn.box_n[k], scn.box_dlo[k], scn.box_dhi[k],
+            scn.box_sgn_lo[k], scn.box_sgn_hi[k],
+        )
+        better = t_k < t_best
+        t_best = torch.where(better, t_k, t_best)
+        is_sph = is_sph & ~better
+        c_zb = V3.where(better, zb_k, c_zb)
+        c_p = torch.where(better, p_k, c_p)
+        take(better, scn.box_mtype[k],
+             _prim_color(scn.box_mtype[k], row3(scn.box_albedo, k),
+                         row3(scn.box_emitted, k)),
+             scn.box_rough[k], scn.box_ior[k])
+
+    return _manifold(org, dir, t_best, is_sph, c_center, c_radius, c_zb, c_p,
+                     c_mtype, c_color, c_rough, c_ior, has_sph, has_rct)
+
+
+def _manifold(org: V3, dir: V3, t_best, is_sph, c_center, c_radius, c_zb, c_p,
+              c_mtype, c_color, c_rough, c_ior, has_sph: bool,
+              has_rct: bool) -> Hit:
+    """Winner carries -> Hit record: face codes, oriented normals, and the
+    (albedo, emitted) split of the merged color carry."""
+    B = org.x.shape
+    dev = org.x.device
+    valid = torch.isfinite(t_best)
+    position = org + dir * t_best
+    miss = torch.full(B, FACE_MISS, dtype=torch.int32, device=dev)
+    normal = V3.zeros(B, dev)
+    face = miss
+
+    if has_rct:
+        # rect manifold (``rect.rs:138-142``)
+        r_front = c_p < 0.0
+        normal = V3.where(r_front, c_zb, -c_zb)
+        face = torch.where(valid, torch.where(r_front, FACE_FRONT, FACE_BACK), miss)
+    if has_sph:
+        # sphere manifold (``sphere.rs:85-119``)
+        s_normal = (position - c_center) / c_radius
+        s_front = dir.dot(s_normal) < 0.0
+        s_normal = V3.where(s_front, s_normal, -s_normal)
+        s_face = torch.where(s_front, FACE_FRONT, FACE_BACK)
+        normal = V3.where(is_sph, s_normal, normal) if has_rct else s_normal
+        face = torch.where(valid & (is_sph | (not has_rct)), s_face, face)
+    face = face.to(torch.int32)
+
+    # emitted is the merged color for terminating kinds and zero for
+    # scattering kinds; albedo is only read on scattering lanes
+    emitting = ((c_mtype == MAT_FLAT) | (c_mtype == MAT_EMISSIVE)).to(torch.float32)
+    return Hit(
+        t=t_best,
+        valid=valid,
+        position=position,
+        normal=normal,
+        face=face,
+        mtype=c_mtype,
+        albedo=c_color,
+        rough=c_rough,
+        ior=c_ior,
+        emitted=c_color * emitting,
+    )
+
+
+def light_pdf(org: V3, dir: V3, cmin, cmax, scn: SceneArrays,
+              light_idx: torch.Tensor) -> torch.Tensor:
+    """Area-form pdf of direction ``dir`` toward light ``light_idx``.
+
+    Matches ``light_pdf`` (``src/scene/data/material.rs:313-316``) and the
+    per-shape pdfs: sphere t²/(πr²) (``sphere.rs:44-61``), rect
+    t²/(area·|d·n|) (``rect.rs:92-108``), cuboid = nearest face's pdf
+    (``cuboid.rs:56-81``); 0 when the ray misses the light. The light kind
+    and face validity are read from the host tables, so each light
+    evaluates only its own shape (the values are unchanged).
+    """
+    host = scn.host_copy()
+    B = org.x.shape
+    dev = org.x.device
+    pdf = torch.zeros(B, device=dev)
+    for li in range(scn.n_lights):
+        sel = light_idx == li
+        if int(host.light_kind[li]) == 0:
+            r = scn.light_sph_radius[li]
+            t_s = sphere_t(org, dir, cmin, cmax, row3(scn.light_sph_center, li), r)
+            pdf_l = torch.where(torch.isfinite(t_s), t_s * t_s / (math.pi * r * r), 0.0)
+        else:
+            t_b = torch.full(B, INF, device=dev)
+            q_b = torch.ones(B, device=dev)
+            area_b = torch.ones(B, device=dev)
+            for f in range(scn.light_face_cdf.shape[1]):
+                if not host.light_face_valid[li, f]:
+                    continue
+                zb = row3(scn.light_face_z[li], f)
+                # containment bases are the inverse-transposed ones
+                t_f, _ = rect_t(
+                    org, dir, cmin, cmax, row3(scn.light_face_center[li], f),
+                    row3(scn.light_face_ux[li], f), row3(scn.light_face_uy[li], f),
+                    zb, scn.light_face_hw[li, f], scn.light_face_hh[li, f],
+                )
+                better = t_f < t_b
+                t_b = torch.where(better, t_f, t_b)
+                q_b = torch.where(better, dir.dot(zb), q_b)
+                area_b = torch.where(better, scn.light_face_area[li, f], area_b)
+            pdf_l = torch.where(torch.isfinite(t_b),
+                                t_b * t_b / (area_b * torch.abs(q_b)), 0.0)
+        pdf = torch.where(sel, pdf_l, pdf)
+    return pdf

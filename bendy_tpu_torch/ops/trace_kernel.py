@@ -1,0 +1,283 @@
+"""The surface tracer as one CUDA kernel per pass, and its launch glue.
+
+Counterpart of ``bendy_tpu/ops/pallas_trace.py``: ``make_tracer`` stands
+for ``make_pallas_tracer`` and ``make_render_pass`` for
+``make_pallas_render_pass``. The kernel is ``csrc/trace_surface.cu``, a
+hand-written CUDA C++ kernel for sm_90a that runs the whole regenerating
+wavefront loop of :func:`bendy_tpu_torch.ops.wavefront.trace_core`, one
+thread per lane. That function is its plain version.
+
+Dispatch is by the device of the lane tensors, with no fallback: CUDA
+tensors launch the kernel (a build or launch failure raises), CPU tensors
+run the plain version, anything else raises.
+
+The scene is not baked into the kernel (the TPU kernel recompiles on any
+scene value change): :func:`scene_table` flattens the compiled tables into
+one f32 buffer with run-time counts, which the kernel stages into shared
+memory. Lanes are fed row-major; the reference's tile-major lane order
+(``tile_perm``) changes no pixel and is left as scheduling work.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bendy_tpu_torch.ops.camera import CameraParams
+from bendy_tpu_torch.ops.wavefront import TraceConfig, TraceSums, check_trace_args, trace_core
+from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
+from bendy_tpu_torch.utils.rng import render_key
+from bendy_tpu_torch.utils.v3 import V3
+
+N_OUT = 10  # rx ry rz ax ay az nx ny nz dep
+MAX_TABLE_BYTES = 227 * 1024  # shared memory one block can use on sm_90
+
+# kernel flag bits (csrc/trace_surface.cu FLAG_*)
+FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY = 1, 2, 4, 8, 16
+
+
+def pack_camera_host(sensor, focal, aspect, fstop, focus, yfov,
+                     rotation, translation) -> np.ndarray:
+    """Camera scalars -> [1,32] f32 (the layout of ``bendy_tpu``'s packed
+    camera: scalars, row-major rotation, translation); keep in lockstep
+    with :func:`unpack_camera` and the kernel's reads."""
+    vec = np.zeros((1, 32), np.float32)
+    vec[0, :6] = [sensor, focal, aspect, fstop, focus, yfov]
+    vec[0, 6:15] = np.asarray(rotation, np.float32).reshape(-1)
+    vec[0, 15:18] = np.asarray(translation, np.float32)
+    return vec
+
+
+def unpack_camera(v: torch.Tensor) -> CameraParams:
+    return CameraParams(
+        sensor_size=v[0, 0],
+        focal_length=v[0, 1],
+        aspect_ratio=v[0, 2],
+        fstop=v[0, 3],
+        focus=v[0, 4],
+        rotation=v[0, 6:15].reshape(3, 3),
+        translation=v[0, 15:18],
+        yfov=v[0, 5],
+    )
+
+
+def pack_aux(key: tuple, sample0: int = 0, n_valid: int = 0) -> np.ndarray:
+    """(key0, key1, sample0, n_valid) as the reference's [1,8] u32 aux row."""
+    aux = np.zeros((1, 8), np.uint32)
+    aux[0, :4] = [key[0], key[1], sample0, n_valid]
+    return aux
+
+
+def scene_table(host: SceneArrays) -> tuple[np.ndarray, dict]:
+    """Compiled scene -> (flat f32 table, counts) for the kernel.
+
+    Blocks in order, row-major, unpadded (the column layouts of the
+    reference's ``intersect.prim_tables``; csrc/trace_surface.cu reads
+    them by these offsets):
+      sph   [Ns,15]: center xyz, radius, mtype, merged color rgb, rough,
+                     ior, vol_grid, vol_size xyz, valid
+      rct   [Nt,21]: center xyz, x-basis xyz, y-basis xyz, z-basis xyz, hw,
+                     hh, mtype, merged color rgb, rough, ior, valid
+      box   [Nb,28]: slab normals 3x3, dlo xyz, dhi xyz, sgn_lo xyz, sgn_hi
+                     xyz, mtype, merged color rgb, rough, ior, valid
+      light [L,5+23F]: kind, sphere center xyz, radius, then per face:
+                     center, fx, fy, ux, uy, z (xyz each), hw, hh, area,
+                     cdf, valid
+      env   [7]:     root mtype, albedo rgb, emitted rgb
+    The merged color is ``emitted`` for Flat/Emissive and ``albedo``
+    otherwise (the one rgb shading reads, ``intersect._prim_color``).
+    """
+    f32 = np.float32
+
+    def merged(mtype, albedo, emitted):
+        is_em = (mtype == MAT_FLAT) | (mtype == MAT_EMISSIVE)
+        return np.where(is_em[:, None], emitted, albedo)
+
+    def col(a):
+        return np.asarray(a, f32)[:, None]
+
+    ns, nt, nb, nl = (host.sph_radius.shape[0], host.rct_traced.shape[0],
+                      host.box_rough.shape[0], host.light_kind.shape[0])
+    F = host.light_face_cdf.shape[1]
+    sph = np.concatenate([
+        host.sph_center, col(host.sph_radius), col(host.sph_mtype),
+        merged(host.sph_mtype, host.sph_albedo, host.sph_emitted),
+        col(host.sph_rough), col(host.sph_ior), col(host.sph_vol_grid),
+        host.sph_vol_size, np.ones((ns, 1), f32),
+    ], axis=1)
+    r = slice(0, nt)
+    rct = np.concatenate([
+        host.rct_center[r], host.rct_x[r], host.rct_y[r], host.rct_z[r],
+        col(host.rct_hw[r]), col(host.rct_hh[r]), col(host.rct_mtype[r]),
+        merged(host.rct_mtype[r], host.rct_albedo[r], host.rct_emitted[r]),
+        col(host.rct_rough[r]), col(host.rct_ior[r]), np.ones((nt, 1), f32),
+    ], axis=1)
+    box = np.concatenate([
+        host.box_n.reshape(nb, 9), host.box_dlo, host.box_dhi, host.box_sgn_lo,
+        host.box_sgn_hi, col(host.box_mtype),
+        merged(host.box_mtype, host.box_albedo, host.box_emitted),
+        col(host.box_rough), col(host.box_ior), np.ones((nb, 1), f32),
+    ], axis=1)
+    light_cols = [col(host.light_kind), host.light_sph_center, col(host.light_sph_radius)]
+    for f in range(F):
+        light_cols += [
+            host.light_face_center[:, f], host.light_face_x[:, f],
+            host.light_face_y[:, f], host.light_face_ux[:, f],
+            host.light_face_uy[:, f], host.light_face_z[:, f],
+            col(host.light_face_hw[:, f]), col(host.light_face_hh[:, f]),
+            col(host.light_face_area[:, f]), col(host.light_face_cdf[:, f]),
+            col(host.light_face_valid[:, f]),
+        ]
+    light = np.concatenate(light_cols, axis=1)
+    env = np.concatenate([[f32(host.root_mtype)], host.root_albedo, host.root_emitted])
+    assert sph.shape[1] == 15 and rct.shape[1] == 21 and box.shape[1] == 28
+    assert light.shape[1] == 5 + 23 * F
+    table = np.concatenate(
+        [a.astype(f32).reshape(-1) for a in (sph, rct, box, light, env)]
+    )
+    counts = dict(n_sph=ns, n_rct=nt, n_box=nb, n_light=nl, n_face=F)
+    return table, counts
+
+
+def _flags(cfg: TraceConfig) -> int:
+    return ((FLAG_DIFFUSE if cfg.has_diffuse else 0)
+            | (FLAG_METALLIC if cfg.has_metallic else 0)
+            | (FLAG_GLASS if cfg.has_glass else 0)
+            | (FLAG_DOF if cfg.has_dof else 0)
+            | (FLAG_POLY if cfg.frustum_poly else 0))
+
+
+def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
+                  pix: torch.Tensor, sub: torch.Tensor, *, width: int,
+                  height: int, spp: int, spp_total: int, subsample: int,
+                  key: tuple, sample0: int, cfg: TraceConfig):
+    """Launch ``csrc/trace_surface.cu`` on the current stream.
+
+    Returns (out [3 or 10, B] f32 channel sums, rays [B] int32, iters
+    [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
+    on anything the kernel does not take and on a refused launch.
+    """
+    from bendy_tpu_torch import _build
+
+    dev = pix.device
+    B = pix.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"trace_surface launches on CUDA tensors, got {dev}")
+    for name, t, dtype in (("table", table, torch.float32),
+                           ("cam_packed", cam_packed, torch.float32),
+                           ("pix", pix, torch.int32), ("sub", sub, torch.int32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+    if pix.shape != (B,) or sub.shape != (B,) or cam_packed.numel() < 18:
+        raise ValueError("pix and sub must be [B]; cam_packed the [1,32] camera")
+    if table.numel() * 4 > MAX_TABLE_BYTES:
+        raise ValueError(f"scene table of {table.numel() * 4} bytes exceeds one "
+                         f"block's shared memory ({MAX_TABLE_BYTES})")
+    if B >= 2**31:
+        raise ValueError("lane count must fit int32")
+    n_out = N_OUT if cfg.want_aovs else 3
+    out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
+    rays = torch.empty(B, dtype=torch.int32, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out, rays, iters
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.bendy_trace_surface(
+        table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
+        sub.data_ptr(), out.data_ptr(), rays.data_ptr(), iters.data_ptr(),
+        B, width, height, spp, subsample, spp_total & 0xFFFFFFFF,
+        key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, sample0 & 0xFFFFFFFF,
+        cfg.max_bounces, cfg.max_iters(spp), cfg.clip_min, cfg.clip_max,
+        _flags(cfg), counts["n_sph"], counts["n_rct"], counts["n_box"],
+        counts["n_light"], counts["n_face"], int(cfg.want_aovs), stream,
+    )
+    if rc != 0:
+        msg = lib.bendy_cuda_error_string(rc).decode()
+        raise RuntimeError(f"trace_surface launch failed: CUDA error {rc} ({msg})")
+    trace_surface.launches += 1
+    return out, rays, iters
+
+
+trace_surface.launches = 0
+
+
+def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
+                subsample: int, cfg: TraceConfig):
+    """Build the tracer for one compiled scene.
+
+    Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B])
+    -> TraceSums``: the CUDA kernel for CUDA lane tensors, the
+    plain :func:`trace_core` for CPU ones. Ray and iteration counts are
+    int64 sums of per-lane counts, with the same meaning on both routes.
+    """
+    check_trace_args(width, height, spp, subsample, cfg)
+    table_np, counts = scene_table(scn.host_copy())
+    tables: dict = {}
+
+    def run(cam_packed, seed, pass_idx, pix, sub) -> TraceSums:
+        key = render_key(seed, pass_idx)
+        dev = pix.device
+        if dev.type == "cpu":
+            return trace_core(scn, unpack_camera(cam_packed), key, pix, sub, width,
+                              height, spp, subsample, cfg)
+        if dev.type != "cuda":
+            raise ValueError(f"no tracer for device {dev}")
+        if dev not in tables:
+            tables[dev] = torch.from_numpy(table_np).to(dev)
+        out, rays, iters = trace_surface(
+            tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
+            sub.to(torch.int32), width=width, height=height, spp=spp,
+            spp_total=spp, subsample=subsample, key=key, sample0=0, cfg=cfg,
+        )
+        rad = V3(out[0], out[1], out[2])
+        rays = rays.sum(dtype=torch.int64)
+        iters = iters.sum(dtype=torch.int64)
+        if not cfg.want_aovs:
+            return TraceSums(rad, rad, rad, rad.x, rays, iters)
+        return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
+                         out[9], rays, iters)
+
+    return run
+
+
+def pass_lanes(width: int, rows: int, nn: int, y_offset: int, device):
+    """(pix, sub) int32 lanes of image rows [y_offset, y_offset+rows):
+    (pixel, subpixel) in row-major order with global pixel ids, so any row
+    chunking renders the same image."""
+    local = torch.arange(rows * width * nn, dtype=torch.int32, device=device)
+    return y_offset * width + local // nn, local % nn
+
+
+def pixel_sums(res: TraceSums, output: str, rows: int, width: int, nn: int) -> torch.Tensor:
+    """Per-lane sums of the requested channel -> per-pixel sums [rows,W,3]."""
+    if output == "full":
+        ch = res.radiance
+    elif output == "albedo":
+        ch = res.aov_albedo
+    elif output == "normal":
+        ch = res.aov_normal
+    elif output == "depth":
+        d = res.aov_depth  # already normalized+clamped per sample
+        ch = V3(d, d, d)
+    else:
+        raise ValueError(f"unknown output {output!r}")
+    return torch.stack([c.reshape(rows, width, nn).sum(dim=2) for c in ch], dim=-1)
+
+
+def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
+                     spp: int, subsample: int, cfg: TraceConfig, output: str):
+    """Counterpart of ``render.render_pass`` on the tracer: returns
+    ``fn(cam_packed, seed, pass_idx, y_offset) -> (sums [rows,W,3], rays)``
+    over image rows [y_offset, y_offset+rows), on ``cam_packed``'s device.
+    """
+    nn = max(subsample, 1) ** 2
+    tracer = make_tracer(scn, width, height, spp, subsample, cfg)
+
+    def run(cam_packed, seed, pass_idx, y_offset):
+        pix, sub = pass_lanes(width, rows, nn, y_offset, cam_packed.device)
+        res = tracer(cam_packed, seed, pass_idx, pix, sub)
+        return pixel_sums(res, output, rows, width, nn), res.rays
+
+    return run

@@ -1,0 +1,301 @@
+"""Wavefront path-tracing integrator with ray regeneration (surface mode).
+
+Counterpart of ``bendy_tpu/ops/wavefront.py``. The reference integrates by
+recursion (``ChunkState::sample``, ``src/tracer/mod.rs:322-342``); here one
+loop runs over a batch of lanes. Each lane owns one (pixel, subpixel) and
+traces its ``spp`` samples in sequence: the moment a path terminates, the
+lane regenerates the camera ray for its next sample.
+
+Estimator identity that makes the flattening exact
+(``tracer/mod.rs:471-482``):
+
+    recursive:  color = emitted + w · sample(scatter, bounce+1)
+    iterative:  radiance += throughput · emitted;  throughput *= w
+
+:func:`trace_core` is the plain PyTorch version of the whole loop: every
+lane steps every iteration with masked selects, and the batch stops when
+no lane has work left. It is the yardstick of the CUDA tracer in
+:mod:`.trace_kernel`, which runs the same per-lane state machine on one
+thread per lane. The RNG is counter-based and keyed by the global
+(pixel, sample, subpixel) stream id, so both give the reference's image.
+
+Only surface mode is ported: volumes, geodesics and the looped table
+sweeps raise ``NotImplementedError``. The reference's ``regen_every``
+cadence changes no pixel (``tests/test_cadence.py``); both versions here
+regenerate every iteration.
+
+AOVs follow the reference: per sample, the first claiming event (surface
+shade or environment miss) fixes albedo/normal/depth; depth is normalized
+and clamped per sample before accumulation (``tracer/mod.rs:306-308``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from bendy_tpu_torch.ops.camera import CameraParams, camera_ray, ndc_base
+from bendy_tpu_torch.ops.intersect import FACE_BACK, FACE_FRONT, nearest_hit
+from bendy_tpu_torch.ops.materials import shade_surface
+from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
+from bendy_tpu_torch.utils.rng import MASK32, lane_uniforms
+from bendy_tpu_torch.utils.v3 import V3
+
+MODE_DEAD = 0
+MODE_SURFACE = 1
+
+N_UNIFORMS = 6  # see ops.materials uniform layout
+PENDING_CHECK = 8  # the plain loop tests for termination every N iterations
+#   (one host sync each; iterating a lane with no work left is a masked no-op)
+
+
+@dataclass(frozen=True)
+class TraceConfig:
+    """Static trace knobs (defaults = ``Config::DEFAULT``, ``tracer/mod.rs:29-38``)."""
+
+    max_bounces: int = 8
+    clip_min: float = 0.01
+    clip_max: float = 1000.0
+    has_volumes: bool = False  # not ported yet: trace_core refuses it (the
+    #   volume knobs of bendy_tpu's TraceConfig come with that slice)
+    geodesic: bool = False  # not ported yet: trace_core refuses it
+    frustum_poly: bool = False  # FOV bounds the frustum angles under
+    #   ~1.2 rad -> range-free polynomial sin/cos in camera_ray
+    # static scene facts (Renderer derives them from the compiled scene
+    # and camera): branches for absent material kinds are dropped (exact)
+    has_diffuse: bool = True
+    has_metallic: bool = True
+    has_glass: bool = True
+    has_dof: bool = True  # camera has a focus distance (thin-lens defocus)
+    want_aovs: bool = True  # False drops the AOV pipeline (FULL renders)
+    looped_sweep: bool = False  # not ported yet: trace_core refuses these
+    looped_lights: bool = False
+    looped_masses: bool = False
+
+    def max_iters(self, spp: int) -> int:
+        """Loop-length safety cap: per-path worst case × samples (a path
+        takes at most max_bounces+1 segments, one bounce-cap kill and one
+        regeneration)."""
+        return (self.max_bounces + 2) * spp
+
+
+@dataclass
+class TraceSums:
+    """Per-lane accumulations over all spp samples."""
+
+    radiance: V3
+    aov_albedo: V3
+    aov_normal: V3
+    aov_depth: torch.Tensor  # [B] normalized+clamped depth sum
+    rays: torch.Tensor  # [] int64: total alive-lane iterations (traced rays)
+    iters: torch.Tensor  # [] int64: sum over lanes of each lane's own loop
+    #   length (iterations it entered with work left), as the kernel counts
+
+
+def check_trace_args(width: int, height: int, spp_total: int, subsample: int,
+                     cfg: TraceConfig) -> None:
+    """Refuse what the port does not implement, and RNG stream ids that
+    would alias.
+
+    Stream ids are u32: id = (pix·spp_total + s)·nn + sub, so the id space
+    is width·height·spp_total·nn. Overflow would silently alias RNG streams
+    across the image (correlated noise, no error), so refuse instead.
+    """
+    missing = [name for name in ("has_volumes", "geodesic", "looped_sweep",
+                                 "looped_lights", "looped_masses")
+               if getattr(cfg, name)]
+    if missing:
+        raise NotImplementedError(
+            f"bendy_tpu_torch traces surfaces only; {', '.join(missing)} "
+            "not ported yet"
+        )
+    nn = max(subsample, 1) ** 2
+    id_space = width * height * spp_total * nn
+    if id_space > 0xFFFFFFFF:
+        raise ValueError(
+            f"RNG stream-id space {width}x{height}x{spp_total}spp x{nn}sub "
+            f"= {id_space} exceeds u32 ({0xFFFFFFFF}); ids would alias and "
+            "silently correlate samples across pixels. Render in multiple "
+            "passes with lower spp_total (progressive film accumulation "
+            "re-keys each pass) or drop --subsample."
+        )
+
+
+def _env_terms(scn: SceneArrays, dir: V3, clip_max: float):
+    """Environment (root-material) shading on miss (``tracer/mod.rs:429-452``).
+
+    All five material kinds collapse to a fixed color because
+    ``sample_root`` ignores the scatter ray: flat/emissive contribute their
+    emitted color, the rest their albedo. AOVs keep the reference's quirks
+    (flat env reports black albedo; emissive env zero normal / inf depth).
+    """
+    mtype = int(scn.host_copy().root_mtype)
+    albedo = V3.from_array(scn.root_albedo)
+    emitted = V3.from_array(scn.root_emitted)
+    zero = torch.zeros_like(dir.x)
+    is_const = mtype in (MAT_FLAT, MAT_EMISSIVE)
+    color = (emitted if is_const else albedo) + zero
+    aov_albedo = V3(zero, zero, zero) if is_const else albedo + zero
+    if mtype == MAT_EMISSIVE:
+        return color, aov_albedo, V3(zero, zero, zero), zero + math.inf
+    return color, aov_albedo, -dir, zero + clip_max
+
+
+def trace_core(
+    scn: SceneArrays,
+    cam: CameraParams,
+    key: tuple,
+    pix: torch.Tensor,  # [B] global pixel index (y*W + x), int32 or int64
+    sub: torch.Tensor,  # [B] subpixel index (j*n + i)
+    width: int,
+    height: int,
+    spp: int,
+    subsample: int,
+    cfg: TraceConfig,
+    spp_total: int | None = None,
+    sample0: int = 0,
+    active: torch.Tensor | None = None,
+) -> TraceSums:
+    """Trace spp samples for every (pixel, subpixel) lane; return sums.
+
+    ``spp_total``/``sample0`` assign this call the samples
+    [sample0, sample0+spp) of a global spp_total, keeping globally unique
+    RNG stream ids. ``active`` ([B] bool, optional) marks real lanes;
+    others start with their sample budget spent and return zeros.
+    """
+    if spp_total is None:
+        spp_total = spp
+    check_trace_args(width, height, spp_total, subsample, cfg)
+    dev = pix.device
+    B = pix.shape
+    n = max(subsample, 1)
+    nn = n * n
+    pix = pix.to(torch.int64)
+    sub = sub.to(torch.int64)
+
+    def sample_id(sample):
+        """Global RNG stream id for (pixel, sample, subpixel), u32."""
+        s_glob = (sample0 + sample.to(torch.int64)) & MASK32
+        return (((pix * spp_total + s_glob) & MASK32) * nn + sub) & MASK32
+
+    ub, vb = ndc_base(width, height, n, (pix % width).float(),
+                      (pix // width).float(), (sub % n).float(),
+                      (sub // n).float())
+    zi = torch.zeros(B, dtype=torch.int32, device=dev)
+    zb = torch.zeros(B, dtype=torch.bool, device=dev)
+    zf = torch.zeros(B, device=dev)
+    zv = V3(zf, zf, zf)
+    sample = zi - 1
+    if active is not None:
+        sample = sample + (~active).to(torch.int32) * spp
+    path_step = zi
+    path_open = zb
+    org, dirv, thr, rad = zv, zv + V3(0.0, 0.0, -1.0), zv, zv
+    bounce = zi
+    mode = zi
+    aov_open = zb
+    aov_alb, aov_nrm, aov_dep = zv, zv, zf + math.inf
+    acc_rad, acc_alb, acc_nrm, acc_dep = zv, zv, zv, zf
+    rays = torch.zeros(B, dtype=torch.int64, device=dev)
+    lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
+    dep_den = cfg.clip_max - cfg.clip_min
+
+    def depth_n(d):
+        return torch.clamp((d - cfg.clip_min) / dep_den, 0.0, 1.0)
+
+    it = 0
+    cap = cfg.max_iters(spp)
+    while it < cap:
+        pending = (mode != MODE_DEAD) | (sample + 1 < spp)
+        if it % PENDING_CHECK == 0 and not bool(pending.any()):
+            break
+        lane_iters = lane_iters + pending.to(torch.int64)
+        # === finalize dead paths, regenerate camera rays ===================
+        dead = mode == MODE_DEAD
+        fin = dead & path_open
+        acc_rad = acc_rad + V3.where(fin, rad, zv)
+        if cfg.want_aovs:
+            acc_alb = acc_alb + V3.where(fin, aov_alb, zv)
+            acc_nrm = acc_nrm + V3.where(fin, aov_nrm, zv)
+            acc_dep = acc_dep + torch.where(fin, depth_n(aov_dep), 0.0)
+        regen = dead & (sample + 1 < spp)
+        path_open = regen | (path_open & ~fin)
+        path_step = torch.where(regen, 0, path_step)
+        sample = sample + regen.to(torch.int32)
+        sid = sample_id(torch.clamp_min(sample, 0))
+        cam_org, cam_dir = camera_ray(
+            cam, width, height, n, key, sid, (ub, vb),
+            poly_trig=cfg.frustum_poly, has_dof=cfg.has_dof,
+        )
+        org = V3.where(regen, cam_org, org)
+        dirv = V3.where(regen, cam_dir, dirv)
+        thr = V3.where(regen, zv + 1.0, thr)
+        rad = V3.where(regen, zv, rad)
+        bounce = torch.where(regen, 0, bounce)
+        mode = torch.where(regen, MODE_SURFACE, mode)
+        if cfg.want_aovs:
+            aov_open = aov_open | regen
+            aov_alb = V3.where(regen, zv, aov_alb)
+            aov_nrm = V3.where(regen, zv, aov_nrm)
+            aov_dep = torch.where(regen, math.inf, aov_dep)
+
+        # === bounce-cap kill at path entry (``tracer/mod.rs:323-325``) =====
+        mode = torch.where((mode == MODE_SURFACE) & (bounce > cfg.max_bounces),
+                           MODE_DEAD, mode)
+        alive = mode != MODE_DEAD
+
+        # === one intersection sweep + shade ================================
+        hit = nearest_hit(org, dirv, cfg.clip_min, cfg.clip_max, scn)
+        miss = alive & ~hit.valid
+        surf = alive & hit.valid & ((hit.face == FACE_FRONT) | (hit.face == FACE_BACK))
+        # the diffuse branch draws 6 uniforms (slots 4,5 = light point);
+        # without it slots 0-3 suffice and keep their values
+        u = lane_uniforms(key, sid, path_step, N_UNIFORMS if cfg.has_diffuse else 4)
+        sh = shade_surface(
+            dirv, hit, scn, u, cfg.clip_min, cfg.clip_max,
+            has_diffuse=cfg.has_diffuse, has_metallic=cfg.has_metallic,
+            has_glass=cfg.has_glass,
+        )
+        env_color, env_alb, env_nrm, env_dep = _env_terms(scn, dirv, cfg.clip_max)
+
+        # === radiance & throughput =========================================
+        rad = rad + V3.where(miss, thr * env_color, zv)
+        rad = rad + V3.where(surf, thr * sh.emitted, zv)
+        surf_cont = surf & sh.scatter
+        thr = V3.where(surf_cont, thr * sh.weight, thr)
+
+        # === continuation ray & mode transitions ===========================
+        org = V3.where(surf, hit.position, org)
+        dirv = V3.where(surf, sh.direction, dirv)
+        mode = torch.where(alive & surf_cont, MODE_SURFACE, MODE_DEAD).to(torch.int32)
+        bounce = bounce + surf_cont.to(torch.int32)
+
+        if cfg.want_aovs:
+            claim = (surf | miss) & aov_open
+            aov_alb = V3.where(claim, V3.where(surf, sh.aov_albedo, env_alb), aov_alb)
+            aov_nrm = V3.where(claim, V3.where(surf, sh.aov_normal, env_nrm), aov_nrm)
+            aov_dep = torch.where(claim, torch.where(surf, sh.aov_depth, env_dep), aov_dep)
+            aov_open = aov_open & ~claim
+
+        path_step = path_step + 1
+        rays = rays + alive.to(torch.int64)
+        it += 1
+
+    # fold in each lane's last completed path (not yet accumulated in-loop)
+    fin = (mode == MODE_DEAD) & path_open
+    radiance = acc_rad + V3.where(fin, rad, zv)
+    rays_total = rays.sum()
+    iters = lane_iters.sum()
+    if not cfg.want_aovs:
+        # AOV slots alias the radiance (callers only read .radiance)
+        return TraceSums(radiance, radiance, radiance, radiance.x, rays_total, iters)
+    return TraceSums(
+        radiance=radiance,
+        aov_albedo=acc_alb + V3.where(fin, aov_alb, zv),
+        aov_normal=acc_nrm + V3.where(fin, aov_nrm, zv),
+        aov_depth=acc_dep + torch.where(fin, depth_n(aov_dep), 0.0),
+        rays=rays_total,
+        iters=iters,
+    )
