@@ -4,25 +4,35 @@ The port of ``bendy_tpu`` (JAX on a TPU), which stays beside it as the
 reference each module is tested against. It imports torch and numpy,
 never jax. Each file mirrors the ``bendy_tpu`` file of the same path:
 
-    utils/     color transfer, vector math, counter-based RNG, image IO
-    scene/     scene graph + (de)serialization (copies) + SoA scene compiler
-    ops/       samplers, camera rays, intersection, materials, the
-               wavefront integrator (plain PyTorch) and trace_kernel.py,
-               the launch glue of the CUDA tracer kernel
-    csrc/      hand-written CUDA C++ kernels for sm_90a (built by _build.py
-               with nvcc at first use)
-    film.py    progressive accumulation buffer + checkpointing
-    render.py  Renderer / Config / RenderConfig front-end
+    utils/       color transfer, vector math, counter-based RNG, image IO
+    scene/       scene graph + (de)serialization (copies) + SoA scene compiler
+    models/      scene builders (copies): cornell, blackhole, binary_blackhole
+    ops/         samplers, camera rays, intersection, materials, the
+                 wavefront integrator (plain PyTorch) and trace_kernel.py,
+                 the launch glue of the CUDA tracer kernel
+    csrc/        hand-written CUDA C++ kernels for sm_90a (built by _build.py
+                 with nvcc at first use)
+    geodesic.py  Schwarzschild null-geodesic RK4 propagation
+    film.py      progressive accumulation buffer + checkpointing
+    render.py    Renderer / Config / RenderConfig front-end
 
 Ported so far: the surface main path (spheres, rects, boxes; all five
-materials; AOVs). Volumes, dense grids, geodesics, the looped table
-sweeps, multi-device passes, the CLI and the preview server are not.
+materials; AOVs) and geodesic lensing in surface mode with up to 8
+unrolled masses (blackhole, binary_blackhole). Not ported, and refused:
+volumes (also under geodesics, blackhole_cloud), dense grids, the looped
+table sweeps (including more than 8 masses, mass_cluster). Also not
+ported: multi-device passes, the CLI and the preview server.
+
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``); without a card the default raises.
 """
 
 __version__ = "0.1.0"
 
 from bendy_tpu_torch.render import Config, Output, RenderConfig, Renderer, Status, Subsample  # noqa: F401,E402
 from bendy_tpu_torch.film import DeviceFilm, Film  # noqa: F401,E402
+from bendy_tpu_torch.geodesic import GeoParams  # noqa: F401,E402
+from bendy_tpu_torch.models import build_binary_blackhole, build_blackhole, build_cornell  # noqa: F401,E402
 from bendy_tpu_torch.scene.graph import (  # noqa: F401
     Camera,
     Cuboid,

@@ -35,12 +35,18 @@ c_void_p, c_int, c_uint, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 
 # every C entry point with its ctypes signature: without argtypes ctypes
 # passes a Python int as a 32-bit int and cuts the pointer
+_TRACE_ARGS = [
+    c_void_p, c_int, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
+    c_int, c_int, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_uint,
+    c_int, c_int, c_float, c_float, c_int, c_int, c_int, c_int, c_int, c_int,
+    c_int,
+]
 SIGNATURES = {
-    "bendy_trace_surface": (
-        [c_void_p, c_int, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
-         c_int, c_int, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_uint,
-         c_int, c_int, c_float, c_float, c_int, c_int, c_int, c_int, c_int, c_int,
-         c_int, c_void_p],
+    "bendy_trace_surface": (_TRACE_ARGS + [c_void_p], c_int),
+    # + n_mass, eta, min_step, max_step, far, max_steps, growth
+    "bendy_trace_geodesic": (
+        _TRACE_ARGS + [c_int, c_float, c_float, c_float, c_float, c_int, c_float,
+                       c_void_p],
         c_int,
     ),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),

@@ -1,9 +1,17 @@
-// trace_surface.cu: the surface path tracer as one CUDA kernel for Hopper (sm_90a).
+// trace_surface.cu: the path tracer as one CUDA kernel for Hopper (sm_90a).
 //
-// Replaces bendy_tpu/ops/pallas_trace.py::make_pallas_tracer in its surface
-// configuration (the pl.pallas_call at pallas_trace.py:255, running
-// bendy_tpu/ops/wavefront.py::trace_core). Its plain PyTorch version is
-// bendy_tpu_torch/ops/wavefront.py::trace_core; the wrapper and the table
+// Replaces bendy_tpu/ops/pallas_trace.py::make_pallas_tracer (the
+// pl.pallas_call at pallas_trace.py:255, running
+// bendy_tpu/ops/wavefront.py::trace_core) in two configurations, two
+// compile-time instantiations of one kernel template behind two C entry
+// points:
+//   - bendy_trace_surface  (GEO = false): the surface configuration (1a);
+//   - bendy_trace_geodesic (GEO = true): the geodesic configuration with
+//     unrolled masses (1d): RK4 chord stepping around up to 8 point masses
+//     (bendy_tpu/geodesic.py:124,145,177,373; wavefront.py:550-599,
+//     649-652,682-689).
+// Its plain PyTorch version is bendy_tpu_torch/ops/wavefront.py::trace_core
+// (geodesic mode: bendy_tpu_torch/geodesic.py); the wrappers and the table
 // layout are in bendy_tpu_torch/ops/trace_kernel.py.
 //
 // What it computes: for every lane (one pixel x subpixel) the whole
@@ -15,7 +23,11 @@
 //
 // What bounds it on the H100: FP32 issue and warp divergence across paths of
 // unequal length, not bytes (the scene is a few KB, each lane reads 8 bytes
-// and writes 12 or 40). Design:
+// and writes 12 or 40). In the geodesic instantiation the FP32 issue of the
+// four RK4 stages (each a sweep over the masses with a divide and a sqrt)
+// dominates every chord step, and divergence grows: photon-ring lanes that
+// graze the critical impact parameter run to hundreds of chord steps
+// against a mean near 22 segments per sample, and hold their warp. Design:
 //   - one thread per lane; the thread runs its own loop over all its samples
 //     and exits on its own (Hopper's per-thread control flow in place of the
 //     TPU's per-block masked loop). A warp runs until its slowest lane is
@@ -28,6 +40,14 @@
 //     block, so editing or moving an object rebuilds nothing.
 //   - the TPU workarounds are gone: bool state, native uint32_t RNG words,
 //     no lane-varying zero seeds.
+//   - geodesics are a template parameter, so the surface instantiation
+//     compiles as it did before they existed. The geodesic one reads the
+//     mass block [M,4] from the same shared-memory table, keeps the frozen
+//     per-mass h² in a float[8] that only fully unrolled loops with constant
+//     indices touch (so it stays in registers), takes the RK4 step only on
+//     lanes that are near a mass (a far-field lane traces straight and never
+//     reads the chord), and reads the GeoParams as launch arguments, so
+//     editing a scene's "geodesic" block rebuilds nothing.
 //
 // Numerics (held per lane to the plain version at rtol 5e-4, atol 1e-5):
 //   - Trig: the same range-free polynomials as ops/distr.py::sin_cos_tau and
@@ -58,6 +78,27 @@
 //     (the wrapper declares ctypes argtypes), and returns cudaGetLastError()
 //     after the launch, because a refused launch (too many registers or too
 //     much shared memory) never runs and synchronize() does not report it.
+//
+// Geodesic numerics, where trouble is likely (geodesic.py is the order):
+//   - Chaos near the photon sphere: lanes that graze b_crit = (3√3/2)·rs flip
+//     between capture and escape on one rounding. The kernel keeps the
+//     reference's order exactly: h² by the Lagrange identity
+//     max(r²·|d|² − (rel·d)², 0); inv_r = r² > 0 ? 1/sqrtf(max(r², 1e-20)) : 0
+//     and inv_r⁵ as four multiplies left to right; the RK4 sums as
+//     (k1 + (k2 + k3)·2 + k4)·(ds·(1/6)); the step eta·(1 + growth·steps).
+//     Without contraction it then rounds as the plain version does.
+//   - The step budget (geo_steps > max_steps) binds only surface lanes, which
+//     are all alive lanes here (no volumes); geo_steps advances only on near
+//     segments; capture applies to every alive lane.
+//   - The chord: seg_dir = chord·(1/max(|chord|, 1e-20)) and the clip
+//     [fresh ? clip_min : 0, near ? |chord| : clip_max]. A far-field lane
+//     traces straight along dir with the full clip. A miss inside a near
+//     chord continues bending from (x_next, d_next) and shades no
+//     environment.
+//   - Dead lanes compute nothing, so no NaN from a lane parked at a mass
+//     center reaches the state a regeneration reads.
+//   - n_mass == 0 would leave r2_min at +INF: the geodesic entry refuses any
+//     n_mass outside [1, 8], as the wrapper does.
 
 #include <cstdint>
 #include <limits>
@@ -73,11 +114,15 @@ constexpr int BOX_COLS = 28;         // normals 3x3, dlo, dhi, sgn_lo, sgn_hi (x
 constexpr int LIGHT_HEAD = 5;        // kind, sphere center xyz, sphere radius
 constexpr int LIGHT_FACE_COLS = 23;  // center, fx, fy, ux, uy, z (xyz), hw, hh, area, cdf, valid
 // then the environment: root mtype, albedo rgb, emitted rgb
+constexpr int ENV_FLOATS = 7;
+constexpr int MASS_COLS = 4;         // center xyz, rs (after the environment)
+constexpr int MAX_MASSES = 8;        // the geodesic instantiation's unroll
 
 constexpr int MAT_FLAT = 0, MAT_DIFFUSE = 1, MAT_METALLIC = 2, MAT_GLASS = 3, MAT_EMISSIVE = 4;
 constexpr int FACE_FRONT = 0, FACE_BACK = 1;
 
-constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16;
+constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
+              FLAG_GEO = 32;
 
 constexpr uint32_t CAMERA_TAG = 0x100000u;
 constexpr float INF = std::numeric_limits<float>::infinity();
@@ -112,6 +157,8 @@ struct Params {
   float clip_min, clip_max, dep_den;  // dep_den = f32(clip_max - clip_min) in double
   float pw, ph, pw_n, ph_n;            // f32(2/W), f32(2/H), f32(2/W/n), f32(2/H/n)
   int n_sph, n_rct, n_box, n_light, n_face;
+  int n_mass, max_steps;                         // geodesic instantiation only
+  float eta, min_step, max_step, far, growth;    // GeoParams
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -435,6 +482,43 @@ __device__ __forceinline__ float light_pdf(const float* lrow, int n_face, V3 org
   return t_b < INF ? t_b * t_b / (area_b * fabsf(q_b)) : 0.0f;
 }
 
+// ---- geodesics (bendy_tpu_torch/geodesic.py) ----------------------------
+
+// _acc_frozen: sum over masses of -1.5·rs·h²·rel/|rel|⁵, h² frozen per step
+__device__ __forceinline__ V3 acc_frozen(const float* masses, int n_mass,
+                                         const float (&h2s)[MAX_MASSES], V3 x) {
+  V3 a = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < MAX_MASSES; ++k) {
+    if (k < n_mass) {
+      const float* m = masses + MASS_COLS * k;
+      V3 rel = x - ld3(m);
+      float r2 = dot(rel, rel);
+      float inv_r = r2 > 0.0f ? 1.0f / sqrtf(fmaxf(r2, (float)1e-20)) : 0.0f;
+      float inv_r5 = inv_r * inv_r * inv_r * inv_r * inv_r;
+      a = a + rel * (((-1.5f * m[3]) * h2s[k]) * inv_r5);
+    }
+  }
+  return a;
+}
+
+// _rk4 with the frozen acceleration: one step of dx = d, dd = a(x)
+__device__ __forceinline__ void rk4_step(const float* masses, int n_mass,
+                                         const float (&h2s)[MAX_MASSES], V3 x, V3 d, float ds,
+                                         V3& x_new, V3& d_new) {
+  const float half = ds * 0.5f;
+  const V3 k1x = d, k1d = acc_frozen(masses, n_mass, h2s, x);
+  const V3 k2x = d + k1d * half;
+  const V3 k2d = acc_frozen(masses, n_mass, h2s, x + k1x * half);
+  const V3 k3x = d + k2d * half;
+  const V3 k3d = acc_frozen(masses, n_mass, h2s, x + k2x * half);
+  const V3 k4x = d + k3d * ds;
+  const V3 k4d = acc_frozen(masses, n_mass, h2s, x + k3x * ds);
+  const float sixth = ds * (float)(1.0 / 6.0);
+  x_new = x + (k1x + (k2x + k3x) * 2.0f + k4x) * sixth;
+  d_new = d + (k1d + (k2d + k3d) * 2.0f + k4d) * sixth;
+}
+
 // normalized, clamped per-sample depth; the +INF of an unclaimed or
 // emissive-environment sample clamps to 1, and NaN passes through, as jnp.clip
 __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den) {
@@ -442,8 +526,8 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-template <bool AOVS>
-__global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
+template <bool AOVS, bool GEO>
+__global__ void __launch_bounds__(128) trace_kernel(Params P) {
   extern __shared__ float tab[];
   for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) tab[i] = P.table[i];
   __syncthreads();
@@ -453,6 +537,7 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
   const float* lights = tab + P.n_sph * SPH_COLS + P.n_rct * RCT_COLS + P.n_box * BOX_COLS;
   const int lstride = LIGHT_HEAD + LIGHT_FACE_COLS * P.n_face;
   const float* env = lights + P.n_light * lstride;
+  const float* masses = env + ENV_FLOATS;
   const int env_m = (int)env[0];
   const bool env_const = env_m == MAT_FLAT || env_m == MAT_EMISSIVE;
   const V3 env_color = env_const ? ld3(env + 4) : ld3(env + 1);
@@ -480,6 +565,8 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
   V3 aov_alb = {0.0f, 0.0f, 0.0f}, aov_nrm = {0.0f, 0.0f, 0.0f};
   V3 acc_alb = {0.0f, 0.0f, 0.0f}, acc_nrm = {0.0f, 0.0f, 0.0f};
   float aov_dep = INF, acc_dep = 0.0f;
+  int geo_steps = 0;  // chord steps of the current path
+  bool fresh = true;  // first segment after a bounce: clip_min applies
 
   for (; it < P.max_iters; ++it) {
     if (!alive) {
@@ -542,6 +629,10 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
         aov_nrm = {0.0f, 0.0f, 0.0f};
         aov_dep = INF;
       }
+      if (GEO) {
+        geo_steps = 0;
+        fresh = true;
+      }
     }
     // === bounce-cap kill at path entry (tracer/mod.rs:323-325) ===========
     if (bounce > P.max_bounces) {
@@ -549,8 +640,63 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
       ++path_step;
       continue;
     }
+    // === propagation segment: the RK4 chord, or a straight ray ==========
+    V3 tdir = dir;  // the segment's direction: the chord's, near a mass
+    float cmin = P.clip_min, cmax = P.clip_max;
+    bool is_near = false;  // a surface lane not yet in flat space
+    V3 x_next, d_next;
+    if constexpr (GEO) {
+      // geo_step_begin: capture, far field, step size and frozen h² in one
+      // sweep over the masses (geodesic.py:145)
+      bool captured = false, far_field = true;
+      float r2_min = INF;
+      const float d2 = dot(dir, dir);
+      float h2s[MAX_MASSES];
+#pragma unroll
+      for (int k = 0; k < MAX_MASSES; ++k) {
+        h2s[k] = 0.0f;
+        if (k < P.n_mass) {
+          const float* m = masses + MASS_COLS * k;
+          const float rs = m[3];
+          const V3 rel = org - ld3(m);
+          const float r2 = dot(rel, rel);
+          const float rd = dot(rel, dir);
+          const float far_r = P.far * rs;
+          captured = captured || r2 < rs * rs;
+          far_field = far_field && r2 > far_r * far_r && rd > 0.0f;
+          r2_min = fminf(r2_min, r2);
+          h2s[k] = fmaxf(r2 * d2 - rd * rd, 0.0f);
+        }
+      }
+      // horizon capture, or the step budget spent: the path is swallowed
+      if (captured || geo_steps > P.max_steps) {
+        alive = false;
+        ++path_step;
+        continue;
+      }
+      is_near = !far_field;
+      if (is_near) {
+        const float eta = P.eta * (1.0f + P.growth * (float)geo_steps);
+        const float ds = fminf(fmaxf(eta * sqrtf(r2_min), P.min_step), P.max_step);
+        rk4_step(masses, P.n_mass, h2s, org, dir, ds, x_next, d_next);
+        const V3 chord = x_next - org;
+        const float chord_len = sqrtf(dot(chord, chord));
+        tdir = chord * (1.0f / fmaxf(chord_len, (float)1e-20));
+        cmax = chord_len;
+      }
+      cmin = fresh ? P.clip_min : 0.0f;
+    }
     ++rays;
-    Hit h = nearest_hit(tab, P.n_sph, P.n_rct, P.n_box, P.clip_min, P.clip_max, org, dir);
+    Hit h = nearest_hit(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir);
+    if (GEO && is_near) ++geo_steps;
+    if (GEO && is_near && h.face < 0) {
+      // no hit inside the chord: keep bending from its end point
+      org = x_next;
+      dir = d_next;
+      fresh = false;
+      ++path_step;
+      continue;
+    }
     if (h.face < 0) {
       // === miss: environment (tracer/mod.rs:429-452) =====================
       rad = rad + thr * env_color;
@@ -569,7 +715,7 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
     uniforms4(sid, (uint32_t)path_step, 0u, P.key0, P.key1, u);
     const V3 n = h.normal;
     bool scatter = false;
-    V3 weight = h.color, new_dir = dir;
+    V3 weight = h.color, new_dir = tdir;
     if (h.mtype == MAT_DIFFUSE && (P.flags & FLAG_DIFFUSE)) {
       float u45[4];
       uniforms4(sid, (uint32_t)path_step, 1u, P.key0, P.key1, u45);
@@ -591,16 +737,16 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
       new_dir = d_diff;
     } else if (h.mtype == MAT_METALLIC && (P.flags & FLAG_METALLIC)) {
       V3 fuzz = unit_hemisphere(n, u[2], u[3]);
-      new_dir = normalize(reflect(dir, n) + fuzz * h.rough);
+      new_dir = normalize(reflect(tdir, n) + fuzz * h.rough);
       scatter = true;
     } else if (h.mtype == MAT_GLASS && (P.flags & FLAG_GLASS)) {
       V3 fuzz = unit_hemisphere(n, u[2], u[3]);
       float ior_eff = h.face == FACE_FRONT ? 1.0f / h.ior : h.ior;
-      float cos_theta = fminf(dot(-dir, n), 1.0f);
+      float cos_theta = fminf(dot(-tdir, n), 1.0f);
       float sin_theta = sqrtf(fmaxf(1.0f - cos_theta * cos_theta, 0.0f));
-      float fr = fresnel(dir, n, ior_eff);
+      float fr = fresnel(tdir, n, ior_eff);
       bool do_reflect = ior_eff * sin_theta > 1.0f || u[1] < fr;
-      V3 base = do_reflect ? reflect(dir, n) : refract(dir, n, ior_eff);
+      V3 base = do_reflect ? reflect(tdir, n) : refract(tdir, n, ior_eff);
       new_dir = normalize(base + fuzz * h.rough);
       scatter = true;
     }
@@ -612,6 +758,7 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
       aov_dep = scatter ? h.t : INF;
       aov_open = false;
     }
+    if (GEO) fresh = true;  // a surface event restarts the chord clip
     if (scatter) {
       thr = thr * weight;
       org = h.position;
@@ -649,18 +796,27 @@ __global__ void __launch_bounds__(128) trace_surface_kernel(Params P) {
   P.iters[lane] = it;
 }
 
-}  // namespace
+template <bool GEO>
+int launch(const Params& P, bool want_aovs, cudaStream_t s) {
+  const size_t smem = (size_t)P.table_floats * sizeof(float);
+  const int threads = 128;
+  const int blocks = (P.n + threads - 1) / threads;
+  auto kernel = want_aovs ? trace_kernel<true, GEO> : trace_kernel<false, GEO>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<blocks, threads, smem, s>>>(P);
+  // a launch refused for registers or shared memory never runs, and a later
+  // synchronize() does not report it: the wrapper raises on this code
+  return (int)cudaGetLastError();
+}
 
-extern "C" {
-
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
-int bendy_trace_surface(const void* table, int table_floats, const void* cam, const void* pix,
-                        const void* sub, void* out, void* rays, void* iters, int n, int width,
-                        int height, int spp, int subsample, unsigned spp_total, unsigned key0,
-                        unsigned key1, unsigned sample0, int max_bounces, int max_iters,
-                        float clip_min, float clip_max, int flags, int n_sph, int n_rct,
-                        int n_box, int n_light, int n_face, int want_aovs, void* stream) {
-  Params P;
+Params make_params(const void* table, int table_floats, const void* cam, const void* pix,
+                   const void* sub, void* out, void* rays, void* iters, int n, int width,
+                   int height, int spp, int subsample, unsigned spp_total, unsigned key0,
+                   unsigned key1, unsigned sample0, int max_bounces, int max_iters,
+                   float clip_min, float clip_max, int flags, int n_sph, int n_rct, int n_box,
+                   int n_light, int n_face) {
+  Params P = {};
   P.table = static_cast<const float*>(table);
   P.cam = static_cast<const float*>(cam);
   P.pix = static_cast<const int32_t*>(pix);
@@ -695,24 +851,45 @@ int bendy_trace_surface(const void* table, int table_floats, const void* cam, co
   P.n_box = n_box;
   P.n_light = n_light;
   P.n_face = n_face;
-  const size_t smem = (size_t)table_floats * sizeof(float);
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (want_aovs) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(trace_surface_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    trace_surface_kernel<true><<<blocks, threads, smem, s>>>(P);
-  } else {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(trace_surface_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    trace_surface_kernel<false><<<blocks, threads, smem, s>>>(P);
-  }
-  // a launch refused for registers or shared memory never runs, and a later
-  // synchronize() does not report it: the wrapper raises on this code
-  return (int)cudaGetLastError();
+  return P;
+}
+
+}  // namespace
+
+#define TRACE_ARGS                                                                               \
+  const void *table, int table_floats, const void *cam, const void *pix, const void *sub,         \
+      void *out, void *rays, void *iters, int n, int width, int height, int spp, int subsample,   \
+      unsigned spp_total, unsigned key0, unsigned key1, unsigned sample0, int max_bounces,       \
+      int max_iters, float clip_min, float clip_max, int flags, int n_sph, int n_rct, int n_box, \
+      int n_light, int n_face, int want_aovs
+#define TRACE_PARAMS                                                                             \
+  make_params(table, table_floats, cam, pix, sub, out, rays, iters, n, width, height, spp,      \
+              subsample, spp_total, key0, key1, sample0, max_bounces, max_iters, clip_min,       \
+              clip_max, flags, n_sph, n_rct, n_box, n_light, n_face)
+
+extern "C" {
+
+// Launch the surface instantiation on `stream`; returns cudaGetLastError()
+// (0 = launched), or cudaErrorInvalidValue for a geodesic configuration.
+int bendy_trace_surface(TRACE_ARGS, void* stream) {
+  if (flags & FLAG_GEO) return (int)cudaErrorInvalidValue;
+  return launch<false>(TRACE_PARAMS, want_aovs != 0, static_cast<cudaStream_t>(stream));
+}
+
+// Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, the
+// mass block after the environment in `table`) on `stream`.
+int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
+                         float far, int max_steps, float growth, void* stream) {
+  if (!(flags & FLAG_GEO) || n_mass < 1 || n_mass > MAX_MASSES) return (int)cudaErrorInvalidValue;
+  Params P = TRACE_PARAMS;
+  P.n_mass = n_mass;
+  P.eta = eta;
+  P.min_step = min_step;
+  P.max_step = max_step;
+  P.far = far;
+  P.max_steps = max_steps;
+  P.growth = growth;
+  return launch<true>(P, want_aovs != 0, static_cast<cudaStream_t>(stream));
 }
 
 const char* bendy_cuda_error_string(int code) {

@@ -1,16 +1,39 @@
-"""Geodesic integration knobs (counterpart of ``bendy_tpu/geodesic.py``).
+"""Null-geodesic ray propagation around point masses (counterpart of
+``bendy_tpu/geodesic.py``).
 
-Only the parameter block is here: scene files carry an optional
-``"geodesic"`` block that :mod:`bendy_tpu_torch.scene.io` validates at load
-time, and :class:`bendy_tpu_torch.render.Config` holds a ``geo`` field. The
-propagator itself (RK4 chord stepping, capture, far field) is not ported
-yet; :func:`bendy_tpu_torch.ops.wavefront.trace_core` refuses geodesic
-scenes.
+Photons around a Schwarzschild mass follow the effective acceleration
+
+    a(x, d) = -(3/2) · rs · h² · x / |x|⁵,   h = |x × d|
+
+superposed over the scene's masses (objects tagged ``mass:<rs>``), and are
+integrated by classical RK4 with an adaptive step
+ds = clip(eta·(1 + growth·k)·r_min, min_step, max_step). A lane is
+captured when r < rs for any mass, and is in flat space (``far``) when
+r > far·rs for every mass and it recedes from all of them.
+
+These are plain functions on V3-of-[B] tensors, in the reference's
+operation order (1/sqrt, not ``torch.rsqrt``; ``inv_r⁵`` as four
+multiplies; the RK4 sums as ``_rk4`` writes them), so the CUDA tracer's
+geodesic instantiation (``csrc/trace_surface.cu``), built without
+contraction, rounds as they do. The wavefront integrator's geodesic mode
+(:func:`bendy_tpu_torch.ops.wavefront.trace_core`) uses them for the
+unrolled mass sweep of up to ``render.MASS_LOOP_THRESHOLD`` masses.
+
+Still refused (not ported): the looped mass sweep over a mass table
+(``mass_table``, ``geo_step_begin_looped``, ``rk4_step_looped``, kernel
+1e), so scenes with more masses than the threshold (``mass_cluster``)
+raise, and geodesics inside media (``blackhole_cloud``), which wait for
+the volume slice.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import torch
+
+from bendy_tpu_torch.scene.compiler import SceneArrays
+from bendy_tpu_torch.utils.v3 import V3
 
 
 class GeoParams(NamedTuple):
@@ -35,3 +58,116 @@ def geo_from_dict(d: dict | None) -> GeoParams:
         )
     conv = {k: (int(v) if k == "max_steps" else float(v)) for k, v in d.items()}
     return GeoParams()._replace(**conv)
+
+
+def mass_row(scn: SceneArrays, k: int) -> tuple[V3, torch.Tensor]:
+    c = scn.mass_center
+    return V3(c[k, 0], c[k, 1], c[k, 2]), scn.mass_rs[k]
+
+
+def _inv_r5(r2: torch.Tensor) -> torch.Tensor:
+    """|x|⁻⁵ from r², 0 at the mass itself (four multiplies, left to right)."""
+    inv_r = torch.where(r2 > 0.0, 1.0 / torch.sqrt(torch.clamp_min(r2, 1e-20)), 0.0)
+    return inv_r * inv_r * inv_r * inv_r * inv_r
+
+
+def acceleration(scn: SceneArrays, x: V3, d: V3) -> V3:
+    """Sum of per-mass geodesic accelerations, h² from the stage state."""
+    a = V3.zeros(x.x.shape, x.x.device)
+    for k in range(scn.n_masses):
+        center, rs = mass_row(scn, k)
+        rel = x - center
+        h2 = rel.cross(d).length_squared()
+        a = a + rel * (-1.5 * rs * h2 * _inv_r5(rel.length_squared()))
+    return a
+
+
+def _eta(p: GeoParams, steps) -> float | torch.Tensor:
+    """eta·(1 + growth·steps): progressive coarsening of long paths."""
+    if steps is not None and p.growth:
+        return p.eta * (1.0 + p.growth * steps.to(torch.float32))
+    return p.eta
+
+
+def step_size(scn: SceneArrays, x: V3, p: GeoParams, steps=None) -> torch.Tensor:
+    """Adaptive ds: a fraction of the distance to the nearest mass."""
+    r2_min = torch.full(x.x.shape, torch.inf, device=x.x.device)
+    for k in range(scn.n_masses):
+        center, _ = mass_row(scn, k)
+        r2_min = torch.minimum(r2_min, (x - center).length_squared())
+    return torch.clamp(_eta(p, steps) * torch.sqrt(r2_min), p.min_step, p.max_step)
+
+
+def _acc_frozen(scn: SceneArrays, x: V3, h2s: list) -> V3:
+    """Acceleration with per-mass h² frozen at the step start (h is
+    conserved along the exact trajectory, so every RK4 stage may reuse
+    it; local error stays O(ds⁵))."""
+    a = V3.zeros(x.x.shape, x.x.device)
+    for k in range(scn.n_masses):
+        center, rs = mass_row(scn, k)
+        rel = x - center
+        a = a + rel * (-1.5 * rs * h2s[k] * _inv_r5(rel.length_squared()))
+    return a
+
+
+def geo_step_begin(scn: SceneArrays, x: V3, d: V3, p: GeoParams, steps=None):
+    """Fused once-per-iteration mass sweep: (captured, far, ds, h2s).
+
+    h² uses the Lagrange identity |rel×d|² = r²·|d|² − (rel·d)², reusing r²
+    and the receding test's rel·d.
+    """
+    B = x.x.shape
+    dev = x.x.device
+    captured = torch.zeros(B, dtype=torch.bool, device=dev)
+    far = torch.ones(B, dtype=torch.bool, device=dev)
+    r2_min = torch.full(B, torch.inf, device=dev)
+    d2 = d.length_squared()
+    h2s = []
+    for k in range(scn.n_masses):
+        center, rs = mass_row(scn, k)
+        rel = x - center
+        r2 = rel.length_squared()
+        rd = rel.dot(d)
+        far_r = p.far * rs
+        captured = captured | (r2 < rs * rs)
+        far = far & ((r2 > far_r * far_r) & (rd > 0.0))
+        r2_min = torch.minimum(r2_min, r2)
+        h2s.append(torch.clamp_min(r2 * d2 - rd * rd, 0.0))
+    ds = torch.clamp(_eta(p, steps) * torch.sqrt(r2_min), p.min_step, p.max_step)
+    return captured, far, ds, h2s
+
+
+def rk4_step(scn: SceneArrays, x: V3, d: V3, ds: torch.Tensor,
+             h2s: list | None = None) -> tuple[V3, V3]:
+    """One RK4 step of dx/dλ = d, dd/dλ = a(x, d): with ``h2s`` (from
+    :func:`geo_step_begin`) the per-mass h² stay frozen for the step,
+    without it they are recomputed per stage."""
+    if h2s is None:
+        def acc(xs, dstage):
+            return acceleration(scn, xs, dstage)
+    else:
+        def acc(xs, dstage):
+            return _acc_frozen(scn, xs, h2s)
+    return _rk4(acc, x, d, ds)
+
+
+def _rk4(acc, x: V3, d: V3, ds: torch.Tensor) -> tuple[V3, V3]:
+    """The four-stage RK4 body (one ``acc(x, d)`` callable)."""
+    half = ds * 0.5
+    k1x, k1d = d, acc(x, d)
+    k2x = d + k1d * half
+    k2d = acc(x + k1x * half, k2x)
+    k3x = d + k2d * half
+    k3d = acc(x + k2x * half, k3x)
+    k4x = d + k3d * ds
+    k4d = acc(x + k3x * ds, k4x)
+    sixth = ds * (1.0 / 6.0)
+    x_new = x + (k1x + (k2x + k3x) * 2.0 + k4x) * sixth
+    d_new = d + (k1d + (k2d + k3d) * 2.0 + k4d) * sixth
+    return x_new, d_new
+
+
+def capture_and_far(scn: SceneArrays, x: V3, d: V3, p: GeoParams):
+    """(captured, far_field): horizon capture and flat-space tests."""
+    captured, far, _, _ = geo_step_begin(scn, x, d, p)
+    return captured, far

@@ -19,6 +19,11 @@ Formulas:
 - box: three slabs in place of six rect faces, same hits and face codes
   (``src/scene/object/cuboid.rs:83-105``).
 
+The clip ``[cmin, cmax]`` of ``sphere_t``, ``rect_t``, ``box_t`` and
+``nearest_hit`` is either two Python floats (flat space) or per-lane [B]
+tensors (the geodesic chord clip ``[fresh ? clip_min : 0, near ? |chord| :
+clip_max]``); the compares broadcast, so both give the same winners.
+
 Not ported yet: the volume march pseudo-hit and volume carries (surface
 mode only), and the looped table sweeps (``nearest_hit_looped``,
 ``light_pdf_looped``).

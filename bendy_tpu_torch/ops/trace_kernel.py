@@ -1,21 +1,28 @@
-"""The surface tracer as one CUDA kernel per pass, and its launch glue.
+"""The tracer as one CUDA kernel per pass, and its launch glue.
 
 Counterpart of ``bendy_tpu/ops/pallas_trace.py``: ``make_tracer`` stands
 for ``make_pallas_tracer`` and ``make_render_pass`` for
 ``make_pallas_render_pass``. The kernel is ``csrc/trace_surface.cu``, a
 hand-written CUDA C++ kernel for sm_90a that runs the whole regenerating
 wavefront loop of :func:`bendy_tpu_torch.ops.wavefront.trace_core`, one
-thread per lane. That function is its plain version.
+thread per lane. That function is its plain version. The kernel has two
+compile-time instantiations behind two entry points: the flat surface
+tracer (:func:`trace_surface`) and the geodesic one (:func:`trace_geodesic`,
+RK4 chord stepping over up to ``MAX_MASSES`` unrolled masses), each with
+its own launch count.
 
-Dispatch is by the device of the lane tensors, with no fallback: CUDA
-tensors launch the kernel (a build or launch failure raises), CPU tensors
-run the plain version, anything else raises.
+Dispatch is by the device of the lane tensors and by ``cfg.geodesic``,
+with no fallback: CUDA tensors launch the matching kernel (a build or
+launch failure raises), CPU tensors run the plain version, anything else
+raises.
 
 The scene is not baked into the kernel (the TPU kernel recompiles on any
 scene value change): :func:`scene_table` flattens the compiled tables into
 one f32 buffer with run-time counts, which the kernel stages into shared
-memory. Lanes are fed row-major; the reference's tile-major lane order
-(``tile_perm``) changes no pixel and is left as scheduling work.
+memory, and the geodesic knobs (``GeoParams``) are launch arguments, so
+editing a scene or its ``geodesic`` block rebuilds nothing. Lanes are fed
+row-major; the reference's tile-major lane order (``tile_perm``) changes
+no pixel and is left as scheduling work.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bendy_tpu_torch.geodesic import GeoParams
 from bendy_tpu_torch.ops.camera import CameraParams
 from bendy_tpu_torch.ops.wavefront import TraceConfig, TraceSums, check_trace_args, trace_core
 from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
@@ -32,8 +40,10 @@ from bendy_tpu_torch.utils.v3 import V3
 N_OUT = 10  # rx ry rz ax ay az nx ny nz dep
 MAX_TABLE_BYTES = 227 * 1024  # shared memory one block can use on sm_90
 
+MAX_MASSES = 8  # the geodesic kernel's mass unroll (render.MASS_LOOP_THRESHOLD)
+
 # kernel flag bits (csrc/trace_surface.cu FLAG_*)
-FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY = 1, 2, 4, 8, 16
+FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY, FLAG_GEO = 1, 2, 4, 8, 16, 32
 
 
 def pack_camera_host(sensor, focal, aspect, fstop, focus, yfov,
@@ -84,6 +94,7 @@ def scene_table(host: SceneArrays) -> tuple[np.ndarray, dict]:
                      center, fx, fy, ux, uy, z (xyz each), hw, hh, area,
                      cdf, valid
       env   [7]:     root mtype, albedo rgb, emitted rgb
+      mass  [M,4]:   center xyz, rs (geodesic masses; M = 0 in flat scenes)
     The merged color is ``emitted`` for Flat/Emissive and ``albedo``
     otherwise (the one rgb shading reads, ``intersect._prim_color``).
     """
@@ -130,12 +141,14 @@ def scene_table(host: SceneArrays) -> tuple[np.ndarray, dict]:
         ]
     light = np.concatenate(light_cols, axis=1)
     env = np.concatenate([[f32(host.root_mtype)], host.root_albedo, host.root_emitted])
+    mass = np.concatenate([host.mass_center, col(host.mass_rs)], axis=1)
     assert sph.shape[1] == 15 and rct.shape[1] == 21 and box.shape[1] == 28
-    assert light.shape[1] == 5 + 23 * F
+    assert light.shape[1] == 5 + 23 * F and mass.shape[1] == 4
     table = np.concatenate(
-        [a.astype(f32).reshape(-1) for a in (sph, rct, box, light, env)]
+        [a.astype(f32).reshape(-1) for a in (sph, rct, box, light, env, mass)]
     )
-    counts = dict(n_sph=ns, n_rct=nt, n_box=nb, n_light=nl, n_face=F)
+    counts = dict(n_sph=ns, n_rct=nt, n_box=nb, n_light=nl, n_face=F,
+                  n_mass=mass.shape[0])
     return table, counts
 
 
@@ -144,25 +157,23 @@ def _flags(cfg: TraceConfig) -> int:
             | (FLAG_METALLIC if cfg.has_metallic else 0)
             | (FLAG_GLASS if cfg.has_glass else 0)
             | (FLAG_DOF if cfg.has_dof else 0)
-            | (FLAG_POLY if cfg.frustum_poly else 0))
+            | (FLAG_POLY if cfg.frustum_poly else 0)
+            | (FLAG_GEO if cfg.geodesic else 0))
 
 
-def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
-                  pix: torch.Tensor, sub: torch.Tensor, *, width: int,
-                  height: int, spp: int, spp_total: int, subsample: int,
-                  key: tuple, sample0: int, cfg: TraceConfig):
-    """Launch ``csrc/trace_surface.cu`` on the current stream.
-
-    Returns (out [3 or 10, B] f32 channel sums, rays [B] int32, iters
-    [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
-    on anything the kernel does not take and on a refused launch.
-    """
+def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
+            pix: torch.Tensor, sub: torch.Tensor, width: int, height: int, spp: int,
+            spp_total: int, subsample: int, key: tuple, sample0: int,
+            cfg: TraceConfig, extra: tuple = ()):
+    """Check the arguments, allocate the outputs and launch the C entry
+    point ``entry`` on the current stream; ``extra`` are the entry's
+    arguments after ``want_aovs``. Returns (out, rays, iters)."""
     from bendy_tpu_torch import _build
 
     dev = pix.device
     B = pix.shape[0]
     if dev.type != "cuda":
-        raise ValueError(f"trace_surface launches on CUDA tensors, got {dev}")
+        raise ValueError(f"{entry} launches on CUDA tensors, got {dev}")
     for name, t, dtype in (("table", table, torch.float32),
                            ("cam_packed", cam_packed, torch.float32),
                            ("pix", pix, torch.int32), ("sub", sub, torch.int32)):
@@ -184,23 +195,71 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
         return out, rays, iters
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.bendy_trace_surface(
+    rc = getattr(lib, entry)(
         table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
         sub.data_ptr(), out.data_ptr(), rays.data_ptr(), iters.data_ptr(),
         B, width, height, spp, subsample, spp_total & 0xFFFFFFFF,
         key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, sample0 & 0xFFFFFFFF,
         cfg.max_bounces, cfg.max_iters(spp), cfg.clip_min, cfg.clip_max,
         _flags(cfg), counts["n_sph"], counts["n_rct"], counts["n_box"],
-        counts["n_light"], counts["n_face"], int(cfg.want_aovs), stream,
+        counts["n_light"], counts["n_face"], int(cfg.want_aovs), *extra, stream,
     )
     if rc != 0:
         msg = lib.bendy_cuda_error_string(rc).decode()
-        raise RuntimeError(f"trace_surface launch failed: CUDA error {rc} ({msg})")
-    trace_surface.launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
     return out, rays, iters
 
 
+def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
+                  pix: torch.Tensor, sub: torch.Tensor, *, width: int,
+                  height: int, spp: int, spp_total: int, subsample: int,
+                  key: tuple, sample0: int, cfg: TraceConfig):
+    """Launch the flat surface instantiation of ``csrc/trace_surface.cu``
+    on the current stream.
+
+    Returns (out [3 or 10, B] f32 channel sums, rays [B] int32, iters
+    [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
+    on anything the kernel does not take and on a refused launch.
+    """
+    if cfg.geodesic:
+        raise ValueError("a geodesic configuration launches trace_geodesic")
+    res = _launch("bendy_trace_surface", table, counts, cam_packed, pix, sub, width,
+                  height, spp, spp_total, subsample, key, sample0, cfg)
+    if pix.shape[0]:
+        trace_surface.launches += 1
+    return res
+
+
 trace_surface.launches = 0
+
+
+def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
+                   pix: torch.Tensor, sub: torch.Tensor, *, width: int,
+                   height: int, spp: int, spp_total: int, subsample: int,
+                   key: tuple, sample0: int, cfg: TraceConfig):
+    """Launch the geodesic instantiation of ``csrc/trace_surface.cu`` (RK4
+    chord stepping, unrolled masses) on the current stream.
+
+    Same outputs as :func:`trace_surface`; the ``GeoParams`` go in as
+    launch arguments. Adds one to ``trace_geodesic.launches`` per launch.
+    Raises unless ``cfg.geodesic`` and 1 <= n_mass <= ``MAX_MASSES``.
+    """
+    n_mass = counts["n_mass"]
+    if not cfg.geodesic or cfg.looped_masses or not 1 <= n_mass <= MAX_MASSES:
+        raise ValueError(f"trace_geodesic takes a geodesic configuration with 1 to "
+                         f"{MAX_MASSES} unrolled masses, got geodesic={cfg.geodesic}, "
+                         f"looped_masses={cfg.looped_masses}, {n_mass} masses")
+    geo = cfg.geo or GeoParams()
+    res = _launch("bendy_trace_geodesic", table, counts, cam_packed, pix, sub, width,
+                  height, spp, spp_total, subsample, key, sample0, cfg,
+                  extra=(n_mass, geo.eta, geo.min_step, geo.max_step, geo.far,
+                         geo.max_steps, geo.growth))
+    if pix.shape[0]:
+        trace_geodesic.launches += 1
+    return res
+
+
+trace_geodesic.launches = 0
 
 
 def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
@@ -208,12 +267,14 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     """Build the tracer for one compiled scene.
 
     Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B])
-    -> TraceSums``: the CUDA kernel for CUDA lane tensors, the
-    plain :func:`trace_core` for CPU ones. Ray and iteration counts are
-    int64 sums of per-lane counts, with the same meaning on both routes.
+    -> TraceSums``: on CUDA lane tensors the kernel (:func:`trace_geodesic`
+    for a geodesic configuration, else :func:`trace_surface`), on CPU ones
+    the plain :func:`trace_core`. Ray and iteration counts are int64 sums
+    of per-lane counts, with the same meaning on both routes.
     """
     check_trace_args(width, height, spp, subsample, cfg)
     table_np, counts = scene_table(scn.host_copy())
+    launch = trace_geodesic if cfg.geodesic else trace_surface
     tables: dict = {}
 
     def run(cam_packed, seed, pass_idx, pix, sub) -> TraceSums:
@@ -226,7 +287,7 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
             raise ValueError(f"no tracer for device {dev}")
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
-        out, rays, iters = trace_surface(
+        out, rays, iters = launch(
             tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
             sub.to(torch.int32), width=width, height=height, spp=spp,
             spp_total=spp, subsample=subsample, key=key, sample0=0, cfg=cfg,

@@ -19,10 +19,21 @@ no lane has work left. It is the yardstick of the CUDA tracer in
 thread per lane. The RNG is counter-based and keyed by the global
 (pixel, sample, subpixel) stream id, so both give the reference's image.
 
-Only surface mode is ported: volumes, geodesics and the looped table
-sweeps raise ``NotImplementedError``. The reference's ``regen_every``
-cadence changes no pixel (``tests/test_cadence.py``); both versions here
-regenerate every iteration.
+Geodesic mode (scene has ``mass:<rs>`` objects, ``cfg.geodesic``): surface
+propagation is stepped. Each iteration takes one adaptive RK4 step of the
+ray (:mod:`bendy_tpu_torch.geodesic`, per-mass h² frozen per step),
+intersects along the straight chord from the old to the new point, and,
+on no hit inside the chord, continues bending from the new point; lanes
+in flat space (far from and receding from every mass) trace straight with
+the full clip, lanes inside a horizon or past the step budget are
+swallowed.
+
+Still refused with ``NotImplementedError``: volumes (also under geodesics,
+as ``blackhole_cloud`` needs), and the looped table sweeps (primitives,
+lights, and masses above ``render.MASS_LOOP_THRESHOLD``, as
+``mass_cluster`` needs). The reference's ``regen_every`` cadence changes
+no pixel (``tests/test_cadence.py``); both versions here regenerate every
+iteration.
 
 AOVs follow the reference: per sample, the first claiming event (surface
 shade or environment miss) fixes albedo/normal/depth; depth is normalized
@@ -36,6 +47,7 @@ from dataclasses import dataclass
 
 import torch
 
+from bendy_tpu_torch.geodesic import GeoParams, geo_step_begin, rk4_step
 from bendy_tpu_torch.ops.camera import CameraParams, camera_ray, ndc_base
 from bendy_tpu_torch.ops.intersect import FACE_BACK, FACE_FRONT, nearest_hit
 from bendy_tpu_torch.ops.materials import shade_surface
@@ -58,11 +70,14 @@ class TraceConfig:
     max_bounces: int = 8
     clip_min: float = 0.01
     clip_max: float = 1000.0
-    has_volumes: bool = False  # not ported yet: trace_core refuses it (the
-    #   volume knobs of bendy_tpu's TraceConfig come with that slice)
-    geodesic: bool = False  # not ported yet: trace_core refuses it
+    has_volumes: bool = False  # not ported yet: trace_core refuses it, with
+    #   or without geodesics (the volume knobs of bendy_tpu's TraceConfig
+    #   come with that slice)
+    geodesic: bool = False  # curved-ray propagation (scene has masses);
+    #   unrolled masses in surface mode only (looped_masses is refused)
     frustum_poly: bool = False  # FOV bounds the frustum angles under
     #   ~1.2 rad -> range-free polynomial sin/cos in camera_ray
+    geo: GeoParams | None = None  # geodesic knobs; None = GeoParams()
     # static scene facts (Renderer derives them from the compiled scene
     # and camera): branches for absent material kinds are dropped (exact)
     has_diffuse: bool = True
@@ -77,8 +92,12 @@ class TraceConfig:
     def max_iters(self, spp: int) -> int:
         """Loop-length safety cap: per-path worst case × samples (a path
         takes at most max_bounces+1 segments, one bounce-cap kill and one
-        regeneration)."""
-        return (self.max_bounces + 2) * spp
+        regeneration; a geodesic path also up to ``geo.max_steps`` chord
+        steps)."""
+        per_path = self.max_bounces + 2
+        if self.geodesic:
+            per_path += (self.geo or GeoParams()).max_steps
+        return per_path * spp
 
 
 @dataclass
@@ -103,13 +122,14 @@ def check_trace_args(width: int, height: int, spp_total: int, subsample: int,
     is width·height·spp_total·nn. Overflow would silently alias RNG streams
     across the image (correlated noise, no error), so refuse instead.
     """
-    missing = [name for name in ("has_volumes", "geodesic", "looped_sweep",
-                                 "looped_lights", "looped_masses")
+    missing = [name for name in ("has_volumes", "looped_sweep", "looped_lights",
+                                 "looped_masses")
                if getattr(cfg, name)]
     if missing:
+        mode = "geodesic " if cfg.geodesic else ""
         raise NotImplementedError(
-            f"bendy_tpu_torch traces surfaces only; {', '.join(missing)} "
-            "not ported yet"
+            f"bendy_tpu_torch traces {mode}surfaces with unrolled sweeps only; "
+            f"{', '.join(missing)} not ported yet"
         )
     nn = max(subsample, 1) ** 2
     id_space = width * height * spp_total * nn
@@ -198,6 +218,10 @@ def trace_core(
     aov_open = zb
     aov_alb, aov_nrm, aov_dep = zv, zv, zf + math.inf
     acc_rad, acc_alb, acc_nrm, acc_dep = zv, zv, zv, zf
+    geo = cfg.geo or GeoParams()
+    geo_steps = zi  # chord steps of the current path (geodesic mode)
+    fresh = torch.ones(B, dtype=torch.bool, device=dev)  # first segment after
+    #   a bounce or regeneration: clip_min applies (geodesic mode)
     rays = torch.zeros(B, dtype=torch.int64, device=dev)
     lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
     dep_den = cfg.clip_max - cfg.clip_min
@@ -240,25 +264,55 @@ def trace_core(
             aov_alb = V3.where(regen, zv, aov_alb)
             aov_nrm = V3.where(regen, zv, aov_nrm)
             aov_dep = torch.where(regen, math.inf, aov_dep)
+        if cfg.geodesic:
+            geo_steps = torch.where(regen, 0, geo_steps)
+            fresh = fresh | regen
 
         # === bounce-cap kill at path entry (``tracer/mod.rs:323-325``) =====
         mode = torch.where((mode == MODE_SURFACE) & (bounce > cfg.max_bounces),
                            MODE_DEAD, mode)
+
+        if cfg.geodesic:
+            # horizon capture swallows any alive lane; the step budget binds
+            # surface lanes (all alive lanes here: no volumes)
+            captured, far_field, ds, h2s = geo_step_begin(scn, org, dirv, geo,
+                                                          steps=geo_steps)
+            swallowed = captured | ((mode == MODE_SURFACE) & (geo_steps > geo.max_steps))
+            mode = torch.where((mode != MODE_DEAD) & swallowed, MODE_DEAD, mode)
         alive = mode != MODE_DEAD
 
+        # === propagation segment: the RK4 chord, or a straight ray =========
+        if cfg.geodesic:
+            # x_next/d_next are computed for every lane and read only where
+            # the chord holds no hit (geo_cont); dead lanes' values (NaN
+            # included) never reach state a regeneration reads
+            x_next, d_next = rk4_step(scn, org, dirv, ds, h2s=h2s)
+            chord = x_next - org
+            chord_len = chord.length()
+            seg_dir = chord * (1.0 / torch.clamp_min(chord_len, 1e-20))
+            near = (mode == MODE_SURFACE) & ~far_field
+            trace_dir = V3.where(near, seg_dir, dirv)
+            cmin = torch.where(fresh, cfg.clip_min, 0.0)
+            cmax = torch.where(near, chord_len, cfg.clip_max)
+        else:
+            trace_dir, cmin, cmax = dirv, cfg.clip_min, cfg.clip_max
+
         # === one intersection sweep + shade ================================
-        hit = nearest_hit(org, dirv, cfg.clip_min, cfg.clip_max, scn)
+        hit = nearest_hit(org, trace_dir, cmin, cmax, scn)
         miss = alive & ~hit.valid
+        if cfg.geodesic:
+            geo_cont = miss & near  # no hit inside the chord: keep bending
+            miss = miss & ~near  # the environment only in flat space
         surf = alive & hit.valid & ((hit.face == FACE_FRONT) | (hit.face == FACE_BACK))
         # the diffuse branch draws 6 uniforms (slots 4,5 = light point);
         # without it slots 0-3 suffice and keep their values
         u = lane_uniforms(key, sid, path_step, N_UNIFORMS if cfg.has_diffuse else 4)
         sh = shade_surface(
-            dirv, hit, scn, u, cfg.clip_min, cfg.clip_max,
+            trace_dir, hit, scn, u, cfg.clip_min, cfg.clip_max,
             has_diffuse=cfg.has_diffuse, has_metallic=cfg.has_metallic,
             has_glass=cfg.has_glass,
         )
-        env_color, env_alb, env_nrm, env_dep = _env_terms(scn, dirv, cfg.clip_max)
+        env_color, env_alb, env_nrm, env_dep = _env_terms(scn, trace_dir, cfg.clip_max)
 
         # === radiance & throughput =========================================
         rad = rad + V3.where(miss, thr * env_color, zv)
@@ -271,6 +325,14 @@ def trace_core(
         dirv = V3.where(surf, sh.direction, dirv)
         mode = torch.where(alive & surf_cont, MODE_SURFACE, MODE_DEAD).to(torch.int32)
         bounce = bounce + surf_cont.to(torch.int32)
+        if cfg.geodesic:
+            # a surface event restarts the chord clip; a chord without a hit
+            # continues along the bent ray from its end point
+            fresh = (fresh | surf) & ~geo_cont
+            org = V3.where(geo_cont, x_next, org)
+            dirv = V3.where(geo_cont, d_next, dirv)
+            mode = torch.where(geo_cont, MODE_SURFACE, mode).to(torch.int32)
+            geo_steps = geo_steps + near.to(torch.int32)
 
         if cfg.want_aovs:
             claim = (surf | miss) & aov_open

@@ -5,10 +5,12 @@ tracer layer (``src/tracer/mod.rs:16-230``): ``Config`` (static knobs),
 ``RenderConfig`` (per-call overrides), ``Subsample``, ``Output``,
 ``Status`` — with the same defaults.
 
-The renderer runs on one explicit ``device``. On a CUDA device each pass
-is one launch of the hand-written tracer kernel (``ops/trace_kernel.py``)
-per row chunk; on the CPU it runs the plain PyTorch integrator. A CUDA
-device without a card raises; nothing falls back to another path.
+The renderer runs on one ``device``, the card unless the caller asks for
+the CPU. On a CUDA device each pass is one launch of the hand-written
+tracer kernel (``ops/trace_kernel.py``: the surface kernel, or its
+geodesic instantiation for scenes with masses) per row chunk; on
+``device="cpu"`` it runs the plain PyTorch integrator. Without a card the
+default raises; nothing falls back to another path.
 
 Divergence note (as in ``bendy_tpu``): ``ChunkConfig::with_configs``
 assigns ``render.max_bounces`` to ``max_volume_bounces``
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from bendy_tpu_torch.film import Film
-from bendy_tpu_torch.geodesic import GeoParams
+from bendy_tpu_torch.geodesic import GeoParams, geo_from_dict
 from bendy_tpu_torch.ops.camera import CameraParams
 from bendy_tpu_torch.ops.trace_kernel import (
     make_render_pass,
@@ -46,6 +48,13 @@ from bendy_tpu_torch.scene.compiler import (
 from bendy_tpu_torch.scene.graph import Scene, Sphere
 from bendy_tpu_torch.utils.device import resolve_device
 from bendy_tpu_torch.utils.rng import render_key
+
+
+MASS_LOOP_THRESHOLD = 8  # geodesic point masses above which the reference
+#   sweeps masses with loops over a mass table (``bendy_tpu/render.py:142``),
+#   recomputing h² per RK4 stage: a different discretization from the
+#   frozen-h² unroll. The port has no looped mass sweep yet, so such a
+#   scene is refused (TraceConfig.looped_masses), not traced differently.
 
 
 class Output(enum.Enum):
@@ -150,7 +159,7 @@ class Renderer:
     """
 
     def __init__(self, scene: Scene, config: Config = Config(),
-                 max_lanes: int = 1 << 21, device="cpu") -> None:
+                 max_lanes: int = 1 << 21, device="cuda") -> None:
         self.device = resolve_device(device)
         self.config = config
         self.scene = scene
@@ -235,6 +244,10 @@ class Renderer:
             frustum_poly=frustum_poly,
             has_volumes=self.has_volumes,
             geodesic=self.has_masses,
+            # precedence: explicit Config.geo > the scene file's "geodesic"
+            # block > GeoParams defaults
+            geo=cfg.geo if cfg.geo is not None else self._scene_geo(),
+            looped_masses=self.arrays.n_masses > MASS_LOOP_THRESHOLD,
             has_diffuse=self.has_diffuse,
             has_metallic=self.has_metallic,
             has_glass=self.has_glass,
@@ -242,6 +255,11 @@ class Renderer:
             # the AOV pipeline runs only when an AOV channel is requested
             want_aovs=cfg.output is not Output.FULL,
         )
+
+    def _scene_geo(self) -> Optional[GeoParams]:
+        """GeoParams from the scene file's 'geodesic' block, or None."""
+        block = getattr(self.scene, "geodesic", None)
+        return geo_from_dict(block) if block else None
 
     def render(self, camera_ref: int, render_config: RenderConfig, film: Film,
                seed: int = 0) -> Status:

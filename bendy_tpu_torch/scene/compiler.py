@@ -42,6 +42,7 @@ from bendy_tpu_torch.scene.graph import (
     transform_point,
     transform_vector,
 )
+from bendy_tpu_torch.utils.device import resolve_device
 
 MAX_LIGHT_FACES = 6  # a cuboid light contributes 6 faces (upper bound; the
 #   compiled face axis F is sized to the scene's actual max — every bundled
@@ -257,8 +258,10 @@ def validate_scene(scene: Scene) -> None:
                 )
 
 
-def compile_scene(scene: Scene, device="cpu") -> SceneArrays:
-    """Flatten a committed scene graph into SoA tensors on ``device``."""
+def compile_scene(scene: Scene, device="cuda") -> SceneArrays:
+    """Flatten a committed scene graph into SoA tensors on ``device`` (the
+    card unless the caller asks for the CPU; raises without a card)."""
+    device = resolve_device(device)
     validate_scene(scene)
     vol_keys = sorted(k for k, d in scene.data.items() if d.as_volume() is not None)
     vol_index = {k: i for i, k in enumerate(vol_keys)}
@@ -608,11 +611,13 @@ def compile_scene(scene: Scene, device="cpu") -> SceneArrays:
     return scene_arrays_from_numpy(host, device)
 
 
-def scene_arrays_from_numpy(host: SceneArrays, device="cpu") -> SceneArrays:
+def scene_arrays_from_numpy(host: SceneArrays, device="cuda") -> SceneArrays:
     """Numpy-leaved tables (this module's or ``bendy_tpu``'s
     ``SceneArrays.host_copy()``) -> the port's :class:`SceneArrays` of
-    tensors on ``device``, with the same names, shapes and dtypes. The
-    numpy leaves are kept as the host copy."""
+    tensors on ``device`` (the card unless the caller asks for the CPU),
+    with the same names, shapes and dtypes. The numpy leaves are kept as
+    the host copy."""
+    device = resolve_device(device)
     names = [f.name for f in fields(SceneArrays)]
     leaves = {n: np.asarray(getattr(host, n)) for n in names}
     host_np = SceneArrays(**leaves)

@@ -1,35 +1,61 @@
 #!/usr/bin/env python3
-"""Drive the bendy_tpu_torch main path once on one CUDA card and check it.
+"""Drive the bendy_tpu_torch main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py      # from the repo root; builds the kernels itself
 
 Phases, one line each (any failure exits non-zero):
   1. the card: needs torch.cuda.is_available(); prints nvidia-smi's name and
      power limit,
-  2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc,
-  3. kernel vs plain on the card: the tracer kernel against the plain
+  2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
+     each instantiation's ptxas registers, stack and spills,
+  3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
-     max_bounces=3, seed 7, in FULL and NORMAL output (per lane rtol 5e-4,
-     atol 1e-5, equal int64 ray counts), then the Renderer against the
-     cornell CPU golden at the same tolerance,
-  4. the main path: Renderer(cornell) at 256x256, 64 spp, 2x2 subpixels,
-     default Config, into a DeviceFilm — one warm-up pass, then 4 chained
-     timed passes (Mrays/s, seconds per pass, the kernel's launch count);
-     then the kernel alone, one kernel pass (lanes, launch, subpixel sum)
-     and one plain pass at the same geometry and seed, each timed with CUDA
-     events; the two passes are compared per pixel and by ray count.
-It prints the kernel table as one JSON line, then the result line
-{"ok": true, "device": {...}} last.
+     max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
+     against it on blackhole and binary_blackhole at 16x16, spp 1 and 4,
+     max_bounces=2, seed 3, FULL and NORMAL (per lane rtol 5e-4, atol 1e-5,
+     equal int64 ray counts and per-lane iteration sums); then the Renderer
+     against the cornell CPU golden at the same tolerance,
+  4. the cornell main path: Renderer(cornell) at 256x256, 64 spp, 2x2
+     subpixels, default Config, into a DeviceFilm — one warm-up pass, then
+     4 chained timed passes (Mrays/s, seconds per pass, the surface kernel's
+     launch count); then the kernel alone, one kernel pass (lanes, launch,
+     subpixel sum) and one plain pass at the same geometry and seed, each
+     timed with CUDA events; the two passes are compared per pixel and by
+     ray count,
+  5. the blackhole main path (bench.py's blackhole_geodesic row):
+     Renderer(blackhole, Config(max_bounces=2)) at 512x512, 32 spp, no
+     subpixels, into a DeviceFilm — one warm-up pass, then 4 chained timed
+     passes (the geodesic kernel's launch count); the geodesic kernel alone
+     (CUDA events, one warm-up, 10 calls), its per-lane loop-length spread
+     and rays per warp issue slot; then one kernel pass and one plain pass
+     at spp 4, compared per pixel and by ray count.
+It prints the card's name and power limit, the kernel table as one JSON
+line, then the result line {"ok": true, "device": {...}} last. On an H100
+the whole run takes about a minute, most of it the plain passes.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 SCENES = ("cornell", "cornell2", "scene")
+GEO_SCENES = ("blackhole", "binary_blackhole")
 RTOL, ATOL = 5e-4, 1e-5
+PLAIN_BUDGET_S = 60.0  # a plain pass slower than this is narrowed to a row band
+
+# H100 SXM datasheet peaks: HBM bytes/s, FP32 non-tensor FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# FP32 operations per traced segment, counted from csrc/trace_surface.cu
+# (a divide or a sqrt counts as one): the intersection test of each
+# primitive kind, and per mass the capture/far/h² sweep that every
+# geodesic segment runs. The RK4 stages (only on segments near a mass) and
+# the shading are not counted, so the bound is a floor.
+SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
+GEO_BEGIN_OPS, GEO_BEGIN_PER_MASS_OPS = 5, 21
 
 
 def fail(msg: str) -> None:
@@ -58,61 +84,210 @@ def cuda_ms(fn, repeats: int = 1, warmup: int = 0):
     return out, start.elapsed_time(end) / repeats
 
 
-def kernel_vs_plain(dev) -> float:
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel instantiation: registers, stack frame, spills."""
+    lines, name, frame = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)E", name)
+            label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)}>" if t else name)
+            lines.append(f"{label}: {m.group(1)} registers, {frame}")
+    return lines
+
+
+def trace_bound(counts: dict, table_floats: int, cfg, rays: int,
+                lanes: int) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations") for one
+    tracer launch: each input read once (lanes, camera, scene table), each
+    output written once (channel sums, per-lane rays and iterations), and
+    the counted FP32 operations of every traced segment of this run."""
+    n_out = 10 if cfg.want_aovs else 3
+    nbytes = lanes * (8 + 4 * n_out + 8) + 4 * (table_floats + 32)
+    per_ray = (SPHERE_OPS * counts["n_sph"] + RECT_OPS * counts["n_rct"]
+               + BOX_OPS * counts["n_box"])
+    if cfg.geodesic:
+        per_ray += GEO_BEGIN_OPS + GEO_BEGIN_PER_MASS_OPS * counts["n_mass"]
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = rays * per_ray / PEAK_F32_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def warp_stats(rays, iters) -> str:
+    """Per-lane loop-length spread and rays per warp issue slot (the sum of
+    per-lane rays over 32 x the slowest lane's loop length per warp of 32
+    consecutive lanes)."""
+    import torch
+
+    n = iters.numel() // 32 * 32
+    slots = 32 * int(iters[:n].view(-1, 32).max(dim=1).values.sum(dtype=torch.int64))
+    eff = int(rays[:n].sum(dtype=torch.int64)) / max(slots, 1)
+    it = iters.double()
+    return (f"lane loop lengths min {int(iters.min())} mean {float(it.mean()):.1f} "
+            f"max {int(iters.max())}, rays per warp issue slot {eff:.3f}")
+
+
+def renderer(name: str, config, width: int, height: int, dev):
+    from bendy_tpu_torch import Renderer, load_scene
+
+    scene = load_scene(f"scenes/{name}.json.gz")
+    cam = scene.find_by_tag("camera")
+    scene.get_object(cam).inner.aspect_ratio = width / height
+    return Renderer(scene, config, device=dev), cam
+
+
+def compare_lanes(tag: str, kern, plain, cfg) -> float:
+    """Fail unless the kernel's TraceSums equal the plain version's per lane
+    (rtol/atol) with equal int64 ray counts and per-lane iteration sums;
+    returns the largest |diff|."""
+    import torch
+
+    fields = [("radiance", "xyz")]
+    if cfg.want_aovs:
+        fields += [("aov_albedo", "xyz"), ("aov_normal", "xyz")]
+    pairs = [(getattr(getattr(kern, f), c), getattr(getattr(plain, f), c))
+             for f, cs in fields for c in cs]
+    if cfg.want_aovs:
+        pairs.append((kern.aov_depth, plain.aov_depth))
+    bad = sum(lane_mismatch(a, b) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    rays_k, rays_p = int(kern.rays), int(plain.rays)
+    iters_k, iters_p = int(kern.iters), int(plain.iters)
+    print(f"phase 3: {tag}: lanes off {bad}, max |diff| {err:.3e}, rays kernel {rays_k} "
+          f"plain {rays_p}, lane iterations kernel {iters_k} plain {iters_p}")
+    if bad or rays_k != rays_p or iters_k != iters_p or kern.rays.dtype != torch.int64:
+        fail(f"kernel disagrees with plain on {tag}")
+    return err
+
+
+def kernel_vs_plain(dev) -> tuple[float, float]:
+    """Phase 3; returns the largest |diff| of the surface and the geodesic
+    kernel against the plain version."""
     import numpy as np
     import torch
 
-    from bendy_tpu_torch import Config, Film, Output, RenderConfig, Renderer, Subsample, load_scene
+    from bendy_tpu_torch import Config, Film, Output, RenderConfig, Subsample
     from bendy_tpu_torch.ops.trace_kernel import make_tracer
     from bendy_tpu_torch.ops.wavefront import trace_core
     from bendy_tpu_torch.utils.rng import render_key
 
     W = H = 16
-    spp = 4
     pix = torch.arange(W * H, dtype=torch.int32, device=dev)
     sub = torch.zeros(W * H, dtype=torch.int32, device=dev)
-    worst = 0.0
-    for name in SCENES:
+    worst = {False: 0.0, True: 0.0}
+    cases = [(name, 4, 3, 7) for name in SCENES]
+    cases += [(name, spp, 2, 3) for name in GEO_SCENES for spp in (1, 4)]
+    for name, spp, max_bounces, seed in cases:
         for output in (Output.FULL, Output.NORMAL):
-            scene = load_scene(f"scenes/{name}.json.gz")
-            cam = scene.find_by_tag("camera")
-            scene.get_object(cam).inner.aspect_ratio = 1.0
-            r = Renderer(scene, Config(max_bounces=3, output=output), device=dev)
+            r, cam = renderer(name, Config(max_bounces=max_bounces, output=output), W, H, dev)
             cfg = r.trace_config(r.config, cam)
             params = r.camera_params(cam)
-            kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, 7, 0, pix, sub)
-            plain = trace_core(r.arrays, params, render_key(7, 0), pix, sub, W, H, spp, 1, cfg)
+            kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix, sub)
+            plain = trace_core(r.arrays, params, render_key(seed, 0), pix, sub, W, H, spp, 1, cfg)
             torch.cuda.synchronize()
-            fields = [("radiance", "xyz")]
-            if cfg.want_aovs:
-                fields += [("aov_albedo", "xyz"), ("aov_normal", "xyz")]
-            pairs = [(getattr(getattr(kern, f), c), getattr(getattr(plain, f), c))
-                     for f, cs in fields for c in cs]
-            if cfg.want_aovs:
-                pairs.append((kern.aov_depth, plain.aov_depth))
-            bad = sum(lane_mismatch(a, b) for a, b in pairs)
-            err = max(float((a - b).abs().max()) for a, b in pairs)
-            worst = max(worst, err)
-            rays_k, rays_p = int(kern.rays), int(plain.rays)
-            iters_k, iters_p = int(kern.iters), int(plain.iters)
-            print(f"phase 3: {name} {output.value}: lanes off {bad}, max |diff| {err:.3e}, "
-                  f"rays kernel {rays_k} plain {rays_p}, lane iterations kernel {iters_k} "
-                  f"plain {iters_p}")
-            if bad or rays_k != rays_p or iters_k != iters_p or kern.rays.dtype != torch.int64:
-                fail(f"kernel disagrees with plain on {name} {output.value}")
-    scene = load_scene("scenes/cornell.json.gz")
-    cam = scene.find_by_tag("camera")
-    scene.get_object(cam).inner.aspect_ratio = 1.0
-    film = Film(16, 16)
-    Renderer(scene, Config(max_bounces=3), device=dev).render(
-        cam, RenderConfig(samples=8, subsample=Subsample(1)), film, seed=7)
+            err = compare_lanes(f"{name} spp {spp} {output.value}", kern, plain, cfg)
+            worst[cfg.geodesic] = max(worst[cfg.geodesic], err)
+    r, cam = renderer("cornell", Config(max_bounces=3), W, H, dev)
+    film = Film(W, H)
+    r.render(cam, RenderConfig(samples=8, subsample=Subsample(1)), film, seed=7)
     golden = np.load("tests/golden/cornell_16x16_mb3_s8_seed7.npy")
     err = float(np.abs(film.mean() - golden).max())
     off = int((np.abs(film.mean() - golden) > ATOL + RTOL * np.abs(golden)).sum())
     print(f"phase 3: cornell golden through the Renderer: values off {off}, max |diff| {err:.3e}")
     if off:
         fail("Renderer on the card misses the cornell golden")
-    return max(worst, err)
+    return max(worst[False], err), worst[True]
+
+
+def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, dev,
+              launch) -> dict:
+    """Drive one main path: a warm-up pass, then 4 chained passes into a
+    DeviceFilm with every launch count set to 0 just before them; fails
+    unless ``launch`` (the path's kernel wrapper) ran once per pass."""
+    import numpy as np
+
+    from bendy_tpu_torch import DeviceFilm, RenderConfig, Subsample
+    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface
+
+    r, cam = renderer(name, config, W, H, dev)
+    rc = RenderConfig(samples=spp, subsample=Subsample(n))
+    seed = int.from_bytes(os.urandom(4), "little")
+    film = DeviceFilm(W, H, device=dev)
+    r.render(cam, rc, film, seed=seed)  # warm-up (and first-use build)
+    film.synchronize()
+    rays0 = r.rays_traced
+    trace_surface.launches = trace_geodesic.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(4):
+        r.render(cam, rc, film, seed=seed)
+    film.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch.launches
+    rays = r.rays_traced - rays0
+    mean = film.mean()
+    print(f"phase {phase}: main path {name} {W}x{H} {spp} spp {n}x{n}: 4 passes in {dt:.4f} s, "
+          f"{dt / 4:.4f} s/pass, {rays} rays ({rays // 4} per pass), "
+          f"{rays / dt / 1e6:.1f} Mrays/s, {launch.__name__} launches {launches}")
+    if launches != 4:
+        fail(f"main path launched {launch.__name__} {launches} times, expected 4")
+    if not (np.isfinite(mean).all() and mean.shape == (H, W, 3) and mean.mean() > 0):
+        fail(f"{name} main-path film is not finite and non-zero")
+    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, launches=launches)
+
+
+def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: int,
+                            pass_spp: int, plain_rows: int, launch, dev) -> dict:
+    """Time the kernel alone at the main-path shape (CUDA events, one
+    warm-up, 10 calls), then one kernel pass and one plain pass at
+    ``pass_spp`` over the first ``plain_rows`` rows, compared per pixel and
+    by ray count. Returns the timings, the bound and the largest |diff|."""
+    import torch
+
+    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, pass_lanes, scene_table
+    from bendy_tpu_torch.render import render_pass
+    from bendy_tpu_torch.utils.rng import render_key
+
+    r, cam, seed = run["r"], run["cam"], run["seed"]
+    cfg = r.trace_config(r.config, cam)
+    nn = n * n
+    table_np, counts = scene_table(r.arrays.host_copy())
+    table = torch.from_numpy(table_np).to(dev)
+    pix, sub = pass_lanes(W, H, nn, 0, dev)
+    (_, rays, iters), kernel_ms = cuda_ms(lambda: launch(
+        table, counts, r._cam_packed.reshape(-1), pix, sub, width=W, height=H, spp=spp,
+        spp_total=spp, subsample=n, key=render_key(seed, 0), sample0=0, cfg=cfg), 10, 1)
+    bound_ms, bound_by = trace_bound(counts, table.numel(), cfg,
+                                     int(rays.sum(dtype=torch.int64)), pix.numel())
+    print(f"phase {phase}: {launch.__name__} alone {kernel_ms:.3f} ms per launch at {W}x{H} "
+          f"{spp} spp (bound {bound_ms:.3f} ms by {bound_by}); {warp_stats(rays, iters)}")
+    kern_pass = make_render_pass(r.arrays, W, H, plain_rows, pass_spp, n, cfg, "full")
+    (k_sums, k_rays), pass_ms = cuda_ms(lambda: kern_pass(r._cam_packed, seed, 0, 0), 10, 1)
+    (p_sums, p_rays), plain_ms = cuda_ms(
+        lambda: render_pass(r.arrays, r.camera_params(cam), seed, 0, 0, W, H, plain_rows,
+                            pass_spp, n, cfg, "full"))
+    close = ((k_sums - p_sums).abs() <= ATOL + RTOL * p_sums.abs()).all(dim=-1)
+    share = float(close.float().mean())
+    mean_rel = abs(float(k_sums.mean()) - float(p_sums.mean())) / abs(float(p_sums.mean()))
+    max_err = float((k_sums - p_sums).abs().max())
+    print(f"phase {phase}: kernel vs plain pass at {W}x{plain_rows} rows, {pass_spp} spp: "
+          f"pixels within tol {share:.6f}, image mean rel diff {mean_rel:.3e}, max |diff| "
+          f"{max_err:.3e}, rays kernel {int(k_rays)} plain {int(p_rays)}; kernel pass "
+          f"(lanes, launch, subpixel sum) {pass_ms:.3f} ms, plain pass {plain_ms:.1f} ms")
+    if share < 0.999 or mean_rel > 1e-4:
+        fail(f"kernel pass disagrees with the plain pass at {W}x{plain_rows}")
+    if int(k_rays) != int(p_rays):
+        fail(f"kernel pass and plain pass count different rays at {W}x{plain_rows}")
+    if plain_ms > PLAIN_BUDGET_S * 1e3:
+        print(f"phase {phase}: the plain pass took over {PLAIN_BUDGET_S:.0f} s: narrow "
+              "its row band")
+    return dict(kernel_ms=kernel_ms, pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def main() -> int:
@@ -130,97 +305,61 @@ def main() -> int:
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
 
-    from bendy_tpu_torch import _build
+    from bendy_tpu_torch import Config, _build
+    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface
 
     lib_path, build_s = _build.build()
-    regs = [ln.split("info    :")[-1].strip() for ln in _build.build_log().splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
+    print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
+          + " | ".join(ptxas_report(_build.build_log())))
 
-    phase3_err = kernel_vs_plain(dev)
+    surf_err16, geo_err16 = kernel_vs_plain(dev)
 
-    import numpy as np
+    # phase 4: the cornell main path through the surface kernel
+    cornell = main_path(4, "cornell", Config(), 256, 256, 64, 2, dev, trace_surface)
+    surf = kernel_alone_and_passes(4, cornell, 256, 256, 64, 2, 64, 256, trace_surface, dev)
 
-    from bendy_tpu_torch import DeviceFilm, RenderConfig, Renderer, Subsample, load_scene
-    from bendy_tpu_torch.ops.trace_kernel import (
-        make_render_pass,
-        pass_lanes,
-        scene_table,
-        trace_surface,
-    )
-    from bendy_tpu_torch.render import render_pass
-    from bendy_tpu_torch.utils.rng import render_key
-
-    W = H = 256
-    spp, n = 64, 2
-    scene = load_scene("scenes/cornell.json.gz")
-    cam = scene.find_by_tag("camera")
-    scene.get_object(cam).inner.aspect_ratio = W / H
-    r = Renderer(scene, device=dev)
-    rc = RenderConfig(samples=spp, subsample=Subsample(n))
-    seed = int.from_bytes(os.urandom(4), "little")
-    film = DeviceFilm(W, H, device=dev)
-    r.render(cam, rc, film, seed=seed)  # warm-up (and first-use build)
-    film.synchronize()
-    rays0 = r.rays_traced
-    trace_surface.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(4):
-        r.render(cam, rc, film, seed=seed)
-    film.synchronize()
-    dt = time.perf_counter() - t0
-    launches = trace_surface.launches
-    rays = r.rays_traced - rays0
-    mean = film.mean()
-    print(f"phase 4: main path cornell {W}x{H} {spp} spp 2x2: 4 passes in {dt:.4f} s, "
-          f"{dt / 4:.4f} s/pass, {rays} rays, {rays / dt / 1e6:.1f} Mrays/s, "
-          f"kernel launches {launches}")
-    if launches != 4:
-        fail(f"main path launched the tracer kernel {launches} times, expected 4")
-    if not (np.isfinite(mean).all() and mean.shape == (H, W, 3) and mean.mean() > 0):
-        fail("main-path film is not finite and non-zero")
-
-    cfg = r.trace_config(r.config, cam)
-    nn = n * n
-    table_np, counts = scene_table(r.arrays.host_copy())
-    table = torch.from_numpy(table_np).to(dev)
-    pix, sub = pass_lanes(W, H, nn, 0, dev)
-    _, kernel_ms = cuda_ms(lambda: trace_surface(
-        table, counts, r._cam_packed.reshape(-1), pix, sub, width=W, height=H, spp=spp,
-        spp_total=spp, subsample=n, key=render_key(seed, 0), sample0=0, cfg=cfg), 10, 1)
-    kern_pass = make_render_pass(r.arrays, W, H, H, spp, n, cfg, "full")
-    (k_sums, k_rays), pass_ms = cuda_ms(lambda: kern_pass(r._cam_packed, seed, 0, 0), 10, 1)
-    (p_sums, p_rays), plain_ms = cuda_ms(
-        lambda: render_pass(r.arrays, r.camera_params(cam), seed, 0, 0, W, H, H, spp, n,
-                            cfg, "full"))
-    close = ((k_sums - p_sums).abs() <= ATOL + RTOL * p_sums.abs()).all(dim=-1)
-    share = float(close.float().mean())
-    mean_rel = abs(float(k_sums.mean()) - float(p_sums.mean())) / abs(float(p_sums.mean()))
-    max_err = float((k_sums - p_sums).abs().max())
-    print(f"phase 4: kernel vs plain pass at {W}x{H}: pixels within tol {share:.6f}, "
-          f"image mean rel diff {mean_rel:.3e}, max |diff| {max_err:.3e}, rays kernel "
-          f"{int(k_rays)} plain {int(p_rays)}; kernel alone {kernel_ms:.3f} ms, kernel pass "
-          f"(lanes, launch, subpixel sum) {pass_ms:.3f} ms, plain pass {plain_ms:.1f} ms")
-    if share < 0.999 or mean_rel > 1e-4:
-        fail("kernel pass disagrees with the plain pass at the main-path shape")
-    if int(k_rays) != int(p_rays):
-        fail("kernel pass and plain pass count different rays at the main-path shape")
+    # phase 5: the blackhole main path through the geodesic kernel
+    bh = main_path(5, "blackhole", Config(max_bounces=2), 512, 512, 32, 1, dev, trace_geodesic)
+    geo = kernel_alone_and_passes(5, bh, 512, 512, 32, 1, 4, 512, trace_geodesic, dev)
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "trace_surface",
-        "route": "cuda",
-        "source": "bendy_tpu_torch/csrc/trace_surface.cu",
-        "replaces": "bendy_tpu/ops/pallas_trace.py:255",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "pass_ms": pass_ms,
-        "max_abs_err_16x16": phase3_err,
-        "mrays_per_s": rays / dt / 1e6,
-        "s_per_pass": dt / 4,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "trace_surface",
+            "route": "cuda",
+            "source": "bendy_tpu_torch/csrc/trace_surface.cu",
+            "replaces": "bendy_tpu/ops/pallas_trace.py:255",
+            "launches": cornell["launches"],
+            "max_abs_err": surf["max_err"],
+            "ms": surf["kernel_ms"],
+            "plain_ms": surf["plain_ms"],
+            "bound_ms": surf["bound_ms"],
+            "bound_by": surf["bound_by"],
+            "library_ms": None,
+            "pass_ms": surf["pass_ms"],
+            "max_abs_err_16x16": surf_err16,
+            "mrays_per_s": cornell["rays"] / cornell["dt"] / 1e6,
+            "s_per_pass": cornell["dt"] / 4,
+        },
+        {
+            "name": "trace_geodesic",
+            "route": "cuda",
+            "source": "bendy_tpu_torch/csrc/trace_surface.cu",
+            "replaces": "bendy_tpu/ops/pallas_trace.py:255 (geodesic)",
+            "launches": bh["launches"],
+            "max_abs_err": geo["max_err"],
+            "ms": geo["kernel_ms"],
+            "plain_ms": geo["plain_ms"],
+            "bound_ms": geo["bound_ms"],
+            "bound_by": geo["bound_by"],
+            "library_ms": None,
+            "pass_ms": geo["pass_ms"],
+            "pass_spp": 4,  # pass_ms, plain_ms and max_abs_err; ms is at 32 spp
+            "max_abs_err_16x16": geo_err16,
+            "mrays_per_s": bh["rays"] / bh["dt"] / 1e6,
+            "s_per_pass": bh["dt"] / 4,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,7 +31,7 @@ CLIP = (0.01, 1000.0)
 def setup(request):
     path = f"scenes/{request.param}.json.gz"
     ref_r = RefRenderer(ref_load(path), use_pallas=False)
-    port_r = Renderer(load_scene(path))
+    port_r = Renderer(load_scene(path), device="cpu")
     g = np.random.default_rng(11 + SCENES.index(request.param))
     host = port_r.arrays.host_copy()
     cam_pos = port_r.scene.get_object(port_r.scene.find_by_tag("camera")).transform.world[:, 3]

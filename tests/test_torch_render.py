@@ -24,7 +24,7 @@ def test_cornell_golden():
     rtol 1e-5 — the port renders the same image, not just the same
     statistics (the RNG words are identical)."""
     scene, cam = _cornell()
-    r = Renderer(scene, Config(max_bounces=3))
+    r = Renderer(scene, Config(max_bounces=3), device="cpu")
     film = Film(16, 16)
     assert r.render(cam, RenderConfig(samples=8, subsample=Subsample(1)), film, seed=7) \
         is Status.IN_PROGRESS
@@ -37,7 +37,8 @@ def test_cornell_golden():
 def test_zero_samples_is_done():
     scene, cam = _cornell()
     film = Film(8, 8)
-    assert Renderer(scene).render(cam, RenderConfig(samples=0), film) is Status.DONE
+    assert Renderer(scene, device="cpu").render(cam, RenderConfig(samples=0), film) \
+        is Status.DONE
     assert film.passes == 0
 
 
@@ -45,9 +46,10 @@ def test_row_chunking_changes_no_pixel():
     scene, cam = _cornell()
     rc = RenderConfig(samples=2, subsample=Subsample(2))
     whole, chunked = Film(12, 10), Film(12, 10)
-    r1 = Renderer(scene, Config(max_bounces=2))
+    r1 = Renderer(scene, Config(max_bounces=2), device="cpu")
     r1.render(cam, rc, whole, seed=3)
-    r2 = Renderer(scene, Config(max_bounces=2), max_lanes=12 * 4 * 3)  # 3-row chunks
+    r2 = Renderer(scene, Config(max_bounces=2), max_lanes=12 * 4 * 3,  # 3-row chunks
+                  device="cpu")
     r2.render(cam, rc, chunked, seed=3)
     np.testing.assert_array_equal(chunked.sum, whole.sum)
     assert r2.rays_traced == r1.rays_traced
@@ -55,7 +57,7 @@ def test_row_chunking_changes_no_pixel():
 
 def test_device_film_matches_host_film_and_aov_outputs():
     scene, cam = _cornell()
-    r = Renderer(scene, Config(max_bounces=2))
+    r = Renderer(scene, Config(max_bounces=2), device="cpu")
     host, dev = Film(8, 8), DeviceFilm(8, 8, device="cpu")
     for film in (host, dev):
         for _ in range(2):
@@ -70,7 +72,8 @@ def test_device_film_matches_host_film_and_aov_outputs():
 def test_checkpoints_cross_load(tmp_path):
     scene, cam = _cornell()
     film = DeviceFilm(8, 8, device="cpu")
-    Renderer(scene, Config(max_bounces=2)).render(cam, RenderConfig(samples=2), film, seed=9)
+    Renderer(scene, Config(max_bounces=2), device="cpu").render(
+        cam, RenderConfig(samples=2), film, seed=9)
     ours = str(tmp_path / "port.npz")
     film.save_checkpoint(ours, seed=9)
     back, seed = ref_film.Film.load_checkpoint(ours)

@@ -76,7 +76,7 @@ def test_camera_ray_matches(name):
     W, H, n = 32, 24, 2
     path = f"scenes/{name}.json.gz"
     ref_r = RefRenderer(ref_load(path), use_pallas=False)
-    port_r = Renderer(load_scene(path))
+    port_r = Renderer(load_scene(path), device="cpu")
     cam_ref = ref_r.scene.find_by_tag("camera")
     rcfg = ref_r.trace_config(ref_r.config, cam_ref)
     pcfg = port_r.trace_config(port_r.config, cam_ref)

@@ -35,7 +35,7 @@ def test_load_and_dump_byte_equal(path):
 @pytest.mark.parametrize("path", SCENES)
 def test_compile_bit_equal(path):
     ref = ref_scene.compile_scene(ref_scene.load_scene(path)).host_copy()
-    port = port_scene.compile_scene(port_scene.load_scene(path))
+    port = port_scene.compile_scene(port_scene.load_scene(path), device="cpu")
     host = port.host_copy()
     for f in fields(SceneArrays):
         a = np.asarray(getattr(ref, f.name))
@@ -72,7 +72,7 @@ def test_validate_scene_same_errors(build):
     with pytest.raises(ValueError) as ref_err:
         ref_scene.compile_scene(build(ref_scene))
     with pytest.raises(ValueError) as port_err:
-        port_scene.compile_scene(build(port_scene))
+        port_scene.compile_scene(build(port_scene), device="cpu")
     assert str(port_err.value) == str(ref_err.value)
 
 
@@ -80,7 +80,7 @@ def test_validate_scene_same_errors(build):
 def test_scene_arrays_from_numpy_round_trip(name):
     path = f"scenes/{name}.json.gz"
     ref = ref_scene.compile_scene(ref_scene.load_scene(path)).host_copy()
-    port = scene_arrays_from_numpy(ref)
+    port = scene_arrays_from_numpy(ref, device="cpu")
     for f in fields(SceneArrays):
         a = np.asarray(getattr(ref, f.name))
         t = getattr(port, f.name)
@@ -89,7 +89,7 @@ def test_scene_arrays_from_numpy_round_trip(name):
         np.testing.assert_array_equal(t.numpy(), a, err_msg=f.name)
         np.testing.assert_array_equal(getattr(port.host_copy(), f.name), a)
     # and back through the port's own converter
-    again = scene_arrays_from_numpy(port.host_copy())
+    again = scene_arrays_from_numpy(port.host_copy(), device="cpu")
     for f in fields(SceneArrays):
         assert torch.equal(getattr(again, f.name), getattr(port, f.name)), f.name
 

@@ -41,7 +41,7 @@ def _renderers(name, output):
         s.get_object(cam).inner.aspect_ratio = W / H
     ref = RefRenderer(ref_scene, RefConfig(max_bounces=3, output=RefOutput(output)),
                       use_pallas=False)
-    port = Renderer(port_scene, Config(max_bounces=3, output=Output(output)))
+    port = Renderer(port_scene, Config(max_bounces=3, output=Output(output)), device="cpu")
     return ref, port, cam
 
 
@@ -100,9 +100,12 @@ def test_stream_id_space_refused():
 def test_unported_modes_refused(flag):
     _, port_r, cam = _renderers("cornell", "full")
     lanes = torch.zeros(4, dtype=torch.int64)
+    # geodesics are ported in surface mode; inside media (blackhole_cloud's
+    # mode) they are not
+    flags = {flag: True, "has_volumes": True} if flag == "geodesic" else {flag: True}
     with pytest.raises(NotImplementedError, match=flag):
         trace_core(port_r.arrays, port_r.camera_params(cam), (1, 2), lanes, lanes,
-                   4, 1, 1, 1, TraceConfig(**{flag: True}))
+                   4, 1, 1, 1, TraceConfig(**flags))
 
 
 def test_active_mask_and_cpu_tracer_dispatch():
@@ -150,14 +153,14 @@ def test_iters_are_per_lane_loop_lengths():
     assert int(masked.iters) == int(run(pix[active], sub[active]).iters)
 
 
-@pytest.mark.parametrize("name", ["cornell", "cornell2", "scene"])
+@pytest.mark.parametrize("name", ["cornell", "cornell2", "scene", "binary_blackhole"])
 def test_scene_table_layout_is_prim_tables(name):
     """The kernel's flat table is the reference's prim_tables row layout,
-    unpadded, then the light rows and the environment."""
+    unpadded, then the light rows, the environment and the mass rows."""
     host = load_scene(f"scenes/{name}.json.gz")
     from bendy_tpu_torch.scene.compiler import compile_scene
 
-    arrays = compile_scene(host).host_copy()
+    arrays = compile_scene(host, device="cpu").host_copy()
     table, counts = scene_table(arrays)
     ref = prim_tables(arrays, np, block=1)
     parts = [ref.get(k, np.zeros((0, n), np.float32))
@@ -165,10 +168,13 @@ def test_scene_table_layout_is_prim_tables(name):
     flat = np.concatenate([p.reshape(-1) for p in parts])
     np.testing.assert_array_equal(table[:flat.size], flat)
     env = np.concatenate([[arrays.root_mtype], arrays.root_albedo, arrays.root_emitted])
-    np.testing.assert_array_equal(table[flat.size:], env.astype(np.float32))
+    mass = np.concatenate([arrays.mass_center, arrays.mass_rs[:, None]], axis=1)
+    np.testing.assert_array_equal(table[flat.size:],
+                                  np.concatenate([env, mass.reshape(-1)]).astype(np.float32))
     assert counts == dict(n_sph=arrays.sph_radius.shape[0], n_rct=arrays.rct_traced.shape[0],
                           n_box=arrays.box_rough.shape[0], n_light=arrays.light_kind.shape[0],
-                          n_face=arrays.light_face_cdf.shape[1])
+                          n_face=arrays.light_face_cdf.shape[1],
+                          n_mass=arrays.mass_rs.shape[0])
 
 
 def test_packed_camera_and_aux_match_reference():
