@@ -6,8 +6,9 @@ never jax. Each file mirrors the ``bendy_tpu`` file of the same path:
 
     utils/       color transfer, vector math, counter-based RNG, image IO
     scene/       scene graph + (de)serialization (copies) + SoA scene compiler
-    models/      scene builders (copies): cornell, blackhole, binary_blackhole
-    ops/         samplers, camera rays, intersection, materials, the
+    models/      scene builders (copies): cornell, blackhole, binary_blackhole,
+                 blackhole_cloud, dense_cloud
+    ops/         samplers, camera rays, intersection, materials, media, the
                  wavefront integrator (plain PyTorch) and trace_kernel.py,
                  the launch glue of the CUDA tracer kernel
     csrc/        hand-written CUDA C++ kernels for sm_90a (built by _build.py
@@ -17,11 +18,12 @@ never jax. Each file mirrors the ``bendy_tpu`` file of the same path:
     render.py    Renderer / Config / RenderConfig front-end
 
 Ported so far: the surface main path (spheres, rects, boxes; all five
-materials; AOVs) and geodesic lensing in surface mode with up to 8
-unrolled masses (blackhole, binary_blackhole). Not ported, and refused:
-volumes (also under geodesics, blackhole_cloud), dense grids, the looped
-table sweeps (including more than 8 masses, mass_cluster). Also not
-ported: multi-device passes, the CLI and the preview server.
+materials; AOVs), geodesic lensing with up to 8 unrolled masses
+(blackhole, binary_blackhole), and participating media on sparse and
+dense density grids, also under geodesics (volume, cloud, dense_cloud,
+blackhole_cloud). Not ported, and refused: the looped table sweeps
+(cloud_field; more than 8 masses, mass_cluster). Also not ported:
+multi-device passes, the CLI and the preview server.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card the default raises.
@@ -32,7 +34,13 @@ __version__ = "0.1.0"
 from bendy_tpu_torch.render import Config, Output, RenderConfig, Renderer, Status, Subsample  # noqa: F401,E402
 from bendy_tpu_torch.film import DeviceFilm, Film  # noqa: F401,E402
 from bendy_tpu_torch.geodesic import GeoParams  # noqa: F401,E402
-from bendy_tpu_torch.models import build_binary_blackhole, build_blackhole, build_cornell  # noqa: F401,E402
+from bendy_tpu_torch.models import (  # noqa: F401,E402
+    build_binary_blackhole,
+    build_blackhole,
+    build_blackhole_cloud,
+    build_cornell,
+    build_dense_cloud,
+)
 from bendy_tpu_torch.scene.graph import (  # noqa: F401
     Camera,
     Cuboid,

@@ -2,17 +2,26 @@
 //
 // Replaces bendy_tpu/ops/pallas_trace.py::make_pallas_tracer (the
 // pl.pallas_call at pallas_trace.py:255, running
-// bendy_tpu/ops/wavefront.py::trace_core) in two configurations, two
-// compile-time instantiations of one kernel template behind two C entry
+// bendy_tpu/ops/wavefront.py::trace_core) in four configurations,
+// compile-time instantiations of one kernel template behind three C entry
 // points:
-//   - bendy_trace_surface  (GEO = false): the surface configuration (1a);
-//   - bendy_trace_geodesic (GEO = true): the geodesic configuration with
-//     unrolled masses (1d): RK4 chord stepping around up to 8 point masses
-//     (bendy_tpu/geodesic.py:124,145,177,373; wavefront.py:550-599,
-//     649-652,682-689).
+//   - bendy_trace_surface  (GEO = false, VOL = false): the surface
+//     configuration (1a);
+//   - bendy_trace_geodesic (GEO = true, VOL = false): the geodesic
+//     configuration with unrolled masses (1d): RK4 chord stepping around up
+//     to 8 point masses (bendy_tpu/geodesic.py:124,145,177,373;
+//     wavefront.py:550-599, 649-652, 682-689);
+//   - bendy_trace_volume (VOL = true, GEO from FLAG_GEO): participating
+//     media, both the baked sparse grid (1b: ops/volume.py::density_sample,
+//     scalar unroll :182-216) and the dense-grid brick fetch (1c:
+//     ops/volume.py::_density_operand :248, pack_vol_operand :99), with
+//     volume_shade (:489-520) and the march mode of trace_core
+//     (wavefront.py:544-548, 593-604, 697-746); with GEO, geodesics inside
+//     media (wavefront.py:559-572, 589, 738-739).
 // Its plain PyTorch version is bendy_tpu_torch/ops/wavefront.py::trace_core
-// (geodesic mode: bendy_tpu_torch/geodesic.py); the wrappers and the table
-// layout are in bendy_tpu_torch/ops/trace_kernel.py.
+// (geodesic mode: bendy_tpu_torch/geodesic.py; media:
+// bendy_tpu_torch/ops/volume.py); the wrappers and the table layout are in
+// bendy_tpu_torch/ops/trace_kernel.py.
 //
 // What it computes: for every lane (one pixel x subpixel) the whole
 // regenerating wavefront loop over spp samples: finalize a dead path and
@@ -40,8 +49,11 @@
 //     block, so editing or moving an object rebuilds nothing.
 //   - the TPU workarounds are gone: bool state, native uint32_t RNG words,
 //     no lane-varying zero seeds.
-//   - geodesics are a template parameter, so the surface instantiation
-//     compiles as it did before they existed. The geodesic one reads the
+//   - geodesics and media are template parameters, so the surface
+//     instantiation compiles as it did before they existed; every volume
+//     addition is an `if constexpr (VOL)` block, so the surface and geodesic
+//     instantiations compile to the same code as without media (ptxas
+//     reports the same registers). The geodesic one reads the
 //     mass block [M,4] from the same shared-memory table, keeps the frozen
 //     per-mass h² in a float[8] that only fully unrolled loops with constant
 //     indices touch (so it stays in registers), takes the RK4 step only on
@@ -87,9 +99,9 @@
 //     and inv_r⁵ as four multiplies left to right; the RK4 sums as
 //     (k1 + (k2 + k3)·2 + k4)·(ds·(1/6)); the step eta·(1 + growth·steps).
 //     Without contraction it then rounds as the plain version does.
-//   - The step budget (geo_steps > max_steps) binds only surface lanes, which
-//     are all alive lanes here (no volumes); geo_steps advances only on near
-//     segments; capture applies to every alive lane.
+//   - The step budget (geo_steps > max_steps) binds only surface lanes, not
+//     marching ones; geo_steps advances only on near segments; capture
+//     applies to every alive lane.
 //   - The chord: seg_dir = chord·(1/max(|chord|, 1e-20)) and the clip
 //     [fresh ? clip_min : 0, near ? |chord| : clip_max]. A far-field lane
 //     traces straight along dir with the full clip. A miss inside a near
@@ -99,9 +111,38 @@
 //     center reaches the state a regeneration reads.
 //   - n_mass == 0 would leave r2_min at +INF: the geodesic entry refuses any
 //     n_mass outside [1, 8], as the wrapper does.
+//
+// Media (the VOL instantiation; ops/volume.py and trace_core's march mode
+// are the order):
+//   - One device function, density_sample, serves sparse and dense grids.
+//     The TPU kernel needs two forms because Mosaic cannot gather: a scalar
+//     unroll over the nonzero cells baked as constants (1b), and a bf16
+//     one-hot brick contraction on the MXU (1c). Here the grid stack
+//     [G,D,H,W] f32 arrives as its own global buffer (a 32^3 grid is 128 KiB,
+//     too big for the shared-memory table) and each lookup reads its 8
+//     corners through the read-only path (__ldg): a 16^3 grid (16 KiB) stays
+//     in L1, a 32^3 one (128 KiB) mostly in L2. Staging it in shared memory is
+//     later work. The weights are applied in the plain version's order (x, then
+//     y, then z; a far corner clamped onto the near one gets the single
+//     weight (1 - f) + f), so the kernel and the plain version agree bit for
+//     bit; both differ from the reference's XLA einsum by at most ~2 ulp.
+//   - Per-lane state: march (the three-state mode is alive x march),
+//     vbounce and last_sph (a sphere row) are registers.
+//   - What likely bounds it on this card: per march step a full primitive
+//     sweep plus 8 dependent loads and ~54 FP32 operations of the lookup,
+//     and divergence between march lanes and surface lanes of one warp
+//     (a lane that crosses a cloud takes tens of march steps where its
+//     neighbour takes one surface segment). The design keeps one thread per
+//     lane and lets each run its own loop; it shades a volume event without
+//     the surface-shading block and skips the lookup on surface events.
+//     Sorting lanes by mode is later work.
+//   - The interior test |end - center|^2 <= r^2 sits on the sphere boundary;
+//     it keeps length_squared's order. Knife-edge scatter decisions
+//     (u0 < step * density) follow from the bit-equal density.
 
 #include <cstdint>
 #include <limits>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -119,7 +160,8 @@ constexpr int MASS_COLS = 4;         // center xyz, rs (after the environment)
 constexpr int MAX_MASSES = 8;        // the geodesic instantiation's unroll
 
 constexpr int MAT_FLAT = 0, MAT_DIFFUSE = 1, MAT_METALLIC = 2, MAT_GLASS = 3, MAT_EMISSIVE = 4;
-constexpr int FACE_FRONT = 0, FACE_BACK = 1;
+constexpr int FACE_FRONT = 0, FACE_BACK = 1, FACE_VOLUME = 2, FACE_VOLUME_FRONT = 3,
+              FACE_VOLUME_BACK = 4;
 
 constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
               FLAG_GEO = 32;
@@ -128,6 +170,7 @@ constexpr uint32_t CAMERA_TAG = 0x100000u;
 constexpr float INF = std::numeric_limits<float>::infinity();
 constexpr float PI_F = (float)3.14159265358979323846;
 constexpr float EPS_PAR = (float)1e-5;
+constexpr float SCATTER_ALBEDO = (float)0.8;  // volume.rs:38-53
 
 struct V3 {
   float x, y, z;
@@ -159,6 +202,11 @@ struct Params {
   int n_sph, n_rct, n_box, n_light, n_face;
   int n_mass, max_steps;                         // geodesic instantiation only
   float eta, min_step, max_step, far, growth;    // GeoParams
+  const float* grid;                             // volume instantiation only: [G,D,H,W]
+  int32_t* vevents;                              // [n] volume events per lane
+  int G, D, H, W;
+  float volume_step;
+  int max_volume_bounces, nearest;
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -365,10 +413,33 @@ struct Hit {
   float rough, ior;
 };
 
+// the volume instantiation's hit: also the winning sphere's grid, row and box
+struct VolHit : Hit {
+  int vgrid, srow;
+  V3 vsize, center;
+  float radius;
+};
+
+template <bool VOL>
+using HitT = typename std::conditional<VOL, VolHit, Hit>::type;
+
+// a march step's end point org + dir·cmax still inside sphere `row`
+// (|end - center|² <= r², in length_squared's order)
+__device__ __forceinline__ bool ends_inside(V3 org, V3 dir, float cmax, const float* row) {
+  const V3 e = (org + dir * cmax) - ld3(row);
+  return dot(e, e) <= row[3] * row[3];
+}
+
 // nearest hit over spheres, traced rects, then boxes; a later primitive wins
-// only on a strictly smaller t (ops/intersect.py::nearest_hit + _manifold)
-__device__ __forceinline__ Hit nearest_hit(const float* tab, int n_sph, int n_rct, int n_box,
-                                           float cmin, float cmax, V3 org, V3 dir) {
+// only on a strictly smaller t (ops/intersect.py::nearest_hit + _manifold).
+// VOL: a marching lane's last sphere reports an interior VOLUME pseudo-hit
+// at t = cmax while the step's end point is still inside it; every volume
+// addition sits in an `if constexpr (VOL)` block, so the other
+// instantiations compile as before media existed.
+template <bool VOL>
+__device__ __forceinline__ HitT<VOL> nearest_hit(const float* tab, int n_sph, int n_rct,
+                                                 int n_box, float cmin, float cmax, V3 org,
+                                                 V3 dir, bool march, int last_sph) {
   float t_best = INF;
   const float* win = nullptr;
   int kind = 0;  // 0 sphere, 1 rect, 2 box
@@ -377,6 +448,9 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int n_sph, int n_rc
   const float* row = tab;
   for (int k = 0; k < n_sph; ++k, row += SPH_COLS) {
     float t = sphere_t(org, dir, cmin, cmax, ld3(row), row[3]);
+    if constexpr (VOL) {
+      if (march && k == last_sph && ends_inside(org, dir, cmax, row)) t = cmax;
+    }
     if (t < t_best) {
       t_best = t;
       win = row;
@@ -407,7 +481,7 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int n_sph, int n_rc
       c_zb = zb_like;
     }
   }
-  Hit h;
+  HitT<VOL> h;
   h.t = t_best;
   h.face = -1;
   h.mtype = 0;
@@ -429,6 +503,20 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int n_sph, int n_rc
     h.color = ld3(win + 5);
     h.rough = win[8];
     h.ior = win[9];
+    if constexpr (VOL) {
+      // volume faces (sphere.rs:71-83, 150-166); the interior pseudo-hit
+      // is the last sphere winning while the step ends inside it
+      h.srow = (int)((win - tab) / SPH_COLS);
+      h.vgrid = (int)win[10];
+      if (h.vgrid >= 0) h.face = front ? FACE_VOLUME_FRONT : FACE_VOLUME_BACK;
+      if (march && h.srow == last_sph && ends_inside(org, dir, cmax, win)) {
+        h.normal = {0.0f, 0.0f, 0.0f};
+        h.face = FACE_VOLUME;
+      }
+      h.vsize = ld3(win + 11);
+      h.center = c;
+      h.radius = r;
+    }
   } else {
     // rect manifold (rect.rs:138-142); boxes share it
     bool front = c_p < 0.0f;
@@ -439,6 +527,7 @@ __device__ __forceinline__ Hit nearest_hit(const float* tab, int n_sph, int n_rc
     h.color = ld3(win + m + 1);
     h.rough = win[m + 4];
     h.ior = win[m + 5];
+    if constexpr (VOL) h.vgrid = -1;
   }
   return h;
 }
@@ -519,6 +608,47 @@ __device__ __forceinline__ void rk4_step(const float* masses, int n_mass,
   d_new = d + (k1d + (k2d + k3d) * 2.0f + k4d) * sixth;
 }
 
+// ---- media (bendy_tpu_torch/ops/volume.py) -------------------------------
+
+// _axis: corner pair and lerp weights along one axis of c = clamp(coord)·hi
+__device__ __forceinline__ void grid_axis(float coord, float hi, int n, bool nearest, int& i0,
+                                          int& i1, float& w0, float& w1) {
+  const float c = fminf(fmaxf(coord, 0.0f), 1.0f) * hi;
+  if (nearest) {
+    i0 = i1 = min(max((int)floorf(c + 0.5f), 0), n - 1);
+    w0 = 1.0f;
+    w1 = 0.0f;
+    return;
+  }
+  const float c0 = floorf(c);
+  const float f = c - c0;
+  const int a = (int)c0;
+  const int b = min(a + 1, (int)hi);
+  const bool same = b == a;
+  w0 = same ? (1.0f - f) + f : 1.0f - f;
+  w1 = same ? 0.0f : f;
+  i0 = min(max(a, 0), n - 1);
+  i1 = min(max(b, 0), n - 1);
+}
+
+// density_sample: the 8 corners of grid g, lerped over x, then y, then z
+__device__ __forceinline__ float density_sample(const Params& P, int g, V3 size, V3 coord) {
+  int x0, x1, y0, y1, z0, z1;
+  float wx0, wx1, wy0, wy1, wz0, wz1;
+  const bool nearest = P.nearest != 0;
+  grid_axis(coord.x, size.x, P.W, nearest, x0, x1, wx0, wx1);
+  grid_axis(coord.y, size.y, P.H, nearest, y0, y1, wy0, wy1);
+  grid_axis(coord.z, size.z, P.D, nearest, z0, z1, wz0, wz1);
+  g = min(max(g, 0), P.G - 1);
+  const float* gp = P.grid + (size_t)g * P.D * P.H * P.W;
+  auto row = [&](int z, int y) {
+    const float* r = gp + ((size_t)z * P.H + y) * P.W;
+    return __ldg(r + x0) * wx0 + __ldg(r + x1) * wx1;
+  };
+  auto plane = [&](int z) { return row(z, y0) * wy0 + row(z, y1) * wy1; };
+  return plane(z0) * wz0 + plane(z1) * wz1;
+}
+
 // normalized, clamped per-sample depth; the +INF of an unclaimed or
 // emissive-environment sample clamps to 1, and NaN passes through, as jnp.clip
 __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den) {
@@ -526,7 +656,7 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-template <bool AOVS, bool GEO>
+template <bool AOVS, bool GEO, bool VOL>
 __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   extern __shared__ float tab[];
   for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) tab[i] = P.table[i];
@@ -567,6 +697,8 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   float aov_dep = INF, acc_dep = 0.0f;
   int geo_steps = 0;  // chord steps of the current path
   bool fresh = true;  // first segment after a bounce: clip_min applies
+  bool march = false;  // volume instantiation: the lane is marching a medium
+  int vbounce = 0, last_sph = -1, vev = 0;
 
   for (; it < P.max_iters; ++it) {
     if (!alive) {
@@ -623,6 +755,10 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       rad = {0.0f, 0.0f, 0.0f};
       bounce = 0;
       alive = true;
+      if constexpr (VOL) {
+        march = false;
+        vbounce = 0;
+      }
       if (AOVS) {
         aov_open = true;
         aov_alb = {0.0f, 0.0f, 0.0f};
@@ -635,7 +771,15 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       }
     }
     // === bounce-cap kill at path entry (tracer/mod.rs:323-325) ===========
-    if (bounce > P.max_bounces) {
+    if constexpr (VOL) {
+      // bounces cap surface lanes; a march longer than max_volume_bounces
+      // steps dies at entry too (tracer/mod.rs:352-354)
+      if (march ? vbounce > P.max_volume_bounces : bounce > P.max_bounces) {
+        alive = false;
+        ++path_step;
+        continue;
+      }
+    } else if (bounce > P.max_bounces) {
       alive = false;
       ++path_step;
       continue;
@@ -669,12 +813,20 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
         }
       }
       // horizon capture, or the step budget spent: the path is swallowed
-      if (captured || geo_steps > P.max_steps) {
+      if constexpr (VOL) {
+        // capture applies to marching lanes too, the budget does not
+        if (captured || (!march && geo_steps > P.max_steps)) {
+          alive = false;
+          ++path_step;
+          continue;
+        }
+      } else if (captured || geo_steps > P.max_steps) {
         alive = false;
         ++path_step;
         continue;
       }
       is_near = !far_field;
+      if constexpr (VOL) is_near = is_near && !march;  // a march steps straight
       if (is_near) {
         const float eta = P.eta * (1.0f + P.growth * (float)geo_steps);
         const float ds = fminf(fmaxf(eta * sqrtf(r2_min), P.min_step), P.max_step);
@@ -686,8 +838,15 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       }
       cmin = fresh ? P.clip_min : 0.0f;
     }
+    if constexpr (VOL) {
+      if (march) {  // the march clip (tracer/mod.rs:382-387)
+        cmin = 0.0f;
+        cmax = P.volume_step;
+      }
+    }
     ++rays;
-    Hit h = nearest_hit(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir);
+    HitT<VOL> h = nearest_hit<VOL>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
+                                   march, last_sph);
     if (GEO && is_near) ++geo_steps;
     if (GEO && is_near && h.face < 0) {
       // no hit inside the chord: keep bending from its end point
@@ -709,6 +868,48 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       alive = false;
       ++path_step;
       continue;
+    }
+    if constexpr (VOL) {
+      if (h.face >= 2) {
+        // === volume event: march step or volume face (ops/volume.py) =====
+        // (a volume face or the interior event is always a sphere with a grid)
+        ++vev;
+        float u[4];
+        uniforms4(sid, (uint32_t)path_step, 0u, P.key0, P.key1, u);
+        const V3 bmin = {h.center.x - h.radius, h.center.y - h.radius, h.center.z - h.radius};
+        const float bsize = 2.0f * h.radius;
+        const V3 coord = {(h.position.x - bmin.x) / bsize, (h.position.y - bmin.y) / bsize,
+                          (h.position.z - bmin.z) / bsize};
+        const float density = P.volume_step * density_sample(P, h.vgrid, h.vsize, coord);
+        V3 new_org = h.position, new_dir = tdir;
+        if (u[0] < density) {
+          // scatter: isotropic, albedo 0.8; interior events jitter the
+          // origin up to one step back (volume.rs:38-53)
+          if (h.face == FACE_VOLUME) new_org = h.position - tdir * (P.volume_step * u[1]);
+          new_dir = unit_sphere(u[2], u[3]);
+          thr = thr * SCATTER_ALBEDO;
+          if (AOVS && aov_open) {
+            aov_alb = {SCATTER_ALBEDO, SCATTER_ALBEDO, SCATTER_ALBEDO};
+            aov_nrm = h.normal;
+            aov_dep = h.t;
+            aov_open = false;
+          }
+        }
+        if (h.face == FACE_VOLUME_BACK) {  // exit at bounce+1 (tracer/mod.rs:503-513)
+          march = false;
+          ++bounce;
+        } else {
+          vbounce = march ? vbounce + 1 : 1;
+          march = true;
+          last_sph = h.srow;
+        }
+        if (GEO) fresh = true;  // a volume event restarts the chord clip
+        org = new_org;
+        dir = new_dir;
+        ++path_step;
+        continue;
+      }
+      march = false;  // a surface event: shaded below, then surface mode or dead
     }
     // === shade the surface (ops/materials.py::shade_surface) =============
     float u[4];
@@ -794,14 +995,15 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   }
   P.rays[lane] = rays;
   P.iters[lane] = it;
+  if constexpr (VOL) P.vevents[lane] = vev;
 }
 
-template <bool GEO>
+template <bool GEO, bool VOL>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
   const size_t smem = (size_t)P.table_floats * sizeof(float);
   const int threads = 128;
   const int blocks = (P.n + threads - 1) / threads;
-  auto kernel = want_aovs ? trace_kernel<true, GEO> : trace_kernel<false, GEO>;
+  auto kernel = want_aovs ? trace_kernel<true, GEO, VOL> : trace_kernel<false, GEO, VOL>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, threads, smem, s>>>(P);
@@ -873,7 +1075,7 @@ extern "C" {
 // (0 = launched), or cudaErrorInvalidValue for a geodesic configuration.
 int bendy_trace_surface(TRACE_ARGS, void* stream) {
   if (flags & FLAG_GEO) return (int)cudaErrorInvalidValue;
-  return launch<false>(TRACE_PARAMS, want_aovs != 0, static_cast<cudaStream_t>(stream));
+  return launch<false, false>(TRACE_PARAMS, want_aovs != 0, static_cast<cudaStream_t>(stream));
 }
 
 // Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, the
@@ -889,7 +1091,41 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
   P.far = far;
   P.max_steps = max_steps;
   P.growth = growth;
-  return launch<true>(P, want_aovs != 0, static_cast<cudaStream_t>(stream));
+  return launch<true, false>(P, want_aovs != 0, static_cast<cudaStream_t>(stream));
+}
+
+// Launch the volume instantiation on `stream`: the density-grid stack
+// `grid` [G,D,H,W] f32, march step and volume-bounce cap, trilinear or
+// nearest lookups, per-lane volume-event counts into `vevents` [n] int32.
+// With FLAG_GEO it is the geodesic one inside media (1 <= n_mass <= 8 and
+// the GeoParams as for bendy_trace_geodesic); without, n_mass is ignored.
+int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
+                       float far, int max_steps, float growth, const void* grid, int G, int D,
+                       int H, int W, float volume_step, int max_volume_bounces, int nearest,
+                       void* vevents, void* stream) {
+  const bool geo = (flags & FLAG_GEO) != 0;
+  if ((geo && (n_mass < 1 || n_mass > MAX_MASSES)) || grid == nullptr || vevents == nullptr ||
+      G < 1 || D < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  Params P = TRACE_PARAMS;
+  P.n_mass = geo ? n_mass : 0;
+  P.eta = eta;
+  P.min_step = min_step;
+  P.max_step = max_step;
+  P.far = far;
+  P.max_steps = max_steps;
+  P.growth = growth;
+  P.grid = static_cast<const float*>(grid);
+  P.vevents = static_cast<int32_t*>(vevents);
+  P.G = G;
+  P.D = D;
+  P.H = H;
+  P.W = W;
+  P.volume_step = volume_step;
+  P.max_volume_bounces = max_volume_bounces;
+  P.nearest = nearest;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return geo ? launch<true, true>(P, want_aovs != 0, s) : launch<false, true>(P, want_aovs != 0, s);
 }
 
 const char* bendy_cuda_error_string(int code) {

@@ -19,11 +19,14 @@ contraction, rounds as they do. The wavefront integrator's geodesic mode
 (:func:`bendy_tpu_torch.ops.wavefront.trace_core`) uses them for the
 unrolled mass sweep of up to ``render.MASS_LOOP_THRESHOLD`` masses.
 
+Geodesics inside media (``blackhole_cloud``) use the same functions:
+marching lanes step straight and only the capture test applies to them
+(:func:`bendy_tpu_torch.ops.wavefront.trace_core`).
+
 Still refused (not ported): the looped mass sweep over a mass table
 (``mass_table``, ``geo_step_begin_looped``, ``rk4_step_looped``, kernel
 1e), so scenes with more masses than the threshold (``mass_cluster``)
-raise, and geodesics inside media (``blackhole_cloud``), which wait for
-the volume slice.
+raise.
 """
 
 from __future__ import annotations

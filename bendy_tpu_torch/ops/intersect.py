@@ -22,10 +22,17 @@ Formulas:
 The clip ``[cmin, cmax]`` of ``sphere_t``, ``rect_t``, ``box_t`` and
 ``nearest_hit`` is either two Python floats (flat space) or per-lane [B]
 tensors (the geodesic chord clip ``[fresh ? clip_min : 0, near ? |chord| :
-clip_max]``); the compares broadcast, so both give the same winners.
+clip_max]``, the march clip ``[0, volume_step]``); the compares broadcast,
+so both give the same winners.
 
-Not ported yet: the volume march pseudo-hit and volume carries (surface
-mode only), and the looped table sweeps (``nearest_hit_looped``,
+Volumes (``sphere.rs:71-83,150-166``): a sphere that carries a density
+grid reports VOLUME_FRONT/VOLUME_BACK instead of FRONT/BACK, and a
+marching lane's last sphere gets an interior VOLUME pseudo-hit at
+``t = cmax`` (zero normal) while the march step's end point is still
+inside it. The Hit carries the winning sphere's grid, its row and its
+bounding box for the density lookup (:mod:`.volume`).
+
+Not ported yet: the looped table sweeps (``nearest_hit_looped``,
 ``light_pdf_looped``).
 """
 
@@ -70,6 +77,11 @@ class Hit(NamedTuple):
     rough: torch.Tensor  # [B]
     ior: torch.Tensor  # [B]
     emitted: V3
+    vol_grid: torch.Tensor  # [B] int32 density grid index, -1 = none
+    vol_size: V3  # grid (w-1, h-1, d-1) of the winning sphere
+    sphere_row: torch.Tensor  # [B] int32 sphere row when a sphere won, else -1
+    bbox_min: V3  # the winning sphere's bounding box (volume coordinates)
+    bbox_size: V3
 
 
 def sphere_t(org: V3, dir: V3, cmin, cmax, center: V3, radius) -> torch.Tensor:
@@ -170,10 +182,21 @@ def _prim_color(mtype, albedo: V3, emitted: V3) -> V3:
     return V3.where(is_em, emitted, albedo)
 
 
-def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
+def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays,
+                march: torch.Tensor | None = None,
+                last_sphere: torch.Tensor | None = None,
+                carry_volumes: bool = True) -> Hit:
     """Nearest hit across all primitives for each lane: spheres, then the
     traced rects, then boxes, each replacing the winner on a strictly
-    smaller t."""
+    smaller t.
+
+    With ``march`` lanes ([B] bool) and their ``last_sphere`` rows, the
+    last sphere of a marching lane gets the volumetric treatment: if the
+    point at ``t = cmax`` is still inside it (``|end - center|² <= r²``),
+    an interior VOLUME event at ``cmax`` replaces that sphere's surface
+    test. ``carry_volumes=False`` (a scene without grids) drops the grid
+    carries; the Hit then reports no grid.
+    """
     B = org.x.shape
     dev = org.x.device
     zero = torch.zeros(B, device=dev)
@@ -183,6 +206,10 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
 
     t_best = torch.full(B, INF, device=dev)
     is_sph = torch.zeros(B, dtype=torch.bool, device=dev)
+    srow = i0 - 1
+    interior = torch.zeros(B, dtype=torch.bool, device=dev)
+    c_vgrid = i0 - 1
+    c_vsize = V3(zero, zero, zero)
     c_center = V3(zero, zero, zero)
     c_radius = zero + 1.0
     c_zb = V3(zero, zero, zero)
@@ -199,13 +226,24 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
         c_rough = torch.where(better, rough, c_rough)
         c_ior = torch.where(better, ior, c_ior)
 
+    end = org + dir * cmax if march is not None else None
     for k in range(scn.n_spheres):
         center = row3(scn.sph_center, k)
         radius = scn.sph_radius[k]
         t_k = sphere_t(org, dir, cmin, cmax, center, radius)
+        if march is not None:
+            is_last = march & (last_sphere == k)
+            inside = (end - center).length_squared() <= radius * radius
+            t_k = torch.where(is_last, torch.where(inside, cmax, t_k), t_k)
         better = t_k < t_best
         t_best = torch.where(better, t_k, t_best)
         is_sph = is_sph | better
+        srow = torch.where(better, k, srow)
+        if march is not None:
+            interior = torch.where(better, is_last & inside, interior)
+        if carry_volumes:
+            c_vgrid = torch.where(better, scn.sph_vol_grid[k], c_vgrid)
+            c_vsize = V3.where(better, row3(scn.sph_vol_size, k), c_vsize)
         c_center = V3.where(better, center, c_center)
         c_radius = torch.where(better, radius, c_radius)
         take(better, scn.sph_mtype[k],
@@ -223,6 +261,9 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
         better = t_k < t_best
         t_best = torch.where(better, t_k, t_best)
         is_sph = is_sph & ~better
+        interior = interior & ~better
+        if carry_volumes:
+            c_vgrid = torch.where(better, -1, c_vgrid)
         c_zb = V3.where(better, zb, c_zb)
         c_p = torch.where(better, p_k, c_p)
         take(better, scn.rct_mtype[k],
@@ -238,6 +279,9 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
         better = t_k < t_best
         t_best = torch.where(better, t_k, t_best)
         is_sph = is_sph & ~better
+        interior = interior & ~better
+        if carry_volumes:
+            c_vgrid = torch.where(better, -1, c_vgrid)
         c_zb = V3.where(better, zb_k, c_zb)
         c_p = torch.where(better, p_k, c_p)
         take(better, scn.box_mtype[k],
@@ -245,15 +289,17 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays) -> Hit:
                          row3(scn.box_emitted, k)),
              scn.box_rough[k], scn.box_ior[k])
 
-    return _manifold(org, dir, t_best, is_sph, c_center, c_radius, c_zb, c_p,
-                     c_mtype, c_color, c_rough, c_ior, has_sph, has_rct)
+    return _manifold(org, dir, t_best, is_sph, srow, interior, c_center, c_radius,
+                     c_zb, c_p, c_mtype, c_color, c_rough, c_ior, c_vgrid, c_vsize,
+                     has_sph, has_rct)
 
 
-def _manifold(org: V3, dir: V3, t_best, is_sph, c_center, c_radius, c_zb, c_p,
-              c_mtype, c_color, c_rough, c_ior, has_sph: bool,
-              has_rct: bool) -> Hit:
-    """Winner carries -> Hit record: face codes, oriented normals, and the
-    (albedo, emitted) split of the merged color carry."""
+def _manifold(org: V3, dir: V3, t_best, is_sph, srow, interior, c_center, c_radius,
+              c_zb, c_p, c_mtype, c_color, c_rough, c_ior, c_vgrid, c_vsize,
+              has_sph: bool, has_rct: bool) -> Hit:
+    """Winner carries -> Hit record: face codes, oriented normals, the
+    interior pseudo-hit, the (albedo, emitted) split of the merged color
+    carry, and the winning sphere's grid, row and bounding box."""
     B = org.x.shape
     dev = org.x.device
     valid = torch.isfinite(t_best)
@@ -272,7 +318,14 @@ def _manifold(org: V3, dir: V3, t_best, is_sph, c_center, c_radius, c_zb, c_p,
         s_normal = (position - c_center) / c_radius
         s_front = dir.dot(s_normal) < 0.0
         s_normal = V3.where(s_front, s_normal, -s_normal)
-        s_face = torch.where(s_front, FACE_FRONT, FACE_BACK)
+        s_face = torch.where(
+            c_vgrid >= 0,
+            torch.where(s_front, FACE_VOLUME_FRONT, FACE_VOLUME_BACK),
+            torch.where(s_front, FACE_FRONT, FACE_BACK),
+        )
+        # interior pseudo-hit: zero normal, VOLUME face (``sphere.rs:71-83``)
+        s_normal = V3.where(interior, V3.zeros(B, dev), s_normal)
+        s_face = torch.where(interior, FACE_VOLUME, s_face)
         normal = V3.where(is_sph, s_normal, normal) if has_rct else s_normal
         face = torch.where(valid & (is_sph | (not has_rct)), s_face, face)
     face = face.to(torch.int32)
@@ -291,6 +344,11 @@ def _manifold(org: V3, dir: V3, t_best, is_sph, c_center, c_radius, c_zb, c_p,
         rough=c_rough,
         ior=c_ior,
         emitted=c_color * emitting,
+        vol_grid=torch.where(is_sph, c_vgrid, -1).to(torch.int32),
+        vol_size=c_vsize,
+        sphere_row=torch.where(is_sph & valid, srow, -1).to(torch.int32),
+        bbox_min=c_center - c_radius,
+        bbox_size=V3.zeros(B, dev) + 2.0 * c_radius,
     )
 
 

@@ -5,22 +5,27 @@ for ``make_pallas_tracer`` and ``make_render_pass`` for
 ``make_pallas_render_pass``. The kernel is ``csrc/trace_surface.cu``, a
 hand-written CUDA C++ kernel for sm_90a that runs the whole regenerating
 wavefront loop of :func:`bendy_tpu_torch.ops.wavefront.trace_core`, one
-thread per lane. That function is its plain version. The kernel has two
-compile-time instantiations behind two entry points: the flat surface
-tracer (:func:`trace_surface`) and the geodesic one (:func:`trace_geodesic`,
-RK4 chord stepping over up to ``MAX_MASSES`` unrolled masses), each with
-its own launch count.
+thread per lane. That function is its plain version. The kernel has
+compile-time instantiations behind three entry points, each with its own
+launch count: the flat surface tracer (:func:`trace_surface`), the
+geodesic one (:func:`trace_geodesic`, RK4 chord stepping over up to
+``MAX_MASSES`` unrolled masses) and the volume one (:func:`trace_volume`:
+march mode and the density lookup of sparse and dense grids, with or
+without geodesics).
 
-Dispatch is by the device of the lane tensors and by ``cfg.geodesic``,
-with no fallback: CUDA tensors launch the matching kernel (a build or
-launch failure raises), CPU tensors run the plain version, anything else
-raises.
+Dispatch is by the device of the lane tensors and by ``cfg.has_volumes``
+and ``cfg.geodesic``, with no fallback: CUDA tensors launch the matching
+kernel (a build or launch failure raises), CPU tensors run the plain
+version, anything else raises.
 
 The scene is not baked into the kernel (the TPU kernel recompiles on any
 scene value change): :func:`scene_table` flattens the compiled tables into
 one f32 buffer with run-time counts, which the kernel stages into shared
 memory, and the geodesic knobs (``GeoParams``) are launch arguments, so
-editing a scene or its ``geodesic`` block rebuilds nothing. Lanes are fed
+editing a scene or its ``geodesic`` block rebuilds nothing. The density
+grids go to the kernel as their own contiguous ``[G, D, H, W]`` f32
+buffer with the four extents as launch arguments: a 32³ grid (128 KiB)
+would crowd the shared-memory table. Lanes are fed
 row-major; the reference's tile-major lane order (``tile_perm``) changes
 no pixel and is left as scheduling work.
 """
@@ -167,7 +172,8 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
             cfg: TraceConfig, extra: tuple = ()):
     """Check the arguments, allocate the outputs and launch the C entry
     point ``entry`` on the current stream; ``extra`` are the entry's
-    arguments after ``want_aovs``. Returns (out, rays, iters)."""
+    arguments after ``want_aovs``, where a tensor goes in as its pointer.
+    Returns (out, rays, iters)."""
     from bendy_tpu_torch import _build
 
     dev = pix.device
@@ -202,7 +208,8 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
         key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, sample0 & 0xFFFFFFFF,
         cfg.max_bounces, cfg.max_iters(spp), cfg.clip_min, cfg.clip_max,
         _flags(cfg), counts["n_sph"], counts["n_rct"], counts["n_box"],
-        counts["n_light"], counts["n_face"], int(cfg.want_aovs), *extra, stream,
+        counts["n_light"], counts["n_face"], int(cfg.want_aovs),
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra), stream,
     )
     if rc != 0:
         msg = lib.bendy_cuda_error_string(rc).decode()
@@ -221,8 +228,9 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
     on anything the kernel does not take and on a refused launch.
     """
-    if cfg.geodesic:
-        raise ValueError("a geodesic configuration launches trace_geodesic")
+    if cfg.geodesic or cfg.has_volumes:
+        raise ValueError("a geodesic configuration launches trace_geodesic, one with "
+                         "volumes trace_volume")
     res = _launch("bendy_trace_surface", table, counts, cam_packed, pix, sub, width,
                   height, spp, spp_total, subsample, key, sample0, cfg)
     if pix.shape[0]:
@@ -242,18 +250,14 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
 
     Same outputs as :func:`trace_surface`; the ``GeoParams`` go in as
     launch arguments. Adds one to ``trace_geodesic.launches`` per launch.
-    Raises unless ``cfg.geodesic`` and 1 <= n_mass <= ``MAX_MASSES``.
+    Raises unless ``cfg.geodesic`` without volumes and 1 <= n_mass <=
+    ``MAX_MASSES``.
     """
-    n_mass = counts["n_mass"]
-    if not cfg.geodesic or cfg.looped_masses or not 1 <= n_mass <= MAX_MASSES:
-        raise ValueError(f"trace_geodesic takes a geodesic configuration with 1 to "
-                         f"{MAX_MASSES} unrolled masses, got geodesic={cfg.geodesic}, "
-                         f"looped_masses={cfg.looped_masses}, {n_mass} masses")
-    geo = cfg.geo or GeoParams()
+    if cfg.has_volumes:
+        raise ValueError("a configuration with volumes launches trace_volume")
     res = _launch("bendy_trace_geodesic", table, counts, cam_packed, pix, sub, width,
                   height, spp, spp_total, subsample, key, sample0, cfg,
-                  extra=(n_mass, geo.eta, geo.min_step, geo.max_step, geo.far,
-                         geo.max_steps, geo.growth))
+                  extra=_geo_args(counts, cfg))
     if pix.shape[0]:
         trace_geodesic.launches += 1
     return res
@@ -262,20 +266,69 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
 trace_geodesic.launches = 0
 
 
+def _geo_args(counts: dict, cfg: TraceConfig) -> tuple:
+    """(n_mass, GeoParams...) launch arguments of a geodesic configuration."""
+    n_mass = counts["n_mass"]
+    if not cfg.geodesic or cfg.looped_masses or not 1 <= n_mass <= MAX_MASSES:
+        raise ValueError(f"a geodesic launch takes 1 to {MAX_MASSES} unrolled masses, "
+                         f"got geodesic={cfg.geodesic}, looped_masses={cfg.looped_masses}, "
+                         f"{n_mass} masses")
+    geo = cfg.geo or GeoParams()
+    return (n_mass, geo.eta, geo.min_step, geo.max_step, geo.far, geo.max_steps, geo.growth)
+
+
+def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
+                 pix: torch.Tensor, sub: torch.Tensor, grid: torch.Tensor, *, width: int,
+                 height: int, spp: int, spp_total: int, subsample: int,
+                 key: tuple, sample0: int, cfg: TraceConfig):
+    """Launch the volume instantiation of ``csrc/trace_surface.cu`` (march
+    mode and the 8-corner density lookup of ``grid``, the ``[G, D, H, W]``
+    f32 stack of the scene's density grids; geodesic inside media when
+    ``cfg.geodesic``) on the current stream.
+
+    Returns (out, rays, iters) as :func:`trace_surface`, then vol_events
+    [B] int32, each lane's count of volume events (density lookups). Adds
+    one to ``trace_volume.launches`` per launch. Raises unless
+    ``cfg.has_volumes``, on a grid the kernel does not take, and as
+    :func:`trace_geodesic` on a geodesic configuration it does not take.
+    """
+    if not cfg.has_volumes:
+        raise ValueError("trace_volume takes a configuration with volumes")
+    if (grid.dim() != 4 or grid.dtype != torch.float32 or not grid.is_contiguous()
+            or grid.device != pix.device or min(grid.shape) < 1):
+        raise ValueError(f"grid: expected a contiguous [G,D,H,W] float32 tensor on "
+                         f"{pix.device}, got {tuple(grid.shape)} {grid.dtype} on {grid.device}")
+    geo = _geo_args(counts, cfg) if cfg.geodesic else (0, 0.0, 0.0, 0.0, 0.0, 0, 0.0)
+    vevents = torch.empty(pix.shape[0], dtype=torch.int32, device=pix.device)
+    G, D, H, W = grid.shape
+    out, rays, iters = _launch(
+        "bendy_trace_volume", table, counts, cam_packed, pix, sub, width, height, spp,
+        spp_total, subsample, key, sample0, cfg,
+        extra=(*geo, grid, G, D, H, W, cfg.volume_step, cfg.max_volume_bounces,
+               int(cfg.vol_nearest), vevents))
+    if pix.shape[0]:
+        trace_volume.launches += 1
+    return out, rays, iters, vevents
+
+
+trace_volume.launches = 0
+
+
 def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
                 subsample: int, cfg: TraceConfig):
     """Build the tracer for one compiled scene.
 
     Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B])
-    -> TraceSums``: on CUDA lane tensors the kernel (:func:`trace_geodesic`
-    for a geodesic configuration, else :func:`trace_surface`), on CPU ones
-    the plain :func:`trace_core`. Ray and iteration counts are int64 sums
-    of per-lane counts, with the same meaning on both routes.
+    -> TraceSums``: on CUDA lane tensors the kernel (:func:`trace_volume`
+    for a configuration with volumes, else :func:`trace_geodesic` for a
+    geodesic one, else :func:`trace_surface`), on CPU ones the plain
+    :func:`trace_core`. Ray, iteration and volume-event counts are int64
+    sums of per-lane counts, with the same meaning on both routes.
     """
     check_trace_args(width, height, spp, subsample, cfg)
     table_np, counts = scene_table(scn.host_copy())
-    launch = trace_geodesic if cfg.geodesic else trace_surface
     tables: dict = {}
+    grids: dict = {}
 
     def run(cam_packed, seed, pass_idx, pix, sub) -> TraceSums:
         key = render_key(seed, pass_idx)
@@ -287,18 +340,26 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
             raise ValueError(f"no tracer for device {dev}")
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
-        out, rays, iters = launch(
-            tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
-            sub.to(torch.int32), width=width, height=height, spp=spp,
-            spp_total=spp, subsample=subsample, key=key, sample0=0, cfg=cfg,
-        )
+        kw = dict(width=width, height=height, spp=spp, spp_total=spp, subsample=subsample,
+                  key=key, sample0=0, cfg=cfg)
+        lanes = (tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
+                 sub.to(torch.int32))
+        if cfg.has_volumes:
+            if dev not in grids:
+                grids[dev] = scn.vol_grid.to(dev).contiguous()
+            out, rays, iters, vol = trace_volume(*lanes, grids[dev], **kw)
+            vol = vol.sum(dtype=torch.int64)
+        else:
+            launch = trace_geodesic if cfg.geodesic else trace_surface
+            out, rays, iters = launch(*lanes, **kw)
+            vol = torch.zeros((), dtype=torch.int64, device=dev)
         rad = V3(out[0], out[1], out[2])
         rays = rays.sum(dtype=torch.int64)
         iters = iters.sum(dtype=torch.int64)
         if not cfg.want_aovs:
-            return TraceSums(rad, rad, rad, rad.x, rays, iters)
+            return TraceSums(rad, rad, rad, rad.x, rays, iters, vol)
         return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
-                         out[9], rays, iters)
+                         out[9], rays, iters, vol)
 
     return run
 

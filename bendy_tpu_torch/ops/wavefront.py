@@ -1,10 +1,16 @@
-"""Wavefront path-tracing integrator with ray regeneration (surface mode).
+"""Wavefront path-tracing integrator with ray regeneration.
 
 Counterpart of ``bendy_tpu/ops/wavefront.py``. The reference integrates by
 recursion (``ChunkState::sample``, ``src/tracer/mod.rs:322-342``); here one
 loop runs over a batch of lanes. Each lane owns one (pixel, subpixel) and
 traces its ``spp`` samples in sequence: the moment a path terminates, the
 lane regenerates the camera ray for its next sample.
+
+Per-lane state machine (``MODE_*``):
+
+    0 = path terminated (regenerate or finish) ·
+    1 = surface trace (clip [clip_min, clip_max]) ·
+    2 = volume march (clip [0, volume_step], ``tracer/mod.rs:382-387``)
 
 Estimator identity that makes the flattening exact
 (``tracer/mod.rs:471-482``):
@@ -28,16 +34,29 @@ in flat space (far from and receding from every mass) trace straight with
 the full clip, lanes inside a horizon or past the step budget are
 swallowed.
 
-Still refused with ``NotImplementedError``: volumes (also under geodesics,
-as ``blackhole_cloud`` needs), and the looped table sweeps (primitives,
-lights, and masses above ``render.MASS_LOOP_THRESHOLD``, as
-``mass_cluster`` needs). The reference's ``regen_every`` cadence changes
-no pixel (``tests/test_cadence.py``); both versions here regenerate every
-iteration.
+Participating media (``cfg.has_volumes``): entering a sphere that carries
+a density grid (a VOLUME_FRONT hit) switches the lane to march mode; each
+march step intersects ``[0, volume_step]`` ahead, where the last sphere's
+interior reports a VOLUME pseudo-hit while the step ends inside it, and
+:func:`bendy_tpu_torch.ops.volume.volume_shade` scatters by the local
+density. A VOLUME_BACK exit returns the lane to surface mode at bounce+1
+(``tracer/mod.rs:503-513``); a march longer than ``max_volume_bounces``
+steps is killed at path entry. Under geodesics marching lanes step
+straight with the march clip, horizon capture still applies to them, the
+step budget does not, and a volume event restarts the chord clip.
+
+Still refused with ``NotImplementedError``: the looped table sweeps
+(primitives, lights, and masses above ``render.MASS_LOOP_THRESHOLD``, as
+``cloud_field`` and ``mass_cluster`` need). The reference's
+``regen_every`` cadence changes no pixel (``tests/test_cadence.py``), nor
+does its ``march_every`` split (``tests/test_march_cadence.py``); both
+versions here run every block every iteration.
 
 AOVs follow the reference: per sample, the first claiming event (surface
-shade or environment miss) fixes albedo/normal/depth; depth is normalized
-and clamped per sample before accumulation (``tracer/mod.rs:306-308``).
+shade, environment miss, or volume *scatter*; a volume pass-through does
+not claim, ``volume.rs:54-59``) fixes albedo/normal/depth; depth is
+normalized and clamped per sample before accumulation
+(``tracer/mod.rs:306-308``).
 """
 
 from __future__ import annotations
@@ -49,16 +68,18 @@ import torch
 
 from bendy_tpu_torch.geodesic import GeoParams, geo_step_begin, rk4_step
 from bendy_tpu_torch.ops.camera import CameraParams, camera_ray, ndc_base
-from bendy_tpu_torch.ops.intersect import FACE_BACK, FACE_FRONT, nearest_hit
+from bendy_tpu_torch.ops.intersect import FACE_BACK, FACE_FRONT, FACE_VOLUME_BACK, nearest_hit
 from bendy_tpu_torch.ops.materials import shade_surface
+from bendy_tpu_torch.ops.volume import SCATTER_ALBEDO, volume_shade
 from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
 from bendy_tpu_torch.utils.rng import MASK32, lane_uniforms
 from bendy_tpu_torch.utils.v3 import V3
 
 MODE_DEAD = 0
 MODE_SURFACE = 1
+MODE_MARCH = 2
 
-N_UNIFORMS = 6  # see ops.materials uniform layout
+N_UNIFORMS = 6  # see ops.materials / ops.volume uniform layouts
 PENDING_CHECK = 8  # the plain loop tests for termination every N iterations
 #   (one host sync each; iterating a lane with no work left is a masked no-op)
 
@@ -68,13 +89,15 @@ class TraceConfig:
     """Static trace knobs (defaults = ``Config::DEFAULT``, ``tracer/mod.rs:29-38``)."""
 
     max_bounces: int = 8
+    max_volume_bounces: int = 32
     clip_min: float = 0.01
     clip_max: float = 1000.0
-    has_volumes: bool = False  # not ported yet: trace_core refuses it, with
-    #   or without geodesics (the volume knobs of bendy_tpu's TraceConfig
-    #   come with that slice)
+    volume_step: float = 0.1
+    has_volumes: bool = False  # march mode compiled in (scene has grids)
+    vol_nearest: bool = False  # SamplingMode::Nearest density lookups
+    #   (``volume.rs:146-150``); default Trilinear like the reference tracer
     geodesic: bool = False  # curved-ray propagation (scene has masses);
-    #   unrolled masses in surface mode only (looped_masses is refused)
+    #   unrolled masses only (looped_masses is refused)
     frustum_poly: bool = False  # FOV bounds the frustum angles under
     #   ~1.2 rad -> range-free polynomial sin/cos in camera_ray
     geo: GeoParams | None = None  # geodesic knobs; None = GeoParams()
@@ -92,9 +115,12 @@ class TraceConfig:
     def max_iters(self, spp: int) -> int:
         """Loop-length safety cap: per-path worst case × samples (a path
         takes at most max_bounces+1 segments, one bounce-cap kill and one
-        regeneration; a geodesic path also up to ``geo.max_steps`` chord
+        regeneration, each segment up to max_volume_bounces+2 march steps
+        with volumes; a geodesic path also up to ``geo.max_steps`` chord
         steps)."""
         per_path = self.max_bounces + 2
+        if self.has_volumes:
+            per_path *= self.max_volume_bounces + 2
         if self.geodesic:
             per_path += (self.geo or GeoParams()).max_steps
         return per_path * spp
@@ -111,6 +137,8 @@ class TraceSums:
     rays: torch.Tensor  # [] int64: total alive-lane iterations (traced rays)
     iters: torch.Tensor  # [] int64: sum over lanes of each lane's own loop
     #   length (iterations it entered with work left), as the kernel counts
+    vol_events: torch.Tensor  # [] int64: volume events (density lookups),
+    #   0 without volumes
 
 
 def check_trace_args(width: int, height: int, spp_total: int, subsample: int,
@@ -122,13 +150,11 @@ def check_trace_args(width: int, height: int, spp_total: int, subsample: int,
     is width·height·spp_total·nn. Overflow would silently alias RNG streams
     across the image (correlated noise, no error), so refuse instead.
     """
-    missing = [name for name in ("has_volumes", "looped_sweep", "looped_lights",
-                                 "looped_masses")
+    missing = [name for name in ("looped_sweep", "looped_lights", "looped_masses")
                if getattr(cfg, name)]
     if missing:
-        mode = "geodesic " if cfg.geodesic else ""
         raise NotImplementedError(
-            f"bendy_tpu_torch traces {mode}surfaces with unrolled sweeps only; "
+            f"bendy_tpu_torch traces with unrolled sweeps only; "
             f"{', '.join(missing)} not ported yet"
         )
     nn = max(subsample, 1) ** 2
@@ -214,6 +240,8 @@ def trace_core(
     path_open = zb
     org, dirv, thr, rad = zv, zv + V3(0.0, 0.0, -1.0), zv, zv
     bounce = zi
+    vbounce = zi  # march steps of the current volume crossing
+    last_sph = zi - 1  # sphere row the lane is marching through
     mode = zi
     aov_open = zb
     aov_alb, aov_nrm, aov_dep = zv, zv, zf + math.inf
@@ -224,6 +252,7 @@ def trace_core(
     #   a bounce or regeneration: clip_min applies (geodesic mode)
     rays = torch.zeros(B, dtype=torch.int64, device=dev)
     lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
+    vol_events = torch.zeros(B, dtype=torch.int64, device=dev)
     dep_den = cfg.clip_max - cfg.clip_min
 
     def depth_n(d):
@@ -258,6 +287,7 @@ def trace_core(
         thr = V3.where(regen, zv + 1.0, thr)
         rad = V3.where(regen, zv, rad)
         bounce = torch.where(regen, 0, bounce)
+        vbounce = torch.where(regen, 0, vbounce)
         mode = torch.where(regen, MODE_SURFACE, mode)
         if cfg.want_aovs:
             aov_open = aov_open | regen
@@ -268,18 +298,22 @@ def trace_core(
             geo_steps = torch.where(regen, 0, geo_steps)
             fresh = fresh | regen
 
-        # === bounce-cap kill at path entry (``tracer/mod.rs:323-325``) =====
-        mode = torch.where((mode == MODE_SURFACE) & (bounce > cfg.max_bounces),
-                           MODE_DEAD, mode)
+        # === bounce-cap kills at path entry (``tracer/mod.rs:323-325,352-354``)
+        over = (mode == MODE_SURFACE) & (bounce > cfg.max_bounces)
+        if cfg.has_volumes:
+            over = over | ((mode == MODE_MARCH) & (vbounce > cfg.max_volume_bounces))
+        mode = torch.where(over, MODE_DEAD, mode)
 
         if cfg.geodesic:
-            # horizon capture swallows any alive lane; the step budget binds
-            # surface lanes (all alive lanes here: no volumes)
+            # horizon capture swallows any alive lane, marching ones included
+            # (a medium around the mass must not let straight march steps
+            # tunnel through the horizon); the step budget binds surface lanes
             captured, far_field, ds, h2s = geo_step_begin(scn, org, dirv, geo,
                                                           steps=geo_steps)
             swallowed = captured | ((mode == MODE_SURFACE) & (geo_steps > geo.max_steps))
             mode = torch.where((mode != MODE_DEAD) & swallowed, MODE_DEAD, mode)
         alive = mode != MODE_DEAD
+        march = mode == MODE_MARCH
 
         # === propagation segment: the RK4 chord, or a straight ray =========
         if cfg.geodesic:
@@ -294,11 +328,22 @@ def trace_core(
             trace_dir = V3.where(near, seg_dir, dirv)
             cmin = torch.where(fresh, cfg.clip_min, 0.0)
             cmax = torch.where(near, chord_len, cfg.clip_max)
+            if cfg.has_volumes:  # marching lanes step straight
+                cmin = torch.where(march, 0.0, cmin)
+                cmax = torch.where(march, cfg.volume_step, cmax)
+        elif cfg.has_volumes:
+            trace_dir = dirv
+            cmin = torch.where(march, 0.0, cfg.clip_min)
+            cmax = torch.where(march, cfg.volume_step, cfg.clip_max)
         else:
             trace_dir, cmin, cmax = dirv, cfg.clip_min, cfg.clip_max
 
         # === one intersection sweep + shade ================================
-        hit = nearest_hit(org, trace_dir, cmin, cmax, scn)
+        if cfg.has_volumes:
+            hit = nearest_hit(org, trace_dir, cmin, cmax, scn, march=march,
+                              last_sphere=last_sph)
+        else:
+            hit = nearest_hit(org, trace_dir, cmin, cmax, scn, carry_volumes=False)
         miss = alive & ~hit.valid
         if cfg.geodesic:
             geo_cont = miss & near  # no hit inside the chord: keep bending
@@ -341,6 +386,32 @@ def trace_core(
             aov_dep = torch.where(claim, torch.where(surf, sh.aov_depth, env_dep), aov_dep)
             aov_open = aov_open & ~claim
 
+        if cfg.has_volumes:
+            # === volume event: march step or crossing a volume sphere ======
+            vol = alive & hit.valid & (hit.face >= 2) & (hit.vol_grid >= 0)
+            vs = volume_shade(trace_dir, hit, scn, u, cfg.volume_step, nearest=cfg.vol_nearest)
+            thr = V3.where(vol & vs.scattered, thr * vs.weight, thr)
+            org = V3.where(vol, vs.origin, org)
+            dirv = V3.where(vol, vs.direction, dirv)
+            # VolumeBack exits to the surface integrator at bounce+1
+            # (``tracer/mod.rs:503-513``); everything else keeps marching
+            vol_exit = vol & (hit.face == FACE_VOLUME_BACK)
+            vol_march = vol & ~vol_exit
+            mode = torch.where(vol_exit, MODE_SURFACE,
+                               torch.where(vol_march, MODE_MARCH, mode)).to(torch.int32)
+            bounce = bounce + vol_exit.to(torch.int32)
+            vbounce = torch.where(vol_march, torch.where(march, vbounce + 1, 1), vbounce)
+            last_sph = torch.where(vol_march, hit.sphere_row, last_sph)
+            if cfg.geodesic:  # a volume event restarts the chord clip
+                fresh = fresh | vol
+            if cfg.want_aovs:
+                vol_claim = vol & vs.scattered & aov_open
+                aov_alb = V3.where(vol_claim, zv + SCATTER_ALBEDO, aov_alb)
+                aov_nrm = V3.where(vol_claim, hit.normal, aov_nrm)
+                aov_dep = torch.where(vol_claim, hit.t, aov_dep)
+                aov_open = aov_open & ~vol_claim
+            vol_events = vol_events + vol.to(torch.int64)
+
         path_step = path_step + 1
         rays = rays + alive.to(torch.int64)
         it += 1
@@ -350,9 +421,10 @@ def trace_core(
     radiance = acc_rad + V3.where(fin, rad, zv)
     rays_total = rays.sum()
     iters = lane_iters.sum()
+    n_vol = vol_events.sum()
     if not cfg.want_aovs:
         # AOV slots alias the radiance (callers only read .radiance)
-        return TraceSums(radiance, radiance, radiance, radiance.x, rays_total, iters)
+        return TraceSums(radiance, radiance, radiance, radiance.x, rays_total, iters, n_vol)
     return TraceSums(
         radiance=radiance,
         aov_albedo=acc_alb + V3.where(fin, aov_alb, zv),
@@ -360,4 +432,5 @@ def trace_core(
         aov_depth=acc_dep + torch.where(fin, depth_n(aov_dep), 0.0),
         rays=rays_total,
         iters=iters,
+        vol_events=n_vol,
     )

@@ -7,8 +7,9 @@ tracer layer (``src/tracer/mod.rs:16-230``): ``Config`` (static knobs),
 
 The renderer runs on one ``device``, the card unless the caller asks for
 the CPU. On a CUDA device each pass is one launch of the hand-written
-tracer kernel (``ops/trace_kernel.py``: the surface kernel, or its
-geodesic instantiation for scenes with masses) per row chunk; on
+tracer kernel (``ops/trace_kernel.py``: the surface kernel, its geodesic
+instantiation for scenes with masses, or its volume instantiation for
+scenes with density grids, with or without masses) per row chunk; on
 ``device="cpu"`` it runs the plain PyTorch integrator. Without a card the
 default raises; nothing falls back to another path.
 
@@ -49,6 +50,14 @@ from bendy_tpu_torch.scene.graph import Scene, Sphere
 from bendy_tpu_torch.utils.device import resolve_device
 from bendy_tpu_torch.utils.rng import render_key
 
+
+LOOP_SWEEP_THRESHOLD = 192  # primitives (spheres + traced rects + boxes)
+#   above which the reference sweeps primitives with loops over row tables
+#   (``bendy_tpu/render.py:108``), and LIGHT_LOOP_THRESHOLD the LIGHT-flagged
+#   objects above which it sweeps lights so (``render.py:130``). The port
+#   has no looped sweeps yet, so such a scene (cloud_field) is refused
+#   (TraceConfig.looped_sweep, looped_lights).
+LIGHT_LOOP_THRESHOLD = 64
 
 MASS_LOOP_THRESHOLD = 8  # geodesic point masses above which the reference
 #   sweeps masses with loops over a mass table (``bendy_tpu/render.py:142``),
@@ -182,6 +191,8 @@ class Renderer:
         self.has_diffuse = MAT_DIFFUSE in mtypes
         self.has_metallic = MAT_METALLIC in mtypes
         self.has_glass = MAT_GLASS in mtypes
+        self.prim_count = (self.arrays.n_spheres + self.arrays.n_trace_rects
+                           + self.arrays.n_boxes)
 
     @property
     def rays_traced(self) -> int:
@@ -224,6 +235,14 @@ class Renderer:
         return self._cam_params
 
     def trace_config(self, cfg: Config, camera_ref: Optional[int] = None) -> TraceConfig:
+        """The static trace knobs of ``cfg`` for this scene and camera.
+
+        There is no counterpart of the reference's ``vol_operand`` policy
+        (``bendy_tpu/render.py:460-479``): the TPU kernel picks between a
+        scalar unroll over nonzero grid cells and a one-hot brick fetch on
+        the MXU because it cannot gather, while the CUDA kernel reads the 8
+        corners of any grid, sparse or dense, with one gather.
+        """
         if cfg.vol_sampling not in ("trilinear", "nearest"):
             raise ValueError(f"unknown vol_sampling {cfg.vol_sampling!r}")
         frustum_poly = False
@@ -239,14 +258,19 @@ class Renderer:
                 has_dof = cam.focus is not None and cam.focus > 0.0
         return TraceConfig(
             max_bounces=cfg.max_bounces,
+            max_volume_bounces=cfg.max_volume_bounces,
             clip_min=cfg.clip_min,
             clip_max=cfg.clip_max,
+            volume_step=cfg.volume_step,
+            vol_nearest=cfg.vol_sampling == "nearest",
             frustum_poly=frustum_poly,
             has_volumes=self.has_volumes,
             geodesic=self.has_masses,
             # precedence: explicit Config.geo > the scene file's "geodesic"
             # block > GeoParams defaults
             geo=cfg.geo if cfg.geo is not None else self._scene_geo(),
+            looped_sweep=self.prim_count > LOOP_SWEEP_THRESHOLD,
+            looped_lights=self.arrays.n_lights > LIGHT_LOOP_THRESHOLD,
             looped_masses=self.arrays.n_masses > MASS_LOOP_THRESHOLD,
             has_diffuse=self.has_diffuse,
             has_metallic=self.has_metallic,

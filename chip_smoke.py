@@ -7,14 +7,20 @@ Phases, one line each (any failure exits non-zero):
   1. the card: needs torch.cuda.is_available(); prints nvidia-smi's name and
      power limit,
   2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
-     each instantiation's ptxas registers, stack and spills,
+     each instantiation's ptxas registers, stack and spills (surface,
+     geodesic, and the volume ones with and without geodesics),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
      against it on blackhole and binary_blackhole at 16x16, spp 1 and 4,
-     max_bounces=2, seed 3, FULL and NORMAL (per lane rtol 5e-4, atol 1e-5,
-     equal int64 ray counts and per-lane iteration sums); then the Renderer
-     against the cornell CPU golden at the same tolerance,
+     max_bounces=2, seed 3, FULL and NORMAL; the volume kernel on volume,
+     cloud and dense_cloud at spp 2, max_bounces=3, seed 11, on
+     blackhole_cloud at spp 1 and 4, Config(max_bounces=2,
+     volume_step=0.6), seed 3, and on cloud with nearest sampling, FULL and
+     NORMAL (per lane rtol 5e-4, atol 1e-5, equal int64 ray counts,
+     per-lane iteration sums and volume-event counts); then the Renderer
+     against the cornell CPU golden at the same tolerance, and against the
+     volume golden within the budget tests/test_torch_volume.py holds,
   4. the cornell main path: Renderer(cornell) at 256x256, 64 spp, 2x2
      subpixels, default Config, into a DeviceFilm — one warm-up pass, then
      4 chained timed passes (Mrays/s, seconds per pass, the surface kernel's
@@ -28,10 +34,19 @@ Phases, one line each (any failure exits non-zero):
      passes (the geodesic kernel's launch count); the geodesic kernel alone
      (CUDA events, one warm-up, 10 calls), its per-lane loop-length spread
      and rays per warp issue slot; then one kernel pass and one plain pass
-     at spp 4, compared per pixel and by ray count.
+     at spp 4, compared per pixel and by ray count,
+  6. the cloud main path (sparse 16^3 grid): Renderer(cloud) at 256x256,
+     64 spp, 2x2 subpixels, default Config, as phase 4, through the volume
+     kernel; the kernel alone with its loop-length spread, rays per warp
+     issue slot and march share (volume events over rays); one kernel pass
+     and one plain pass at spp 4, compared,
+  7. the dense_cloud main path (dense 32^3 grid), as phase 6,
+  8. the blackhole_cloud main path (geodesics inside media, bench.py's
+     blackhole_cloud row): 512x288, 32 spp, no subpixels,
+     Config(max_bounces=2, volume_step=0.6), as phase 6.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
-the whole run takes about a minute, most of it the plain passes.
+the whole run takes a few minutes, most of it the plain passes.
 """
 
 import json
@@ -43,7 +58,11 @@ import time
 
 SCENES = ("cornell", "cornell2", "scene")
 GEO_SCENES = ("blackhole", "binary_blackhole")
+VOL_SCENES = ("volume", "cloud", "dense_cloud")
 RTOL, ATOL = 5e-4, 1e-5
+# the volume golden: pixels the port may leave off it at the golden's own
+# rtol 1e-5 / atol 1e-6 (8 of 256 on the CPU; tests/test_torch_volume.py)
+VOLUME_GOLDEN_PIXELS_OFF = 16
 PLAIN_BUDGET_S = 60.0  # a plain pass slower than this is narrowed to a row band
 
 # H100 SXM datasheet peaks: HBM bytes/s, FP32 non-tensor FLOP/s
@@ -56,6 +75,11 @@ PEAK_F32_S = 67e12
 # the shading are not counted, so the bound is a floor.
 SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
 GEO_BEGIN_OPS, GEO_BEGIN_PER_MASS_OPS = 5, 21
+# FP32 operations of one volume event's density lookup, counted from
+# csrc/trace_surface.cu: grid_axis 7 per axis (clamp 2, scale, floor,
+# fraction, two weights), the nested lerp 21, the box coordinate 10, the
+# density and the scatter test 2; the scatter itself is not counted
+DENSITY_OPS = 54
 
 
 def fail(msg: str) -> None:
@@ -96,26 +120,30 @@ def ptxas_report(log: str) -> list[str]:
             frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)E", name)
-            label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)}>" if t else name)
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)E", name)
+            label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)}>"
+                     if t else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
 
 
-def trace_bound(counts: dict, table_floats: int, cfg, rays: int,
-                lanes: int) -> tuple[float, str]:
+def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
+                vol_events: int = 0, grid_floats: int = 0) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for one
-    tracer launch: each input read once (lanes, camera, scene table), each
-    output written once (channel sums, per-lane rays and iterations), and
-    the counted FP32 operations of every traced segment of this run."""
+    tracer launch: each input read once (lanes, camera, scene table,
+    density grids), each output written once (channel sums, per-lane rays
+    and iterations, and volume events for the volume kernel), and the
+    counted FP32 operations of every traced segment and every density
+    lookup of this run."""
     n_out = 10 if cfg.want_aovs else 3
-    nbytes = lanes * (8 + 4 * n_out + 8) + 4 * (table_floats + 32)
+    n_counts = 3 if cfg.has_volumes else 2
+    nbytes = lanes * (8 + 4 * n_out + 4 * n_counts) + 4 * (table_floats + 32 + grid_floats)
     per_ray = (SPHERE_OPS * counts["n_sph"] + RECT_OPS * counts["n_rct"]
                + BOX_OPS * counts["n_box"])
     if cfg.geodesic:
         per_ray += GEO_BEGIN_OPS + GEO_BEGIN_PER_MASS_OPS * counts["n_mass"]
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = rays * per_ray / PEAK_F32_S * 1e3
+    t_ops = (rays * per_ray + vol_events * DENSITY_OPS) / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -159,20 +187,46 @@ def compare_lanes(tag: str, kern, plain, cfg) -> float:
     err = max(float((a - b).abs().max()) for a, b in pairs)
     rays_k, rays_p = int(kern.rays), int(plain.rays)
     iters_k, iters_p = int(kern.iters), int(plain.iters)
+    vol_k, vol_p = int(kern.vol_events), int(plain.vol_events)
     print(f"phase 3: {tag}: lanes off {bad}, max |diff| {err:.3e}, rays kernel {rays_k} "
-          f"plain {rays_p}, lane iterations kernel {iters_k} plain {iters_p}")
-    if bad or rays_k != rays_p or iters_k != iters_p or kern.rays.dtype != torch.int64:
+          f"plain {rays_p}, lane iterations kernel {iters_k} plain {iters_p}, volume events "
+          f"kernel {vol_k} plain {vol_p}")
+    if (bad or rays_k != rays_p or iters_k != iters_p or vol_k != vol_p
+            or kern.rays.dtype != torch.int64):
         fail(f"kernel disagrees with plain on {tag}")
     return err
 
 
-def kernel_vs_plain(dev) -> tuple[float, float]:
-    """Phase 3; returns the largest |diff| of the surface and the geodesic
-    kernel against the plain version."""
+def golden_check(dev, name: str, pixels_off: int, rtol: float, atol: float) -> float:
+    """Render the 16x16, 8 spp, max_bounces 3, seed 7 golden of ``name``
+    through the Renderer on the card; fail if more than ``pixels_off``
+    pixels leave it (``rtol``, ``atol``). Returns the largest |diff|."""
     import numpy as np
+
+    from bendy_tpu_torch import Config, Film, RenderConfig, Subsample
+
+    r, cam = renderer(name, Config(max_bounces=3), 16, 16, dev)
+    film = Film(16, 16)
+    r.render(cam, RenderConfig(samples=8, subsample=Subsample(1)), film, seed=7)
+    golden = np.load(f"tests/golden/{name}_16x16_mb3_s8_seed7.npy")
+    diff = np.abs(film.mean() - golden)
+    off = int((diff > atol + rtol * np.abs(golden)).any(axis=-1).sum())
+    err = float(diff.max())
+    print(f"phase 3: {name} golden through the Renderer: pixels off {off} (allowed "
+          f"{pixels_off}), max |diff| {err:.3e}")
+    if off > pixels_off:
+        fail(f"Renderer on the card misses the {name} golden")
+    return err
+
+
+def kernel_vs_plain(dev) -> dict:
+    """Phase 3; returns the largest |diff| of each kernel against the plain
+    version, keyed by its wrapper's name."""
     import torch
 
-    from bendy_tpu_torch import Config, Film, Output, RenderConfig, Subsample
+    from dataclasses import replace
+
+    from bendy_tpu_torch import Config, Output
     from bendy_tpu_torch.ops.trace_kernel import make_tracer
     from bendy_tpu_torch.ops.wavefront import trace_core
     from bendy_tpu_torch.utils.rng import render_key
@@ -180,29 +234,30 @@ def kernel_vs_plain(dev) -> tuple[float, float]:
     W = H = 16
     pix = torch.arange(W * H, dtype=torch.int32, device=dev)
     sub = torch.zeros(W * H, dtype=torch.int32, device=dev)
-    worst = {False: 0.0, True: 0.0}
-    cases = [(name, 4, 3, 7) for name in SCENES]
-    cases += [(name, spp, 2, 3) for name in GEO_SCENES for spp in (1, 4)]
-    for name, spp, max_bounces, seed in cases:
+    worst = {"trace_surface": 0.0, "trace_geodesic": 0.0, "trace_volume": 0.0}
+    cases = [(name, 4, Config(max_bounces=3), 7) for name in SCENES]
+    cases += [(name, spp, Config(max_bounces=2), 3) for name in GEO_SCENES for spp in (1, 4)]
+    cases += [(name, 2, Config(max_bounces=3), 11) for name in VOL_SCENES]
+    cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3)
+              for spp in (1, 4)]
+    cases += [("cloud", 2, Config(max_bounces=3, vol_sampling="nearest"), 11)]
+    for name, spp, config, seed in cases:
         for output in (Output.FULL, Output.NORMAL):
-            r, cam = renderer(name, Config(max_bounces=max_bounces, output=output), W, H, dev)
+            r, cam = renderer(name, replace(config, output=output), W, H, dev)
             cfg = r.trace_config(r.config, cam)
             params = r.camera_params(cam)
             kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix, sub)
             plain = trace_core(r.arrays, params, render_key(seed, 0), pix, sub, W, H, spp, 1, cfg)
             torch.cuda.synchronize()
-            err = compare_lanes(f"{name} spp {spp} {output.value}", kern, plain, cfg)
-            worst[cfg.geodesic] = max(worst[cfg.geodesic], err)
-    r, cam = renderer("cornell", Config(max_bounces=3), W, H, dev)
-    film = Film(W, H)
-    r.render(cam, RenderConfig(samples=8, subsample=Subsample(1)), film, seed=7)
-    golden = np.load("tests/golden/cornell_16x16_mb3_s8_seed7.npy")
-    err = float(np.abs(film.mean() - golden).max())
-    off = int((np.abs(film.mean() - golden) > ATOL + RTOL * np.abs(golden)).sum())
-    print(f"phase 3: cornell golden through the Renderer: values off {off}, max |diff| {err:.3e}")
-    if off:
-        fail("Renderer on the card misses the cornell golden")
-    return max(worst[False], err), worst[True]
+            tag = f"{name} spp {spp} {output.value}" + (" nearest" if cfg.vol_nearest else "")
+            err = compare_lanes(tag, kern, plain, cfg)
+            kind = ("trace_volume" if cfg.has_volumes else
+                    "trace_geodesic" if cfg.geodesic else "trace_surface")
+            worst[kind] = max(worst[kind], err)
+    worst["trace_surface"] = max(worst["trace_surface"],
+                                 golden_check(dev, "cornell", 0, RTOL, ATOL))
+    golden_check(dev, "volume", VOLUME_GOLDEN_PIXELS_OFF, 1e-5, 1e-6)
+    return worst
 
 
 def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, dev,
@@ -213,7 +268,7 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
     import numpy as np
 
     from bendy_tpu_torch import DeviceFilm, RenderConfig, Subsample
-    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface
+    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface, trace_volume
 
     r, cam = renderer(name, config, W, H, dev)
     rc = RenderConfig(samples=spp, subsample=Subsample(n))
@@ -222,7 +277,7 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
     r.render(cam, rc, film, seed=seed)  # warm-up (and first-use build)
     film.synchronize()
     rays0 = r.rays_traced
-    trace_surface.launches = trace_geodesic.launches = 0
+    trace_surface.launches = trace_geodesic.launches = trace_volume.launches = 0
     t0 = time.perf_counter()
     for _ in range(4):
         r.render(cam, rc, film, seed=seed)
@@ -259,13 +314,22 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     table_np, counts = scene_table(r.arrays.host_copy())
     table = torch.from_numpy(table_np).to(dev)
     pix, sub = pass_lanes(W, H, nn, 0, dev)
-    (_, rays, iters), kernel_ms = cuda_ms(lambda: launch(
-        table, counts, r._cam_packed.reshape(-1), pix, sub, width=W, height=H, spp=spp,
-        spp_total=spp, subsample=n, key=render_key(seed, 0), sample0=0, cfg=cfg), 10, 1)
-    bound_ms, bound_by = trace_bound(counts, table.numel(), cfg,
-                                     int(rays.sum(dtype=torch.int64)), pix.numel())
+    lanes = (table, counts, r._cam_packed.reshape(-1), pix, sub)
+    grid = r.arrays.vol_grid.contiguous() if cfg.has_volumes else None
+    if grid is not None:
+        lanes += (grid,)
+    res, kernel_ms = cuda_ms(lambda: launch(
+        *lanes, width=W, height=H, spp=spp, spp_total=spp, subsample=n,
+        key=render_key(seed, 0), sample0=0, cfg=cfg), 10, 1)
+    rays, iters = res[1], res[2]
+    n_rays = int(rays.sum(dtype=torch.int64))
+    n_vol = int(res[3].sum(dtype=torch.int64)) if grid is not None else 0
+    bound_ms, bound_by = trace_bound(counts, table.numel(), cfg, n_rays, pix.numel(), n_vol,
+                                     0 if grid is None else grid.numel())
+    march = f", march share {n_vol / n_rays:.4f} ({n_vol} volume events)" if grid is not None else ""
     print(f"phase {phase}: {launch.__name__} alone {kernel_ms:.3f} ms per launch at {W}x{H} "
-          f"{spp} spp (bound {bound_ms:.3f} ms by {bound_by}); {warp_stats(rays, iters)}")
+          f"{spp} spp, {n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}); "
+          f"{warp_stats(rays, iters)}{march}")
     kern_pass = make_render_pass(r.arrays, W, H, plain_rows, pass_spp, n, cfg, "full")
     (k_sums, k_rays), pass_ms = cuda_ms(lambda: kern_pass(r._cam_packed, seed, 0, 0), 10, 1)
     (p_sums, p_rays), plain_ms = cuda_ms(
@@ -287,7 +351,7 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
         print(f"phase {phase}: the plain pass took over {PLAIN_BUDGET_S:.0f} s: narrow "
               "its row band")
     return dict(kernel_ms=kernel_ms, pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, rays=n_rays, vol_events=n_vol)
 
 
 def main() -> int:
@@ -306,13 +370,13 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
 
     from bendy_tpu_torch import Config, _build
-    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface
+    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface, trace_volume
 
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
           + " | ".join(ptxas_report(_build.build_log())))
 
-    surf_err16, geo_err16 = kernel_vs_plain(dev)
+    err16 = kernel_vs_plain(dev)
 
     # phase 4: the cornell main path through the surface kernel
     cornell = main_path(4, "cornell", Config(), 256, 256, 64, 2, dev, trace_surface)
@@ -322,43 +386,51 @@ def main() -> int:
     bh = main_path(5, "blackhole", Config(max_bounces=2), 512, 512, 32, 1, dev, trace_geodesic)
     geo = kernel_alone_and_passes(5, bh, 512, 512, 32, 1, 4, 512, trace_geodesic, dev)
 
+    # phases 6-8: the media paths through the volume kernel
+    cloud = main_path(6, "cloud", Config(), 256, 256, 64, 2, dev, trace_volume)
+    vol_cloud = kernel_alone_and_passes(6, cloud, 256, 256, 64, 2, 4, 256, trace_volume, dev)
+    dense = main_path(7, "dense_cloud", Config(), 256, 256, 64, 2, dev, trace_volume)
+    vol_dense = kernel_alone_and_passes(7, dense, 256, 256, 64, 2, 4, 256, trace_volume, dev)
+    bhc_cfg = Config(max_bounces=2, volume_step=0.6)
+    bhc = main_path(8, "blackhole_cloud", bhc_cfg, 512, 288, 32, 1, dev, trace_volume)
+    vol_bhc = kernel_alone_and_passes(8, bhc, 512, 288, 32, 1, 4, 288, trace_volume, dev)
+
+    def entry(name, replaces, path, run, k, pass_spp):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "bendy_tpu_torch/csrc/trace_surface.cu",
+            "replaces": replaces,
+            "launches": run["launches"],
+            "max_abs_err": k["max_err"],
+            "ms": k["kernel_ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+            "path": path,
+            "pass_ms": k["pass_ms"],
+            "pass_spp": pass_spp,  # pass_ms, plain_ms and max_abs_err
+            "max_abs_err_16x16": err16[name],
+            "rays_per_launch": k["rays"],
+            "volume_events_per_launch": k["vol_events"],
+            "mrays_per_s": run["rays"] / run["dt"] / 1e6,
+            "s_per_pass": run["dt"] / 4,
+        }
+
+    pallas = "bendy_tpu/ops/pallas_trace.py:255"
     print(smi)
     print(json.dumps({"kernels": [
-        {
-            "name": "trace_surface",
-            "route": "cuda",
-            "source": "bendy_tpu_torch/csrc/trace_surface.cu",
-            "replaces": "bendy_tpu/ops/pallas_trace.py:255",
-            "launches": cornell["launches"],
-            "max_abs_err": surf["max_err"],
-            "ms": surf["kernel_ms"],
-            "plain_ms": surf["plain_ms"],
-            "bound_ms": surf["bound_ms"],
-            "bound_by": surf["bound_by"],
-            "library_ms": None,
-            "pass_ms": surf["pass_ms"],
-            "max_abs_err_16x16": surf_err16,
-            "mrays_per_s": cornell["rays"] / cornell["dt"] / 1e6,
-            "s_per_pass": cornell["dt"] / 4,
-        },
-        {
-            "name": "trace_geodesic",
-            "route": "cuda",
-            "source": "bendy_tpu_torch/csrc/trace_surface.cu",
-            "replaces": "bendy_tpu/ops/pallas_trace.py:255 (geodesic)",
-            "launches": bh["launches"],
-            "max_abs_err": geo["max_err"],
-            "ms": geo["kernel_ms"],
-            "plain_ms": geo["plain_ms"],
-            "bound_ms": geo["bound_ms"],
-            "bound_by": geo["bound_by"],
-            "library_ms": None,
-            "pass_ms": geo["pass_ms"],
-            "pass_spp": 4,  # pass_ms, plain_ms and max_abs_err; ms is at 32 spp
-            "max_abs_err_16x16": geo_err16,
-            "mrays_per_s": bh["rays"] / bh["dt"] / 1e6,
-            "s_per_pass": bh["dt"] / 4,
-        },
+        entry("trace_surface", pallas, "cornell 256x256 64spp 2x2", cornell, surf, 64),
+        entry("trace_geodesic", f"{pallas} (1d: geodesic)", "blackhole 512x512 32spp", bh,
+              geo, 4),
+        entry("trace_volume", f"{pallas} (1b: baked sparse grid, bendy_tpu/ops/volume.py:182)",
+              "cloud 256x256 64spp 2x2", cloud, vol_cloud, 4),
+        entry("trace_volume", f"{pallas} (1c: dense-grid brick fetch, "
+              "bendy_tpu/ops/volume.py:248)", "dense_cloud 256x256 64spp 2x2", dense,
+              vol_dense, 4),
+        entry("trace_volume", f"{pallas} (1b+1d: sparse grid under geodesics)",
+              "blackhole_cloud 512x288 32spp", bhc, vol_bhc, 4),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,11 +16,12 @@ holds the kernel to them on a card. Here they are held to ``bendy_tpu``:
   NORMAL), at rtol 5e-4 / atol 1e-5 on every channel of every lane, with
   equal ray counts. No lane flips between capture and escape at these
   inputs, so none is allowed to;
-- the Renderer film, the trace configuration of every bundled scene, the
-  refusals and the model builders.
+- the Renderer film, the trace configuration of every bundled scene
+  (volume knobs included), the refusals and the model builders.
 """
 
 import glob
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -355,7 +356,8 @@ def test_renderer_film_matches_reference_and_chunking():
 
 SCENES = sorted(glob.glob("scenes/*.json.gz"))
 FIELDS = ("geodesic", "geo", "looped_masses", "has_volumes", "has_diffuse", "has_metallic",
-          "has_glass", "frustum_poly", "has_dof", "want_aovs")
+          "has_glass", "frustum_poly", "has_dof", "want_aovs", "max_volume_bounces",
+          "volume_step", "vol_nearest", "looped_sweep", "looped_lights")
 
 
 @pytest.mark.parametrize("path", SCENES)
@@ -363,17 +365,19 @@ def test_trace_config_matches_reference(path):
     ref_s, port_s = ref_scene.load_scene(path), load_scene(path)
     cam = ref_s.find_by_tag("camera")
     explicit = GeoParams(eta=0.1, max_steps=512)
+    media = dict(volume_step=0.6, max_volume_bounces=16, vol_sampling="nearest")
     for geo_cfg in (None, explicit):
+        # the explicit case also sets every volume knob off its default
+        kw = {} if geo_cfg is None else media
         ref_r = RefRenderer(ref_s, RefConfig(geo=None if geo_cfg is None
-                                             else ref_geo.GeoParams(*geo_cfg)),
+                                             else ref_geo.GeoParams(*geo_cfg), **kw),
                             use_pallas=False)
-        port_r = Renderer(port_s, Config(geo=geo_cfg), device="cpu")
+        port_r = Renderer(port_s, Config(geo=geo_cfg, **kw), device="cpu")
         rc = ref_r.trace_config(ref_r.config, cam)
         pc = port_r.trace_config(port_r.config, cam)
         for f in FIELDS:
             assert getattr(pc, f) == getattr(rc, f), f
-        if not rc.has_volumes:  # the port's loop cap has no volume term yet
-            assert pc.max_iters(4) == rc.max_iters(4)
+        assert pc.max_iters(4) == rc.max_iters(4)
     # the precedence: explicit Config.geo > the scene file's block > defaults
     if ref_s.geodesic:
         assert port_r.trace_config(port_r.config).geo == explicit
@@ -384,18 +388,28 @@ def test_trace_config_matches_reference(path):
 @pytest.mark.parametrize("name,flag", [("mass_cluster", "looped_masses"),
                                        ("blackhole_cloud", "has_volumes")])
 def test_unported_geodesic_scenes_refused(name, flag):
+    """mass_cluster (more than 8 masses: the looped mass sweep) is refused.
+    blackhole_cloud (geodesics inside media) renders now; what stays
+    refused under its configuration is the looped primitive sweep
+    (cloud_field's), still to port."""
     scene = load_scene(f"scenes/{name}.json.gz")
     cam = scene.find_by_tag("camera")
     r = Renderer(scene, device="cpu")
     cfg = r.trace_config(r.config, cam)
     assert cfg.geodesic and getattr(cfg, flag)
     lanes = torch.zeros(4, dtype=torch.int64)
+    if flag == "has_volumes":
+        film = Film(4, 4)
+        r.render(cam, RenderConfig(samples=1), film)
+        assert np.isfinite(film.mean()).all() and r.rays_traced > 0
+        cfg, flag = replace(cfg, looped_sweep=True), "looped_sweep"
+    else:
+        with pytest.raises(NotImplementedError, match=flag):
+            r.render(cam, RenderConfig(samples=1), Film(4, 4))
     with pytest.raises(NotImplementedError, match=flag):
         trace_core(r.arrays, r.camera_params(cam), (1, 2), lanes, lanes, 4, 1, 1, 1, cfg)
     with pytest.raises(NotImplementedError, match=flag):
         make_tracer(r.arrays, 4, 1, 1, 1, cfg)
-    with pytest.raises(NotImplementedError, match=flag):
-        r.render(cam, RenderConfig(samples=1), Film(4, 4))
 
 
 def test_renderer_defaults_to_the_card():
