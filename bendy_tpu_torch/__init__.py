@@ -7,7 +7,8 @@ never jax. Each file mirrors the ``bendy_tpu`` file of the same path:
     utils/       color transfer, vector math, counter-based RNG, image IO
     scene/       scene graph + (de)serialization (copies) + SoA scene compiler
     models/      scene builders (copies): cornell, blackhole, binary_blackhole,
-                 blackhole_cloud, dense_cloud
+                 blackhole_cloud, dense_cloud, cloud_field, mass_cluster,
+                 prim_grid (with light_field and cuboid_light)
     ops/         samplers, camera rays, intersection, materials, media, the
                  wavefront integrator (plain PyTorch) and trace_kernel.py,
                  the launch glue of the CUDA tracer kernel
@@ -21,9 +22,10 @@ Ported so far: the surface main path (spheres, rects, boxes; all five
 materials; AOVs), geodesic lensing with up to 8 unrolled masses
 (blackhole, binary_blackhole), and participating media on sparse and
 dense density grids, also under geodesics (volume, cloud, dense_cloud,
-blackhole_cloud). Not ported, and refused: the looped table sweeps
-(cloud_field; more than 8 masses, mass_cluster). Also not ported:
-multi-device passes, the CLI and the preview server.
+blackhole_cloud), and the looped table sweeps: any primitive and light
+count the shared-memory table holds (cloud_field, prim_grid_256, many
+lights) and more than 8 masses (mass_cluster). Not ported: multi-device
+passes, the CLI and the preview server.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card the default raises.
@@ -38,8 +40,13 @@ from bendy_tpu_torch.models import (  # noqa: F401,E402
     build_binary_blackhole,
     build_blackhole,
     build_blackhole_cloud,
+    build_cloud_field,
     build_cornell,
+    build_cuboid_light,
     build_dense_cloud,
+    build_light_field,
+    build_mass_cluster,
+    build_prim_grid,
 )
 from bendy_tpu_torch.scene.graph import (  # noqa: F401
     Camera,

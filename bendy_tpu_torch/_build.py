@@ -43,18 +43,18 @@ _TRACE_ARGS = [
 ]
 SIGNATURES = {
     "bendy_trace_surface": (_TRACE_ARGS + [c_void_p], c_int),
-    # + n_mass, eta, min_step, max_step, far, max_steps, growth
+    # + n_mass, eta, min_step, max_step, far, max_steps, growth, near_steps
     "bendy_trace_geodesic": (
         _TRACE_ARGS + [c_int, c_float, c_float, c_float, c_float, c_int, c_float,
-                       c_void_p],
+                       c_void_p, c_void_p],
         c_int,
     ),
     # + the geodesic arguments, grid, G, D, H, W, volume_step,
     #   max_volume_bounces, nearest, vevents
     "bendy_trace_volume": (
         _TRACE_ARGS + [c_int, c_float, c_float, c_float, c_float, c_int, c_float,
-                       c_void_p, c_int, c_int, c_int, c_int, c_float, c_int, c_int,
-                       c_void_p, c_void_p],
+                       c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_float, c_int,
+                       c_int, c_void_p, c_void_p],
         c_int,
     ),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),

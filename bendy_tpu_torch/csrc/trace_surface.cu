@@ -2,7 +2,7 @@
 //
 // Replaces bendy_tpu/ops/pallas_trace.py::make_pallas_tracer (the
 // pl.pallas_call at pallas_trace.py:255, running
-// bendy_tpu/ops/wavefront.py::trace_core) in four configurations,
+// bendy_tpu/ops/wavefront.py::trace_core) in all its configurations,
 // compile-time instantiations of one kernel template behind three C entry
 // points:
 //   - bendy_trace_surface  (GEO = false, VOL = false): the surface
@@ -17,7 +17,20 @@
 //     ops/volume.py::_density_operand :248, pack_vol_operand :99), with
 //     volume_shade (:489-520) and the march mode of trace_core
 //     (wavefront.py:544-548, 593-604, 697-746); with GEO, geodesics inside
-//     media (wavefront.py:559-572, 589, 738-739).
+//     media (wavefront.py:559-572, 589, 738-739);
+//   - the looped table sweeps (1e), in every entry point: the primitive
+//     sweep (1e-i: bendy_tpu/ops/intersect.py::nearest_hit_looped :740 over
+//     prim_tables :495) and the light sweep (1e-ii: ops/materials.py::
+//     sample_light_point_looped :132, intersect.py::light_pdf_looped :1183)
+//     are the same run-time loops over the shared-memory table that every
+//     instantiation runs (nearest_hit, sample_light_point, light_pdf below):
+//     the TPU needs a looped form because an XLA unroll's compile time
+//     grows with the count and Mosaic indexes only SMEM by a traced row,
+//     and the reference proves its two forms equal. The looped mass sweep
+//     (1e-iii: bendy_tpu/geodesic.py::geo_step_begin_looped :236,
+//     _acc_looped :309, rk4_step_looped :349 over mass_table :196) computes
+//     another discretization, so it is an instantiation of its own: LOOPM
+//     (FLAG_LOOPM, with GEO, in bendy_trace_geodesic and bendy_trace_volume).
 // Its plain PyTorch version is bendy_tpu_torch/ops/wavefront.py::trace_core
 // (geodesic mode: bendy_tpu_torch/geodesic.py; media:
 // bendy_tpu_torch/ops/volume.py); the wrappers and the table layout are in
@@ -110,7 +123,32 @@
 //   - Dead lanes compute nothing, so no NaN from a lane parked at a mass
 //     center reaches the state a regeneration reads.
 //   - n_mass == 0 would leave r2_min at +INF: the geodesic entry refuses any
-//     n_mass outside [1, 8], as the wrapper does.
+//     n_mass outside [1, 8] (at least 1 with FLAG_LOOPM), as the wrapper does.
+//
+// Looped masses (the LOOPM instantiations; geodesic.py's *_looped functions
+// are the order):
+//   - geo_step_begin_looped is one pass over the n_mass rows of the mass
+//     block: capture, far field and r2_min in row order, and no h² array, so
+//     nothing of size M lives in registers. The reference pads its table to
+//     MASS_BLOCK rows with rs = 0 and masks them; over the real rows alone
+//     the function is the same, so the table carries no padding.
+//   - acc_looped recomputes h² at every RK4 stage from that stage's x and d
+//     (h2 = max(r2·d2 − rd·rd, 0)) and applies s = (−1.5·rs)·(h2·inv_r⁵), an
+//     association other than acc_frozen's, summed in row order. Without
+//     contraction it is bit-equal to the plain version. Among 64 masses an
+//     RK4 stage point now and then lands near a mass and the next one is
+//     thrown past f32's range (r² = inf): the max keeps the NaN of inf − inf
+//     there, as the plain version's clamp does, so both lanes go NaN alike
+//     (with fmaxf the kernel went on and added the environment).
+//   - What likely bounds it: FP32 issue, 4 stages × M masses × ~25
+//     operations per chord step (at M = 64 some 6,400, with a divide and a
+//     sqrt per mass and stage), and divergence across photon-ring lanes.
+//     The LOOPM instantiations can write each lane's count of RK4 steps
+//     (near_steps, optional), so that a caller can count that work.
+//     Every lane of a warp reads the same mass row at once, a shared-memory
+//     broadcast without bank conflicts; the loop runs over the run-time
+//     count with a partial unroll of 4 that keeps the order; only near
+//     lanes take the RK4 step. No speed claim is made here.
 //
 // Media (the VOL instantiation; ops/volume.py and trace_core's march mode
 // are the order):
@@ -164,7 +202,7 @@ constexpr int FACE_FRONT = 0, FACE_BACK = 1, FACE_VOLUME = 2, FACE_VOLUME_FRONT 
               FACE_VOLUME_BACK = 4;
 
 constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
-              FLAG_GEO = 32;
+              FLAG_GEO = 32, FLAG_LOOPM = 64;
 
 constexpr uint32_t CAMERA_TAG = 0x100000u;
 constexpr float INF = std::numeric_limits<float>::infinity();
@@ -207,6 +245,7 @@ struct Params {
   int G, D, H, W;
   float volume_step;
   int max_volume_bounces, nearest;
+  int32_t* near_steps;                           // LOOPM only, optional: [n] RK4 steps per lane
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -608,6 +647,45 @@ __device__ __forceinline__ void rk4_step(const float* masses, int n_mass,
   d_new = d + (k1d + (k2d + k3d) * 2.0f + k4d) * sixth;
 }
 
+// _acc_looped: h² recomputed from the stage state, summed in row order
+__device__ __forceinline__ V3 acc_looped(const float* masses, int n_mass, V3 x, V3 d) {
+  const float d2 = dot(d, d);
+  V3 a = {0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int k = 0; k < n_mass; ++k) {
+    const float* m = masses + MASS_COLS * k;
+    const V3 rel = x - ld3(m);
+    const float r2 = dot(rel, rel);
+    const float rd = dot(rel, d);
+    // max(h2, 0) that keeps a NaN, as torch.clamp_min and jnp.maximum do
+    // (fmaxf would drop it): a stage point thrown past f32's range gives
+    // r2 = inf and h2 = inf - inf, and the lane must then go NaN as in the
+    // plain version, not on with a finite acceleration
+    const float h2_raw = r2 * d2 - rd * rd;
+    const float h2 = h2_raw < 0.0f ? 0.0f : h2_raw;
+    const float inv_r = r2 > 0.0f ? 1.0f / sqrtf(fmaxf(r2, (float)1e-20)) : 0.0f;
+    const float inv_r5 = inv_r * inv_r * inv_r * inv_r * inv_r;
+    a = a + rel * ((-1.5f * m[3]) * (h2 * inv_r5));
+  }
+  return a;
+}
+
+// rk4_step_looped: _rk4 with the looped acceleration
+__device__ __forceinline__ void rk4_step_looped(const float* masses, int n_mass, V3 x, V3 d,
+                                                float ds, V3& x_new, V3& d_new) {
+  const float half = ds * 0.5f;
+  const V3 k1x = d, k1d = acc_looped(masses, n_mass, x, d);
+  const V3 k2x = d + k1d * half;
+  const V3 k2d = acc_looped(masses, n_mass, x + k1x * half, k2x);
+  const V3 k3x = d + k2d * half;
+  const V3 k3d = acc_looped(masses, n_mass, x + k2x * half, k3x);
+  const V3 k4x = d + k3d * ds;
+  const V3 k4d = acc_looped(masses, n_mass, x + k3x * ds, k4x);
+  const float sixth = ds * (float)(1.0 / 6.0);
+  x_new = x + (k1x + (k2x + k3x) * 2.0f + k4x) * sixth;
+  d_new = d + (k1d + (k2d + k3d) * 2.0f + k4d) * sixth;
+}
+
 // ---- media (bendy_tpu_torch/ops/volume.py) -------------------------------
 
 // _axis: corner pair and lerp weights along one axis of c = clamp(coord)·hi
@@ -656,7 +734,7 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-template <bool AOVS, bool GEO, bool VOL>
+template <bool AOVS, bool GEO, bool VOL, bool LOOPM>
 __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   extern __shared__ float tab[];
   for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) tab[i] = P.table[i];
@@ -699,6 +777,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   bool fresh = true;  // first segment after a bounce: clip_min applies
   bool march = false;  // volume instantiation: the lane is marching a medium
   int vbounce = 0, last_sph = -1, vev = 0;
+  int n_near = 0;  // LOOPM: RK4 steps taken (near segments), for the work count
 
   for (; it < P.max_iters; ++it) {
     if (!alive) {
@@ -796,10 +875,9 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       float r2_min = INF;
       const float d2 = dot(dir, dir);
       float h2s[MAX_MASSES];
-#pragma unroll
-      for (int k = 0; k < MAX_MASSES; ++k) {
-        h2s[k] = 0.0f;
-        if (k < P.n_mass) {
+      if constexpr (LOOPM) {
+        // geo_step_begin_looped: the same compares over any count, no h²
+        for (int k = 0; k < P.n_mass; ++k) {
           const float* m = masses + MASS_COLS * k;
           const float rs = m[3];
           const V3 rel = org - ld3(m);
@@ -809,7 +887,23 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
           captured = captured || r2 < rs * rs;
           far_field = far_field && r2 > far_r * far_r && rd > 0.0f;
           r2_min = fminf(r2_min, r2);
-          h2s[k] = fmaxf(r2 * d2 - rd * rd, 0.0f);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < MAX_MASSES; ++k) {
+          h2s[k] = 0.0f;
+          if (k < P.n_mass) {
+            const float* m = masses + MASS_COLS * k;
+            const float rs = m[3];
+            const V3 rel = org - ld3(m);
+            const float r2 = dot(rel, rel);
+            const float rd = dot(rel, dir);
+            const float far_r = P.far * rs;
+            captured = captured || r2 < rs * rs;
+            far_field = far_field && r2 > far_r * far_r && rd > 0.0f;
+            r2_min = fminf(r2_min, r2);
+            h2s[k] = fmaxf(r2 * d2 - rd * rd, 0.0f);
+          }
         }
       }
       // horizon capture, or the step budget spent: the path is swallowed
@@ -830,7 +924,11 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       if (is_near) {
         const float eta = P.eta * (1.0f + P.growth * (float)geo_steps);
         const float ds = fminf(fmaxf(eta * sqrtf(r2_min), P.min_step), P.max_step);
-        rk4_step(masses, P.n_mass, h2s, org, dir, ds, x_next, d_next);
+        if constexpr (LOOPM) {
+          rk4_step_looped(masses, P.n_mass, org, dir, ds, x_next, d_next);
+        } else {
+          rk4_step(masses, P.n_mass, h2s, org, dir, ds, x_next, d_next);
+        }
         const V3 chord = x_next - org;
         const float chord_len = sqrtf(dot(chord, chord));
         tdir = chord * (1.0f / fmaxf(chord_len, (float)1e-20));
@@ -848,6 +946,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
     HitT<VOL> h = nearest_hit<VOL>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
                                    march, last_sph);
     if (GEO && is_near) ++geo_steps;
+    if constexpr (LOOPM) n_near += is_near;
     if (GEO && is_near && h.face < 0) {
       // no hit inside the chord: keep bending from its end point
       org = x_next;
@@ -996,14 +1095,18 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   P.rays[lane] = rays;
   P.iters[lane] = it;
   if constexpr (VOL) P.vevents[lane] = vev;
+  if constexpr (LOOPM) {
+    if (P.near_steps != nullptr) P.near_steps[lane] = n_near;
+  }
 }
 
-template <bool GEO, bool VOL>
+template <bool GEO, bool VOL, bool LOOPM = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
   const size_t smem = (size_t)P.table_floats * sizeof(float);
   const int threads = 128;
   const int blocks = (P.n + threads - 1) / threads;
-  auto kernel = want_aovs ? trace_kernel<true, GEO, VOL> : trace_kernel<false, GEO, VOL>;
+  auto kernel =
+      want_aovs ? trace_kernel<true, GEO, VOL, LOOPM> : trace_kernel<false, GEO, VOL, LOOPM>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, threads, smem, s>>>(P);
@@ -1074,15 +1177,21 @@ extern "C" {
 // Launch the surface instantiation on `stream`; returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for a geodesic configuration.
 int bendy_trace_surface(TRACE_ARGS, void* stream) {
-  if (flags & FLAG_GEO) return (int)cudaErrorInvalidValue;
+  if (flags & (FLAG_GEO | FLAG_LOOPM)) return (int)cudaErrorInvalidValue;
   return launch<false, false>(TRACE_PARAMS, want_aovs != 0, static_cast<cudaStream_t>(stream));
 }
 
-// Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, the
-// mass block after the environment in `table`) on `stream`.
+// Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, or
+// with FLAG_LOOPM the LOOPM one over any n_mass >= 1; the mass block after
+// the environment in `table`) on `stream`. With FLAG_LOOPM a non-null
+// `near_steps` [n] int32 receives each lane's RK4 step count; otherwise it
+// is ignored.
 int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
-                         float far, int max_steps, float growth, void* stream) {
-  if (!(flags & FLAG_GEO) || n_mass < 1 || n_mass > MAX_MASSES) return (int)cudaErrorInvalidValue;
+                         float far, int max_steps, float growth, void* near_steps,
+                         void* stream) {
+  const bool loopm = (flags & FLAG_LOOPM) != 0;
+  if (!(flags & FLAG_GEO) || n_mass < 1 || (!loopm && n_mass > MAX_MASSES))
+    return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
   P.n_mass = n_mass;
   P.eta = eta;
@@ -1091,21 +1200,24 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
   P.far = far;
   P.max_steps = max_steps;
   P.growth = growth;
-  return launch<true, false>(P, want_aovs != 0, static_cast<cudaStream_t>(stream));
+  P.near_steps = static_cast<int32_t*>(near_steps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return loopm ? launch<true, false, true>(P, want_aovs != 0, s)
+               : launch<true, false>(P, want_aovs != 0, s);
 }
 
 // Launch the volume instantiation on `stream`: the density-grid stack
 // `grid` [G,D,H,W] f32, march step and volume-bounce cap, trilinear or
 // nearest lookups, per-lane volume-event counts into `vevents` [n] int32.
-// With FLAG_GEO it is the geodesic one inside media (1 <= n_mass <= 8 and
+// With FLAG_GEO it is the geodesic one inside media (n_mass, FLAG_LOOPM and
 // the GeoParams as for bendy_trace_geodesic); without, n_mass is ignored.
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
-                       float far, int max_steps, float growth, const void* grid, int G, int D,
-                       int H, int W, float volume_step, int max_volume_bounces, int nearest,
-                       void* vevents, void* stream) {
-  const bool geo = (flags & FLAG_GEO) != 0;
-  if ((geo && (n_mass < 1 || n_mass > MAX_MASSES)) || grid == nullptr || vevents == nullptr ||
-      G < 1 || D < 1 || H < 1 || W < 1)
+                       float far, int max_steps, float growth, void* near_steps,
+                       const void* grid, int G, int D, int H, int W, float volume_step,
+                       int max_volume_bounces, int nearest, void* vevents, void* stream) {
+  const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0;
+  if ((geo && (n_mass < 1 || (!loopm && n_mass > MAX_MASSES))) || (loopm && !geo) ||
+      grid == nullptr || vevents == nullptr || G < 1 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
   P.n_mass = geo ? n_mass : 0;
@@ -1115,6 +1227,7 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
   P.far = far;
   P.max_steps = max_steps;
   P.growth = growth;
+  P.near_steps = static_cast<int32_t*>(near_steps);
   P.grid = static_cast<const float*>(grid);
   P.vevents = static_cast<int32_t*>(vevents);
   P.G = G;
@@ -1125,7 +1238,9 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
   P.max_volume_bounces = max_volume_bounces;
   P.nearest = nearest;
   const auto s = static_cast<cudaStream_t>(stream);
-  return geo ? launch<true, true>(P, want_aovs != 0, s) : launch<false, true>(P, want_aovs != 0, s);
+  if (!geo) return launch<false, true>(P, want_aovs != 0, s);
+  return loopm ? launch<true, true, true>(P, want_aovs != 0, s)
+               : launch<true, true>(P, want_aovs != 0, s);
 }
 
 const char* bendy_cuda_error_string(int code) {

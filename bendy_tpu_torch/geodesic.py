@@ -17,16 +17,21 @@ multiplies; the RK4 sums as ``_rk4`` writes them), so the CUDA tracer's
 geodesic instantiation (``csrc/trace_surface.cu``), built without
 contraction, rounds as they do. The wavefront integrator's geodesic mode
 (:func:`bendy_tpu_torch.ops.wavefront.trace_core`) uses them for the
-unrolled mass sweep of up to ``render.MASS_LOOP_THRESHOLD`` masses.
+unrolled mass sweep of up to ``render.MASS_LOOP_THRESHOLD`` masses, where
+the step freezes the per-mass h² (:func:`geo_step_begin`,
+:func:`rk4_step` with ``h2s``).
+
+Above the threshold (``TraceConfig.looped_masses``: ``mass_cluster``'s 64
+masses) it takes the looped mass sweep, the plain version of the kernel's
+LOOPM instantiation (the reference's kernel 1e-iii):
+:func:`geo_step_begin_looped` returns no h², and :func:`rk4_step_looped`
+recomputes h² at every RK4 stage from that stage's state. That is another
+discretization of the same ODE, so the threshold changes the image at
+rounding level, as in the reference.
 
 Geodesics inside media (``blackhole_cloud``) use the same functions:
 marching lanes step straight and only the capture test applies to them
 (:func:`bendy_tpu_torch.ops.wavefront.trace_core`).
-
-Still refused (not ported): the looped mass sweep over a mass table
-(``mass_table``, ``geo_step_begin_looped``, ``rk4_step_looped``, kernel
-1e), so scenes with more masses than the threshold (``mass_cluster``)
-raise.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from bendy_tpu_torch.scene.compiler import SceneArrays
-from bendy_tpu_torch.utils.v3 import V3
+from bendy_tpu_torch.utils.v3 import V3, sqrt_rn
 
 
 class GeoParams(NamedTuple):
@@ -70,7 +75,7 @@ def mass_row(scn: SceneArrays, k: int) -> tuple[V3, torch.Tensor]:
 
 def _inv_r5(r2: torch.Tensor) -> torch.Tensor:
     """|x|⁻⁵ from r², 0 at the mass itself (four multiplies, left to right)."""
-    inv_r = torch.where(r2 > 0.0, 1.0 / torch.sqrt(torch.clamp_min(r2, 1e-20)), 0.0)
+    inv_r = torch.where(r2 > 0.0, 1.0 / sqrt_rn(torch.clamp_min(r2, 1e-20)), 0.0)
     return inv_r * inv_r * inv_r * inv_r * inv_r
 
 
@@ -98,7 +103,7 @@ def step_size(scn: SceneArrays, x: V3, p: GeoParams, steps=None) -> torch.Tensor
     for k in range(scn.n_masses):
         center, _ = mass_row(scn, k)
         r2_min = torch.minimum(r2_min, (x - center).length_squared())
-    return torch.clamp(_eta(p, steps) * torch.sqrt(r2_min), p.min_step, p.max_step)
+    return torch.clamp(_eta(p, steps) * sqrt_rn(r2_min), p.min_step, p.max_step)
 
 
 def _acc_frozen(scn: SceneArrays, x: V3, h2s: list) -> V3:
@@ -136,7 +141,7 @@ def geo_step_begin(scn: SceneArrays, x: V3, d: V3, p: GeoParams, steps=None):
         far = far & ((r2 > far_r * far_r) & (rd > 0.0))
         r2_min = torch.minimum(r2_min, r2)
         h2s.append(torch.clamp_min(r2 * d2 - rd * rd, 0.0))
-    ds = torch.clamp(_eta(p, steps) * torch.sqrt(r2_min), p.min_step, p.max_step)
+    ds = torch.clamp(_eta(p, steps) * sqrt_rn(r2_min), p.min_step, p.max_step)
     return captured, far, ds, h2s
 
 
@@ -152,6 +157,61 @@ def rk4_step(scn: SceneArrays, x: V3, d: V3, ds: torch.Tensor,
         def acc(xs, dstage):
             return _acc_frozen(scn, xs, h2s)
     return _rk4(acc, x, d, ds)
+
+
+def _mass_terms(scn: SceneArrays, x: V3):
+    """(rel [M,B] V3, rs [M,1]) of every mass row against every lane."""
+    c = scn.mass_center[:, :, None]
+    rel = V3(x.x[None] - c[:, 0], x.y[None] - c[:, 1], x.z[None] - c[:, 2])
+    return rel, scn.mass_rs[:, None]
+
+
+def geo_step_begin_looped(scn: SceneArrays, x: V3, d: V3, p: GeoParams, steps=None):
+    """Looped-mass twin of :func:`geo_step_begin`: ``(captured, far, ds)``,
+    and no h² (counterpart of ``bendy_tpu.geodesic.geo_step_begin_looped``).
+
+    The reference pads its mass table to ``MASS_BLOCK`` rows with rs = 0,
+    valid = 0, and masks pad rows out of ``far`` and the r² min; over the
+    ``n_masses`` real rows alone the function is the same, so there is no
+    mass table here. The per-mass terms are [M, B] tensors (elementwise, so
+    each rounds as a per-mass op would); capture, far field and the min
+    are order-free.
+    """
+    rel, rs = _mass_terms(scn, x)
+    r2 = rel.length_squared()
+    rd = rel.dot(V3(d.x[None], d.y[None], d.z[None]))
+    far_r = p.far * rs
+    captured = (r2 < rs * rs).any(dim=0)
+    far = ((r2 > far_r * far_r) & (rd > 0.0)).all(dim=0)
+    r2_min = r2.amin(dim=0) if scn.n_masses else torch.full_like(x.x, torch.inf)
+    ds = torch.clamp(_eta(p, steps) * sqrt_rn(r2_min), p.min_step, p.max_step)
+    return captured, far, ds
+
+
+def _acc_looped(scn: SceneArrays, x: V3, d: V3) -> V3:
+    """Acceleration with h² recomputed from the stage state by the Lagrange
+    identity max(r²·|d|² − (rel·d)², 0), as the reference's looped sweep
+    writes it: s = (−1.5·rs)·(h²·inv_r⁵) (another association than
+    :func:`_acc_frozen`'s), summed one mass at a time in row order (a
+    reduction over M would reassociate the sum and lose bit-equality with
+    the kernel)."""
+    rel, rs = _mass_terms(scn, x)
+    r2 = rel.length_squared()
+    d2 = d.length_squared()
+    rd = rel.dot(V3(d.x[None], d.y[None], d.z[None]))
+    h2 = torch.clamp_min(r2 * d2[None] - rd * rd, 0.0)
+    s = (-1.5 * rs) * (h2 * _inv_r5(r2))
+    ax, ay, az = rel.x * s, rel.y * s, rel.z * s
+    a = V3.zeros(x.x.shape, x.x.device)
+    for k in range(scn.n_masses):
+        a = V3(a.x + ax[k], a.y + ay[k], a.z + az[k])
+    return a
+
+
+def rk4_step_looped(scn: SceneArrays, x: V3, d: V3, ds: torch.Tensor) -> tuple[V3, V3]:
+    """Looped-mass RK4 step: per-mass h² recomputed per stage
+    (:func:`_acc_looped`; counterpart of ``bendy_tpu.geodesic.rk4_step_looped``)."""
+    return _rk4(lambda xs, dstage: _acc_looped(scn, xs, dstage), x, d, ds)
 
 
 def _rk4(acc, x: V3, d: V3, ds: torch.Tensor) -> tuple[V3, V3]:

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from bendy_tpu_torch.utils.v3 import V3
+from bendy_tpu_torch.utils.v3 import V3, sqrt_rn
 
 
 def sin_cos_tau(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -57,7 +57,7 @@ def sin_cos_small(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def unit_sphere(u1: torch.Tensor, u2: torch.Tensor) -> V3:
     """Uniform direction on S² from two uniforms (``distr.rs:11-21``)."""
     sin1, cos1 = sin_cos_tau(u1)
-    s = 2.0 * torch.sqrt(u2 * (1.0 - u2))
+    s = 2.0 * sqrt_rn(u2 * (1.0 - u2))
     return V3(cos1 * s, sin1 * s, 1.0 - 2.0 * u2)
 
 
@@ -65,7 +65,7 @@ def unit_hemisphere(normal: V3, u1: torch.Tensor, u2: torch.Tensor) -> V3:
     """Hemisphere fuzz vector about ``normal`` (``distr.rs:49-58``);
     deliberately not normalized."""
     sin1, cos1 = sin_cos_tau(u1)
-    s = 2.0 * torch.sqrt(u2 * (1.0 - u2))
+    s = 2.0 * sqrt_rn(u2 * (1.0 - u2))
     t, b = normal.orthonormal_frame()
     return t * (cos1 * s) + b * (sin1 * s) + normal * (1.0 - u2)
 
@@ -73,6 +73,6 @@ def unit_hemisphere(normal: V3, u1: torch.Tensor, u2: torch.Tensor) -> V3:
 def cosine_hemisphere(normal: V3, u1: torch.Tensor, u2: torch.Tensor) -> V3:
     """Cosine-weighted unit direction about ``normal`` (``distr.rs:87-96``)."""
     sin1, cos1 = sin_cos_tau(u1)
-    sq = torch.sqrt(u2)
+    sq = sqrt_rn(u2)
     t, b = normal.orthonormal_frame()
-    return t * (cos1 * sq) + b * (sin1 * sq) + normal * torch.sqrt(1.0 - u2)
+    return t * (cos1 * sq) + b * (sin1 * sq) + normal * sqrt_rn(1.0 - u2)

@@ -1,11 +1,12 @@
-"""Batched, branchless primitive intersection: the unrolled sweep.
+"""Batched, branchless primitive intersection.
 
-Counterpart of ``bendy_tpu/ops/intersect.py`` (its unrolled subset). The
-nearest hit is a Python loop over the compiled primitive rows; the running
-winner's attributes are carried through ``torch.where`` selects of 0-d
-scene scalars, so each lane ends with the winning primitive's geometry and
-material. The plain path of the CUDA tracer (:mod:`.trace_kernel`); the
-kernel runs the same sweep per thread over the tables in shared memory.
+Counterpart of ``bendy_tpu/ops/intersect.py``. The nearest hit tests every
+primitive row of a kind at once ([N, B] tensors) and takes the first row
+that reaches the smallest t, so each lane ends with the winning
+primitive's geometry and material; the light pdf reads each lane's own
+light row. The plain path of the CUDA tracer (:mod:`.trace_kernel`); the
+kernel runs the same sweep per thread, row by row, over the tables in
+shared memory.
 
 Face codes (``src/tracer/ray.rs:8-15``):
     0 FRONT, 1 BACK, 2 VOLUME, 3 VOLUME_FRONT, 4 VOLUME_BACK.  MISS = -1.
@@ -32,8 +33,12 @@ marching lane's last sphere gets an interior VOLUME pseudo-hit at
 inside it. The Hit carries the winning sphere's grid, its row and its
 bounding box for the density lookup (:mod:`.volume`).
 
-Not ported yet: the looped table sweeps (``nearest_hit_looped``,
-``light_pdf_looped``).
+The reference's looped table sweeps (``nearest_hit_looped``,
+``light_pdf_looped``, kernel 1e) compute the same winners as its unrolled
+ones, bit for bit (``tests/test_looped_sweep.py``); they exist because an
+XLA unroll's compile time grows with the count and Mosaic indexes only
+SMEM by a traced row. Here the row loop runs at any count, so these
+functions serve both configurations.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import math
 import torch
 
 from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
-from bendy_tpu_torch.utils.v3 import V3
+from bendy_tpu_torch.utils.v3 import V3, sqrt_rn
 
 INF = math.inf
 
@@ -55,11 +60,6 @@ FACE_VOLUME = 2
 FACE_VOLUME_FRONT = 3
 FACE_VOLUME_BACK = 4
 FACE_MISS = -1
-
-
-def row3(a: torch.Tensor, k) -> V3:
-    """Row ``k`` of an [N,3] tensor as a V3 of 0-d tensors."""
-    return V3(a[k, 0], a[k, 1], a[k, 2])
 
 
 class Hit(NamedTuple):
@@ -90,7 +90,7 @@ def sphere_t(org: V3, dir: V3, cmin, cmax, center: V3, radius) -> torch.Tensor:
     half_b = oc.dot(dir)
     c = oc.length_squared() - radius * radius
     disc = half_b * half_b - c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt_rn(torch.clamp_min(disc, 0.0))
     t_near = -half_b - sq
     t_far = -half_b + sq
     near_ok = (t_near >= cmin) & (t_near <= cmax)
@@ -175,11 +175,19 @@ def box_t(org: V3, dir: V3, cmin, cmax, bn, bdlo, bdhi, bslo, bshi):
     return t, p_sign, zb_like
 
 
-def _prim_color(mtype, albedo: V3, emitted: V3) -> V3:
-    """The one rgb a primitive's shading can read: ``emitted`` for the
-    terminating kinds (Flat, Emissive), ``albedo`` for scattering kinds."""
+def _color_rows(mtype: torch.Tensor, albedo: torch.Tensor,
+                emitted: torch.Tensor) -> torch.Tensor:
+    """The one rgb per primitive row [N,3] that shading can read:
+    ``emitted`` for the terminating kinds (Flat, Emissive), ``albedo`` for
+    scattering kinds."""
     is_em = (mtype == MAT_FLAT) | (mtype == MAT_EMISSIVE)
-    return V3.where(is_em, emitted, albedo)
+    return torch.where(is_em[:, None], emitted, albedo)
+
+
+def _rows(a: torch.Tensor) -> V3:
+    """An [N,3] table as a V3 of [N,1] columns, which broadcast against
+    [B] lanes to [N,B]."""
+    return V3(a[:, 0, None], a[:, 1, None], a[:, 2, None])
 
 
 def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays,
@@ -187,8 +195,17 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays,
                 last_sphere: torch.Tensor | None = None,
                 carry_volumes: bool = True) -> Hit:
     """Nearest hit across all primitives for each lane: spheres, then the
-    traced rects, then boxes, each replacing the winner on a strictly
-    smaller t.
+    traced rects, then boxes, a later primitive replacing the winner only
+    on a strictly smaller t.
+
+    Every primitive of a kind is tested at once ([N, B] tensors: each
+    element rounds as the per-row test would) and the winner is the first
+    row that reaches the smallest t, which is what the row loop of the
+    kernel (and of the reference's sweeps) picks; a NaN t never wins. The
+    winner's attributes are gathered by its row. Attributes that only some
+    winners set keep the row loop's values: the sphere box (``c_center``,
+    ``c_radius``, ``vol_size``) is the nearest sphere's even when a rect
+    or box wins, the rect normal is zero when a sphere wins.
 
     With ``march`` lanes ([B] bool) and their ``last_sphere`` rows, the
     last sphere of a marching lane gets the volumetric treatment: if the
@@ -200,94 +217,100 @@ def nearest_hit(org: V3, dir: V3, cmin, cmax, scn: SceneArrays,
     B = org.x.shape
     dev = org.x.device
     zero = torch.zeros(B, device=dev)
-    i0 = torch.zeros(B, dtype=torch.int32, device=dev)
-    has_sph = scn.n_spheres > 0
-    has_rct = scn.n_trace_rects > 0 or scn.n_boxes > 0
+    ns, nt, nb = scn.n_spheres, scn.n_trace_rects, scn.n_boxes
+    has_sph = ns > 0
+    has_rct = nt > 0 or nb > 0
 
-    t_best = torch.full(B, INF, device=dev)
-    is_sph = torch.zeros(B, dtype=torch.bool, device=dev)
-    srow = i0 - 1
-    interior = torch.zeros(B, dtype=torch.bool, device=dev)
-    c_vgrid = i0 - 1
-    c_vsize = V3(zero, zero, zero)
-    c_center = V3(zero, zero, zero)
-    c_radius = zero + 1.0
-    c_zb = V3(zero, zero, zero)
-    c_p = zero
-    c_mtype = i0
-    c_color = V3(zero, zero, zero)
-    c_rough = zero
-    c_ior = zero + 1.0
-
-    def take(better, mtype, color, rough, ior):
-        nonlocal c_mtype, c_color, c_rough, c_ior
-        c_mtype = torch.where(better, mtype, c_mtype)
-        c_color = V3.where(better, color, c_color)
-        c_rough = torch.where(better, rough, c_rough)
-        c_ior = torch.where(better, ior, c_ior)
-
-    end = org + dir * cmax if march is not None else None
-    for k in range(scn.n_spheres):
-        center = row3(scn.sph_center, k)
-        radius = scn.sph_radius[k]
-        t_k = sphere_t(org, dir, cmin, cmax, center, radius)
+    ts, zbs, ps = [], [], []
+    mtypes, colors, roughs, iors = [], [], [], []
+    if ns:
+        center, radius = _rows(scn.sph_center), scn.sph_radius[:, None]
+        t_s = sphere_t(org, dir, cmin, cmax, center, radius)
         if march is not None:
-            is_last = march & (last_sphere == k)
+            rows = torch.arange(ns, device=dev)[:, None]
+            is_last = march & (last_sphere == rows)
+            end = org + dir * cmax
             inside = (end - center).length_squared() <= radius * radius
-            t_k = torch.where(is_last, torch.where(inside, cmax, t_k), t_k)
-        better = t_k < t_best
-        t_best = torch.where(better, t_k, t_best)
-        is_sph = is_sph | better
-        srow = torch.where(better, k, srow)
+            t_s = torch.where(is_last, torch.where(inside, cmax, t_s), t_s)
+        ts.append(t_s)
+        zbs.append(V3.zeros((ns, *B), dev))
+        ps.append(torch.zeros((ns, *B), device=dev))
+        mtypes.append(scn.sph_mtype)
+        colors.append(_color_rows(scn.sph_mtype, scn.sph_albedo, scn.sph_emitted))
+        roughs.append(scn.sph_rough)
+        iors.append(scn.sph_ior)
+    if nt:
+        r = slice(0, nt)
+        zb = _rows(scn.rct_z[r])
+        t_r, p_r = rect_t(org, dir, cmin, cmax, _rows(scn.rct_center[r]), _rows(scn.rct_x[r]),
+                          _rows(scn.rct_y[r]), zb, scn.rct_hw[r, None], scn.rct_hh[r, None])
+        ts.append(t_r)
+        zbs.append(zb + V3.zeros((nt, *B), dev))
+        ps.append(p_r)
+        mtypes.append(scn.rct_mtype[r])
+        colors.append(_color_rows(scn.rct_mtype[r], scn.rct_albedo[r], scn.rct_emitted[r]))
+        roughs.append(scn.rct_rough[r])
+        iors.append(scn.rct_ior[r])
+    if nb:
+        col = lambda a: a.T[..., None]  # noqa: E731  [Nb,3] -> [3,Nb,1]
+        t_b, p_b, zb_b = box_t(org, dir, cmin, cmax, scn.box_n.permute(1, 2, 0)[..., None],
+                               col(scn.box_dlo), col(scn.box_dhi), col(scn.box_sgn_lo),
+                               col(scn.box_sgn_hi))
+        ts.append(t_b)
+        zbs.append(zb_b)
+        ps.append(p_b)
+        mtypes.append(scn.box_mtype)
+        colors.append(_color_rows(scn.box_mtype, scn.box_albedo, scn.box_emitted))
+        roughs.append(scn.box_rough)
+        iors.append(scn.box_ior)
+
+    if not ts:  # no primitive: one row that every lane misses
+        ts.append((zero + INF)[None])
+        zbs.append(V3.zeros((1, *B), dev))
+        ps.append(zero[None])
+        mtypes.append(torch.zeros(1, dtype=torch.int32, device=dev))
+        colors.append(torch.zeros((1, 3), device=dev))
+        roughs.append(torch.zeros(1, device=dev))
+        iors.append(torch.ones(1, device=dev))
+    t_all = torch.cat(ts)
+    t_all = torch.where(torch.isnan(t_all), INF, t_all)
+    win = t_all.argmin(dim=0)
+    t_best = t_all.gather(0, win[None])[0]
+    valid = torch.isfinite(t_best)
+    is_sph = valid & (win < ns)
+    lane = torch.arange(win.shape[0], device=dev)
+
+    def winner(a: torch.Tensor, fill):
+        """The winning row's value of an [N] table, ``fill`` on misses."""
+        return torch.where(valid, a[win], fill)
+
+    c_mtype = winner(torch.cat(mtypes), 0).to(torch.int32)
+    c_color = V3.from_array(torch.where(valid[:, None], torch.cat(colors)[win], 0.0))
+    c_rough = winner(torch.cat(roughs), 0.0)
+    c_ior = winner(torch.cat(iors), 1.0)
+    surf_rect = valid & ~is_sph
+    zb_all = V3(*(torch.cat([z[i] for z in zbs]) for i in range(3)))
+    c_zb = V3(*(torch.where(surf_rect, c[win, lane], 0.0) for c in zb_all))
+    c_p = torch.where(surf_rect, torch.cat(ps)[win, lane], 0.0)
+
+    srow = torch.full(B, -1, dtype=torch.int64, device=dev)
+    interior = torch.zeros(B, dtype=torch.bool, device=dev)
+    c_vgrid = torch.full(B, -1, dtype=torch.int32, device=dev)
+    c_center, c_radius, c_vsize = V3(zero, zero, zero), zero + 1.0, V3(zero, zero, zero)
+    if ns:
+        # the nearest sphere: the carry the row loop leaves after the spheres
+        w_s = t_all[:ns].argmin(dim=0)
+        hit_s = torch.isfinite(t_all[:ns].gather(0, w_s[None])[0])
+        srow = torch.where(hit_s, w_s, -1)
+        c_center = V3(*(torch.where(hit_s, scn.sph_center[:, i][w_s], 0.0)
+                        for i in range(3)))
+        c_radius = torch.where(hit_s, scn.sph_radius[w_s], 1.0)
+        if carry_volumes:
+            c_vsize = V3(*(torch.where(hit_s, scn.sph_vol_size[:, i][w_s], 0.0)
+                           for i in range(3)))
+            c_vgrid = torch.where(is_sph, scn.sph_vol_grid[w_s], -1).to(torch.int32)
         if march is not None:
-            interior = torch.where(better, is_last & inside, interior)
-        if carry_volumes:
-            c_vgrid = torch.where(better, scn.sph_vol_grid[k], c_vgrid)
-            c_vsize = V3.where(better, row3(scn.sph_vol_size, k), c_vsize)
-        c_center = V3.where(better, center, c_center)
-        c_radius = torch.where(better, radius, c_radius)
-        take(better, scn.sph_mtype[k],
-             _prim_color(scn.sph_mtype[k], row3(scn.sph_albedo, k),
-                         row3(scn.sph_emitted, k)),
-             scn.sph_rough[k], scn.sph_ior[k])
-
-    for k in range(scn.n_trace_rects):
-        zb = row3(scn.rct_z, k)
-        t_k, p_k = rect_t(
-            org, dir, cmin, cmax, row3(scn.rct_center, k),
-            row3(scn.rct_x, k), row3(scn.rct_y, k), zb,
-            scn.rct_hw[k], scn.rct_hh[k],
-        )
-        better = t_k < t_best
-        t_best = torch.where(better, t_k, t_best)
-        is_sph = is_sph & ~better
-        interior = interior & ~better
-        if carry_volumes:
-            c_vgrid = torch.where(better, -1, c_vgrid)
-        c_zb = V3.where(better, zb, c_zb)
-        c_p = torch.where(better, p_k, c_p)
-        take(better, scn.rct_mtype[k],
-             _prim_color(scn.rct_mtype[k], row3(scn.rct_albedo, k),
-                         row3(scn.rct_emitted, k)),
-             scn.rct_rough[k], scn.rct_ior[k])
-
-    for k in range(scn.n_boxes):
-        t_k, p_k, zb_k = box_t(
-            org, dir, cmin, cmax, scn.box_n[k], scn.box_dlo[k], scn.box_dhi[k],
-            scn.box_sgn_lo[k], scn.box_sgn_hi[k],
-        )
-        better = t_k < t_best
-        t_best = torch.where(better, t_k, t_best)
-        is_sph = is_sph & ~better
-        interior = interior & ~better
-        if carry_volumes:
-            c_vgrid = torch.where(better, -1, c_vgrid)
-        c_zb = V3.where(better, zb_k, c_zb)
-        c_p = torch.where(better, p_k, c_p)
-        take(better, scn.box_mtype[k],
-             _prim_color(scn.box_mtype[k], row3(scn.box_albedo, k),
-                         row3(scn.box_emitted, k)),
-             scn.box_rough[k], scn.box_ior[k])
+            interior = is_sph & (is_last & inside)[w_s, lane]
 
     return _manifold(org, dir, t_best, is_sph, srow, interior, c_center, c_radius,
                      c_zb, c_p, c_mtype, c_color, c_rough, c_ior, c_vgrid, c_vsize,
@@ -358,40 +381,33 @@ def light_pdf(org: V3, dir: V3, cmin, cmax, scn: SceneArrays,
 
     Matches ``light_pdf`` (``src/scene/data/material.rs:313-316``) and the
     per-shape pdfs: sphere t²/(πr²) (``sphere.rs:44-61``), rect
-    t²/(area·|d·n|) (``rect.rs:92-108``), cuboid = nearest face's pdf
-    (``cuboid.rs:56-81``); 0 when the ray misses the light. The light kind
-    and face validity are read from the host tables, so each light
-    evaluates only its own shape (the values are unchanged).
+    t²/(area·|d·n|) (``rect.rs:92-108``), cuboid = nearest valid face's pdf
+    (``cuboid.rs:56-81``); 0 when the ray misses the light. Each lane reads
+    its own light's row, so the cost does not grow with the light count,
+    and the sweep over faces keeps the kernel's order.
     """
-    host = scn.host_copy()
     B = org.x.shape
     dev = org.x.device
-    pdf = torch.zeros(B, device=dev)
-    for li in range(scn.n_lights):
-        sel = light_idx == li
-        if int(host.light_kind[li]) == 0:
-            r = scn.light_sph_radius[li]
-            t_s = sphere_t(org, dir, cmin, cmax, row3(scn.light_sph_center, li), r)
-            pdf_l = torch.where(torch.isfinite(t_s), t_s * t_s / (math.pi * r * r), 0.0)
-        else:
-            t_b = torch.full(B, INF, device=dev)
-            q_b = torch.ones(B, device=dev)
-            area_b = torch.ones(B, device=dev)
-            for f in range(scn.light_face_cdf.shape[1]):
-                if not host.light_face_valid[li, f]:
-                    continue
-                zb = row3(scn.light_face_z[li], f)
-                # containment bases are the inverse-transposed ones
-                t_f, _ = rect_t(
-                    org, dir, cmin, cmax, row3(scn.light_face_center[li], f),
-                    row3(scn.light_face_ux[li], f), row3(scn.light_face_uy[li], f),
-                    zb, scn.light_face_hw[li, f], scn.light_face_hh[li, f],
-                )
-                better = t_f < t_b
-                t_b = torch.where(better, t_f, t_b)
-                q_b = torch.where(better, dir.dot(zb), q_b)
-                area_b = torch.where(better, scn.light_face_area[li, f], area_b)
-            pdf_l = torch.where(torch.isfinite(t_b),
-                                t_b * t_b / (area_b * torch.abs(q_b)), 0.0)
-        pdf = torch.where(sel, pdf_l, pdf)
-    return pdf
+    if scn.n_lights == 0:
+        return torch.zeros(B, device=dev)
+    li = light_idx.long()
+    r = scn.light_sph_radius[li]
+    t_s = sphere_t(org, dir, cmin, cmax, V3.from_array(scn.light_sph_center[li]), r)
+    pdf_s = torch.where(torch.isfinite(t_s), t_s * t_s / (math.pi * r * r), 0.0)
+    t_b = torch.full(B, INF, device=dev)
+    q_b = torch.ones(B, device=dev)
+    area_b = torch.ones(B, device=dev)
+    for f in range(scn.light_face_cdf.shape[1]):
+        zb = V3.from_array(scn.light_face_z[li, f])
+        # containment bases are the inverse-transposed ones
+        t_f, _ = rect_t(
+            org, dir, cmin, cmax, V3.from_array(scn.light_face_center[li, f]),
+            V3.from_array(scn.light_face_ux[li, f]), V3.from_array(scn.light_face_uy[li, f]),
+            zb, scn.light_face_hw[li, f], scn.light_face_hh[li, f],
+        )
+        better = scn.light_face_valid[li, f] & (t_f < t_b)
+        t_b = torch.where(better, t_f, t_b)
+        q_b = torch.where(better, dir.dot(zb), q_b)
+        area_b = torch.where(better, scn.light_face_area[li, f], area_b)
+    pdf_r = torch.where(torch.isfinite(t_b), t_b * t_b / (area_b * torch.abs(q_b)), 0.0)
+    return torch.where(scn.light_kind[li] == 0, pdf_s, pdf_r)

@@ -30,9 +30,9 @@ from typing import NamedTuple, Sequence
 import torch
 
 from bendy_tpu_torch.ops import distr
-from bendy_tpu_torch.ops.intersect import FACE_FRONT, FACE_VOLUME_FRONT, Hit, light_pdf, row3
+from bendy_tpu_torch.ops.intersect import FACE_FRONT, FACE_VOLUME_FRONT, Hit, light_pdf
 from bendy_tpu_torch.scene.compiler import MAT_DIFFUSE, MAT_GLASS, MAT_METALLIC, SceneArrays
-from bendy_tpu_torch.utils.v3 import V3
+from bendy_tpu_torch.utils.v3 import V3, sqrt_rn
 
 
 class Shade(NamedTuple):
@@ -53,35 +53,30 @@ def sample_light_point(scn: SceneArrays, light_idx: torch.Tensor,
     sphere: center + r·unit_sphere       (``sphere.rs:40-42``)
     rect:   center + x̂·U(-hw,hw) + ...    (``rect.rs:82-86``)
     cuboid: area-weighted face, then rect (``cuboid.rs:48-54``)
+
+    Each lane reads its own light's row, so the cost does not grow with
+    the light count.
     """
-    host = scn.host_copy()
     B = u_a.shape
     dev = u_a.device
-    out = V3.zeros(B, dev)
-    usphere = None
-    for li in range(scn.n_lights):
-        sel = light_idx == li
-        if int(host.light_kind[li]) == 0:
-            if usphere is None:
-                usphere = distr.unit_sphere(u_a, u_b)
-            p = row3(scn.light_sph_center, li) + usphere * scn.light_sph_radius[li]
-        else:
-            # first valid face whose cdf exceeds u_face
-            remaining = torch.ones(B, dtype=torch.bool, device=dev)
-            p = V3.zeros(B, dev)
-            for f in range(scn.light_face_cdf.shape[1]):
-                if not host.light_face_valid[li, f]:
-                    continue
-                pick = remaining & (u_face < scn.light_face_cdf[li, f])
-                remaining = remaining & ~pick
-                x = (u_a * 2.0 - 1.0) * scn.light_face_hw[li, f]
-                y = (u_b * 2.0 - 1.0) * scn.light_face_hh[li, f]
-                p_f = (row3(scn.light_face_center[li], f)
-                       + row3(scn.light_face_x[li], f) * x
-                       + row3(scn.light_face_y[li], f) * y)
-                p = V3.where(pick, p_f, p)
-        out = V3.where(sel, p, out)
-    return out
+    if scn.n_lights == 0:
+        return V3.zeros(B, dev)
+    li = light_idx.long()
+    p_s = (V3.from_array(scn.light_sph_center[li])
+           + distr.unit_sphere(u_a, u_b) * scn.light_sph_radius[li])
+    # first valid face whose cdf exceeds u_face
+    remaining = torch.ones(B, dtype=torch.bool, device=dev)
+    p_r = V3.zeros(B, dev)
+    for f in range(scn.light_face_cdf.shape[1]):
+        pick = remaining & scn.light_face_valid[li, f] & (u_face < scn.light_face_cdf[li, f])
+        remaining = remaining & ~pick
+        x = (u_a * 2.0 - 1.0) * scn.light_face_hw[li, f]
+        y = (u_b * 2.0 - 1.0) * scn.light_face_hh[li, f]
+        p_f = (V3.from_array(scn.light_face_center[li, f])
+               + V3.from_array(scn.light_face_x[li, f]) * x
+               + V3.from_array(scn.light_face_y[li, f]) * y)
+        p_r = V3.where(pick, p_f, p_r)
+    return V3.where(scn.light_kind[li] == 0, p_s, p_r)
 
 
 def shade_surface(
@@ -138,7 +133,7 @@ def shade_surface(
         is_front = (hit.face == FACE_FRONT) | (hit.face == FACE_VOLUME_FRONT)
         ior_eff = torch.where(is_front, 1.0 / hit.ior, hit.ior)
         cos_theta = torch.clamp_max((-dir_in).dot(n), 1.0)
-        sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+        sin_theta = sqrt_rn(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
         fr = dir_in.fresnel(n, ior_eff)
         do_reflect = (ior_eff * sin_theta > 1.0) | (u[1] < fr)
         d_glass_base = V3.where(do_reflect, dir_in.reflect(n), dir_in.refract(n, ior_eff))

@@ -9,12 +9,16 @@ thread per lane. That function is its plain version. The kernel has
 compile-time instantiations behind three entry points, each with its own
 launch count: the flat surface tracer (:func:`trace_surface`), the
 geodesic one (:func:`trace_geodesic`, RK4 chord stepping over up to
-``MAX_MASSES`` unrolled masses) and the volume one (:func:`trace_volume`:
-march mode and the density lookup of sparse and dense grids, with or
-without geodesics).
+``MAX_MASSES`` unrolled masses, or with ``cfg.looped_masses`` over any
+count of masses in a loop that recomputes h² per RK4 stage: the LOOPM
+instantiations) and the volume one (:func:`trace_volume`: march mode and
+the density lookup of sparse and dense grids, with or without geodesics,
+unrolled or looped). Primitives and lights are swept by run-time loops
+over the table in every instantiation, so the reference's looped
+primitive and light sweeps need no instantiation of their own.
 
-Dispatch is by the device of the lane tensors and by ``cfg.has_volumes``
-and ``cfg.geodesic``, with no fallback: CUDA tensors launch the matching
+Dispatch is by the device of the lane tensors and by ``cfg.has_volumes``,
+``cfg.geodesic`` and ``cfg.looped_masses``, with no fallback: CUDA tensors launch the matching
 kernel (a build or launch failure raises), CPU tensors run the plain
 version, anything else raises.
 
@@ -49,6 +53,7 @@ MAX_MASSES = 8  # the geodesic kernel's mass unroll (render.MASS_LOOP_THRESHOLD)
 
 # kernel flag bits (csrc/trace_surface.cu FLAG_*)
 FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY, FLAG_GEO = 1, 2, 4, 8, 16, 32
+FLAG_LOOPM = 64  # the looped mass sweep (the LOOPM instantiations)
 
 
 def pack_camera_host(sensor, focal, aspect, fstop, focus, yfov,
@@ -101,7 +106,7 @@ def scene_table(host: SceneArrays) -> tuple[np.ndarray, dict]:
       env   [7]:     root mtype, albedo rgb, emitted rgb
       mass  [M,4]:   center xyz, rs (geodesic masses; M = 0 in flat scenes)
     The merged color is ``emitted`` for Flat/Emissive and ``albedo``
-    otherwise (the one rgb shading reads, ``intersect._prim_color``).
+    otherwise (the one rgb shading reads, ``intersect._color_rows``).
     """
     f32 = np.float32
 
@@ -163,7 +168,8 @@ def _flags(cfg: TraceConfig) -> int:
             | (FLAG_GLASS if cfg.has_glass else 0)
             | (FLAG_DOF if cfg.has_dof else 0)
             | (FLAG_POLY if cfg.frustum_poly else 0)
-            | (FLAG_GEO if cfg.geodesic else 0))
+            | (FLAG_GEO if cfg.geodesic else 0)
+            | (FLAG_LOOPM if cfg.geodesic and cfg.looped_masses else 0))
 
 
 def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
@@ -244,20 +250,24 @@ trace_surface.launches = 0
 def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                    pix: torch.Tensor, sub: torch.Tensor, *, width: int,
                    height: int, spp: int, spp_total: int, subsample: int,
-                   key: tuple, sample0: int, cfg: TraceConfig):
+                   key: tuple, sample0: int, cfg: TraceConfig,
+                   near_steps: torch.Tensor | None = None):
     """Launch the geodesic instantiation of ``csrc/trace_surface.cu`` (RK4
-    chord stepping, unrolled masses) on the current stream.
+    chord stepping; unrolled masses, or the LOOPM one with
+    ``cfg.looped_masses``) on the current stream.
 
     Same outputs as :func:`trace_surface`; the ``GeoParams`` go in as
-    launch arguments. Adds one to ``trace_geodesic.launches`` per launch.
-    Raises unless ``cfg.geodesic`` without volumes and 1 <= n_mass <=
-    ``MAX_MASSES``.
+    launch arguments. With ``cfg.looped_masses``, ``near_steps`` (an
+    optional [B] int32 output) receives each lane's count of RK4 steps.
+    Adds one to ``trace_geodesic.launches`` per launch. Raises unless
+    ``cfg.geodesic`` without volumes and 1 <= n_mass (at most
+    ``MAX_MASSES`` unless ``cfg.looped_masses``).
     """
     if cfg.has_volumes:
         raise ValueError("a configuration with volumes launches trace_volume")
     res = _launch("bendy_trace_geodesic", table, counts, cam_packed, pix, sub, width,
                   height, spp, spp_total, subsample, key, sample0, cfg,
-                  extra=_geo_args(counts, cfg))
+                  extra=(*_geo_args(counts, cfg), _near_steps(near_steps, pix, cfg)))
     if pix.shape[0]:
         trace_geodesic.launches += 1
     return res
@@ -267,28 +277,43 @@ trace_geodesic.launches = 0
 
 
 def _geo_args(counts: dict, cfg: TraceConfig) -> tuple:
-    """(n_mass, GeoParams...) launch arguments of a geodesic configuration."""
+    """(n_mass, GeoParams...) launch arguments of a geodesic configuration:
+    1 to ``MAX_MASSES`` unrolled masses, or with ``cfg.looped_masses`` any
+    count from 1 that the shared-memory table holds (``_launch`` checks the
+    table)."""
     n_mass = counts["n_mass"]
-    if not cfg.geodesic or cfg.looped_masses or not 1 <= n_mass <= MAX_MASSES:
-        raise ValueError(f"a geodesic launch takes 1 to {MAX_MASSES} unrolled masses, "
-                         f"got geodesic={cfg.geodesic}, looped_masses={cfg.looped_masses}, "
-                         f"{n_mass} masses")
+    if not cfg.geodesic or n_mass < 1 or (n_mass > MAX_MASSES and not cfg.looped_masses):
+        raise ValueError(f"a geodesic launch takes 1 to {MAX_MASSES} unrolled masses or "
+                         f"at least 1 looped, got geodesic={cfg.geodesic}, "
+                         f"looped_masses={cfg.looped_masses}, {n_mass} masses")
     geo = cfg.geo or GeoParams()
     return (n_mass, geo.eta, geo.min_step, geo.max_step, geo.far, geo.max_steps, geo.growth)
+
+
+def _near_steps(near_steps: torch.Tensor | None, pix: torch.Tensor, cfg: TraceConfig):
+    """The optional per-lane RK4-step output of a looped-mass launch."""
+    if near_steps is None:
+        return None
+    if (not cfg.looped_masses or near_steps.shape != pix.shape
+            or near_steps.dtype != torch.int32 or near_steps.device != pix.device):
+        raise ValueError("near_steps: a [B] int32 tensor beside the lanes, for looped_masses")
+    return near_steps
 
 
 def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                  pix: torch.Tensor, sub: torch.Tensor, grid: torch.Tensor, *, width: int,
                  height: int, spp: int, spp_total: int, subsample: int,
-                 key: tuple, sample0: int, cfg: TraceConfig):
+                 key: tuple, sample0: int, cfg: TraceConfig,
+                 near_steps: torch.Tensor | None = None):
     """Launch the volume instantiation of ``csrc/trace_surface.cu`` (march
     mode and the 8-corner density lookup of ``grid``, the ``[G, D, H, W]``
     f32 stack of the scene's density grids; geodesic inside media when
     ``cfg.geodesic``) on the current stream.
 
     Returns (out, rays, iters) as :func:`trace_surface`, then vol_events
-    [B] int32, each lane's count of volume events (density lookups). Adds
-    one to ``trace_volume.launches`` per launch. Raises unless
+    [B] int32, each lane's count of volume events (density lookups);
+    ``near_steps`` as for :func:`trace_geodesic`. Adds one to
+    ``trace_volume.launches`` per launch. Raises unless
     ``cfg.has_volumes``, on a grid the kernel does not take, and as
     :func:`trace_geodesic` on a geodesic configuration it does not take.
     """
@@ -304,8 +329,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     out, rays, iters = _launch(
         "bendy_trace_volume", table, counts, cam_packed, pix, sub, width, height, spp,
         spp_total, subsample, key, sample0, cfg,
-        extra=(*geo, grid, G, D, H, W, cfg.volume_step, cfg.max_volume_bounces,
-               int(cfg.vol_nearest), vevents))
+        extra=(*geo, _near_steps(near_steps, pix, cfg), grid, G, D, H, W, cfg.volume_step,
+               cfg.max_volume_bounces, int(cfg.vol_nearest), vevents))
     if pix.shape[0]:
         trace_volume.launches += 1
     return out, rays, iters, vevents

@@ -27,8 +27,9 @@ thread per lane. The RNG is counter-based and keyed by the global
 
 Geodesic mode (scene has ``mass:<rs>`` objects, ``cfg.geodesic``): surface
 propagation is stepped. Each iteration takes one adaptive RK4 step of the
-ray (:mod:`bendy_tpu_torch.geodesic`, per-mass h² frozen per step),
-intersects along the straight chord from the old to the new point, and,
+ray (:mod:`bendy_tpu_torch.geodesic`: per-mass h² frozen per step, or,
+with ``cfg.looped_masses``, the looped mass sweep that recomputes h² per
+RK4 stage, as the reference's dispatch does), intersects along the straight chord from the old to the new point, and,
 on no hit inside the chord, continues bending from the new point; lanes
 in flat space (far from and receding from every mass) trace straight with
 the full clip, lanes inside a horizon or past the step budget are
@@ -45,9 +46,11 @@ steps is killed at path entry. Under geodesics marching lanes step
 straight with the march clip, horizon capture still applies to them, the
 step budget does not, and a volume event restarts the chord clip.
 
-Still refused with ``NotImplementedError``: the looped table sweeps
-(primitives, lights, and masses above ``render.MASS_LOOP_THRESHOLD``, as
-``cloud_field`` and ``mass_cluster`` need). The reference's
+The reference's looped primitive and light sweeps (``looped_sweep``,
+``looped_lights``) need no other arithmetic here: the plain sweeps are
+Python loops over the rows and the kernel's are run-time loops over the
+shared-memory table, at any count, and the reference proves its looped
+and unrolled forms equal (``tests/test_looped_sweep.py``). The reference's
 ``regen_every`` cadence changes no pixel (``tests/test_cadence.py``), nor
 does its ``march_every`` split (``tests/test_march_cadence.py``); both
 versions here run every block every iteration.
@@ -66,7 +69,13 @@ from dataclasses import dataclass
 
 import torch
 
-from bendy_tpu_torch.geodesic import GeoParams, geo_step_begin, rk4_step
+from bendy_tpu_torch.geodesic import (
+    GeoParams,
+    geo_step_begin,
+    geo_step_begin_looped,
+    rk4_step,
+    rk4_step_looped,
+)
 from bendy_tpu_torch.ops.camera import CameraParams, camera_ray, ndc_base
 from bendy_tpu_torch.ops.intersect import FACE_BACK, FACE_FRONT, FACE_VOLUME_BACK, nearest_hit
 from bendy_tpu_torch.ops.materials import shade_surface
@@ -96,8 +105,7 @@ class TraceConfig:
     has_volumes: bool = False  # march mode compiled in (scene has grids)
     vol_nearest: bool = False  # SamplingMode::Nearest density lookups
     #   (``volume.rs:146-150``); default Trilinear like the reference tracer
-    geodesic: bool = False  # curved-ray propagation (scene has masses);
-    #   unrolled masses only (looped_masses is refused)
+    geodesic: bool = False  # curved-ray propagation (scene has masses)
     frustum_poly: bool = False  # FOV bounds the frustum angles under
     #   ~1.2 rad -> range-free polynomial sin/cos in camera_ray
     geo: GeoParams | None = None  # geodesic knobs; None = GeoParams()
@@ -108,7 +116,13 @@ class TraceConfig:
     has_glass: bool = True
     has_dof: bool = True  # camera has a focus distance (thin-lens defocus)
     want_aovs: bool = True  # False drops the AOV pipeline (FULL renders)
-    looped_sweep: bool = False  # not ported yet: trace_core refuses these
+    # the reference's choice of looped sweeps (Renderer.trace_config derives
+    # them as it does). looped_masses selects the looped mass sweep (h²
+    # recomputed per RK4 stage: another rounding of the same ODE);
+    # looped_sweep and looped_lights select no other arithmetic here: on
+    # Hopper every sweep is one run-time loop over the table, and the
+    # reference proves its two forms of those sweeps equal
+    looped_sweep: bool = False
     looped_lights: bool = False
     looped_masses: bool = False
 
@@ -143,20 +157,12 @@ class TraceSums:
 
 def check_trace_args(width: int, height: int, spp_total: int, subsample: int,
                      cfg: TraceConfig) -> None:
-    """Refuse what the port does not implement, and RNG stream ids that
-    would alias.
+    """Refuse RNG stream ids that would alias.
 
     Stream ids are u32: id = (pix·spp_total + s)·nn + sub, so the id space
     is width·height·spp_total·nn. Overflow would silently alias RNG streams
     across the image (correlated noise, no error), so refuse instead.
     """
-    missing = [name for name in ("looped_sweep", "looped_lights", "looped_masses")
-               if getattr(cfg, name)]
-    if missing:
-        raise NotImplementedError(
-            f"bendy_tpu_torch traces with unrolled sweeps only; "
-            f"{', '.join(missing)} not ported yet"
-        )
     nn = max(subsample, 1) ** 2
     id_space = width * height * spp_total * nn
     if id_space > 0xFFFFFFFF:
@@ -308,8 +314,12 @@ def trace_core(
             # horizon capture swallows any alive lane, marching ones included
             # (a medium around the mass must not let straight march steps
             # tunnel through the horizon); the step budget binds surface lanes
-            captured, far_field, ds, h2s = geo_step_begin(scn, org, dirv, geo,
-                                                          steps=geo_steps)
+            if cfg.looped_masses:
+                captured, far_field, ds = geo_step_begin_looped(scn, org, dirv, geo,
+                                                                steps=geo_steps)
+            else:
+                captured, far_field, ds, h2s = geo_step_begin(scn, org, dirv, geo,
+                                                              steps=geo_steps)
             swallowed = captured | ((mode == MODE_SURFACE) & (geo_steps > geo.max_steps))
             mode = torch.where((mode != MODE_DEAD) & swallowed, MODE_DEAD, mode)
         alive = mode != MODE_DEAD
@@ -320,7 +330,10 @@ def trace_core(
             # x_next/d_next are computed for every lane and read only where
             # the chord holds no hit (geo_cont); dead lanes' values (NaN
             # included) never reach state a regeneration reads
-            x_next, d_next = rk4_step(scn, org, dirv, ds, h2s=h2s)
+            if cfg.looped_masses:
+                x_next, d_next = rk4_step_looped(scn, org, dirv, ds)
+            else:
+                x_next, d_next = rk4_step(scn, org, dirv, ds, h2s=h2s)
             chord = x_next - org
             chord_len = chord.length()
             seg_dir = chord * (1.0 / torch.clamp_min(chord_len, 1e-20))

@@ -9,7 +9,8 @@ The renderer runs on one ``device``, the card unless the caller asks for
 the CPU. On a CUDA device each pass is one launch of the hand-written
 tracer kernel (``ops/trace_kernel.py``: the surface kernel, its geodesic
 instantiation for scenes with masses, or its volume instantiation for
-scenes with density grids, with or without masses) per row chunk; on
+scenes with density grids, with or without masses; past
+``MASS_LOOP_THRESHOLD`` masses the looped-mass forms) per row chunk; on
 ``device="cpu"`` it runs the plain PyTorch integrator. Without a card the
 default raises; nothing falls back to another path.
 
@@ -54,16 +55,18 @@ from bendy_tpu_torch.utils.rng import render_key
 LOOP_SWEEP_THRESHOLD = 192  # primitives (spheres + traced rects + boxes)
 #   above which the reference sweeps primitives with loops over row tables
 #   (``bendy_tpu/render.py:108``), and LIGHT_LOOP_THRESHOLD the LIGHT-flagged
-#   objects above which it sweeps lights so (``render.py:130``). The port
-#   has no looped sweeps yet, so such a scene (cloud_field) is refused
-#   (TraceConfig.looped_sweep, looped_lights).
+#   objects above which it sweeps lights so (``render.py:130``). Both only
+#   set TraceConfig.looped_sweep / looped_lights here: the port's sweeps are
+#   run-time loops at any count, and the looped and unrolled forms compute
+#   the same winners (cloud_field, prim_grid_256 render as any scene).
 LIGHT_LOOP_THRESHOLD = 64
 
 MASS_LOOP_THRESHOLD = 8  # geodesic point masses above which the reference
 #   sweeps masses with loops over a mass table (``bendy_tpu/render.py:142``),
 #   recomputing h² per RK4 stage: a different discretization from the
-#   frozen-h² unroll. The port has no looped mass sweep yet, so such a
-#   scene is refused (TraceConfig.looped_masses), not traced differently.
+#   frozen-h² unroll. The one threshold that changes the image: above it
+#   (mass_cluster) the port takes the same looped form
+#   (TraceConfig.looped_masses; the kernel's LOOPM instantiation).
 
 
 class Output(enum.Enum):

@@ -8,7 +8,8 @@ Phases, one line each (any failure exits non-zero):
      power limit,
   2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
      each instantiation's ptxas registers, stack and spills (surface,
-     geodesic, and the volume ones with and without geodesics),
+     geodesic, and the volume ones with and without geodesics; the geodesic
+     ones with unrolled and with looped masses, LOOPM),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
@@ -17,8 +18,13 @@ Phases, one line each (any failure exits non-zero):
      cloud and dense_cloud at spp 2, max_bounces=3, seed 11, on
      blackhole_cloud at spp 1 and 4, Config(max_bounces=2,
      volume_step=0.6), seed 3, and on cloud with nearest sampling, FULL and
-     NORMAL (per lane rtol 5e-4, atol 1e-5, equal int64 ray counts,
-     per-lane iteration sums and volume-event counts); then the Renderer
+     NORMAL; the looped sweeps: build_prim_grid(200) at spp 2,
+     max_bounces=4, seed 7, cloud_field at spp 2, max_bounces=4, seed 11,
+     build_light_field(200) at spp 2, max_bounces=3, seed 5, mass_cluster
+     at spp 1 and 4, max_bounces=2, seed 3, a 13-mass ring at spp 2 and 12
+     masses inside a medium at spp 1 (the reference's multi_mass_scene),
+     FULL and NORMAL (per lane rtol 5e-4, atol 1e-5, equal int64 ray
+     counts, per-lane iteration sums and volume-event counts); then the Renderer
      against the cornell CPU golden at the same tolerance, and against the
      volume golden within the budget tests/test_torch_volume.py holds,
   4. the cornell main path: Renderer(cornell) at 256x256, 64 spp, 2x2
@@ -43,10 +49,24 @@ Phases, one line each (any failure exits non-zero):
   7. the dense_cloud main path (dense 32^3 grid), as phase 6,
   8. the blackhole_cloud main path (geodesics inside media, bench.py's
      blackhole_cloud row): 512x288, 32 spp, no subpixels,
-     Config(max_bounces=2, volume_step=0.6), as phase 6.
+     Config(max_bounces=2, volume_step=0.6), as phase 6,
+  9. the prim_grid_256 main path (258 primitives, the looped primitive
+     sweep; bench.py's prim_grid_256 row): build_prim_grid(256) at
+     256x256, 16 spp, no subpixels, Config(max_bounces=4), through the
+     surface kernel, as phase 5 (the plain pass at spp 4),
+ 10. the cloud_field main path (256 volume puffs and 2 sun lights, the
+     looped sweep with media): 256x256, 16 spp, Config(max_bounces=4),
+     through the volume kernel, as phase 6,
+ 11. the mass_cluster main path (64 masses, the looped mass sweep): 256x256,
+     16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel, as
+     phase 5, with each lane's RK4 steps counted for the bound,
+ 12. the many-lights path (the looped light sweep): build_light_field(200)
+     at 256x256, 16 spp, Config(max_bounces=3), through the surface kernel.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes a few minutes, most of it the plain passes.
+
+    python3 -c "import chip_smoke as c; c.run(phases=(2, 3))"   # a subset
 """
 
 import json
@@ -71,10 +91,17 @@ PEAK_F32_S = 67e12
 # FP32 operations per traced segment, counted from csrc/trace_surface.cu
 # (a divide or a sqrt counts as one): the intersection test of each
 # primitive kind, and per mass the capture/far/h² sweep that every
-# geodesic segment runs. The RK4 stages (only on segments near a mass) and
-# the shading are not counted, so the bound is a floor.
+# geodesic segment runs. The shading, and the RK4 stages of the unrolled
+# masses (only on segments near a mass), are not counted, so the bound is
+# a floor.
 SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
 GEO_BEGIN_OPS, GEO_BEGIN_PER_MASS_OPS = 5, 21
+# the looped mass sweep (LOOPM): its begin sweep has no h² (17 per mass),
+# and each RK4 step (counted per lane by the kernel) is 4 stages of the
+# looped acceleration (5 for |d|², 33 per mass: rel 3, r² 5, rel·d 5, h² 4,
+# inv_r 3, inv_r⁵ 4, s 3, the sum 6) and 115 for the stage states, the two
+# sums, the step size and the chord
+LOOPM_BEGIN_PER_MASS_OPS, RK4_STEP_OPS, ACC_STAGE_OPS, ACC_PER_MASS_OPS = 17, 115, 5, 33
 # FP32 operations of one volume event's density lookup, counted from
 # csrc/trace_surface.cu: grid_axis 7 per axis (clamp 2, scale, floor,
 # fraction, two weights), the nested lerp 21, the box coordinate 10, the
@@ -91,14 +118,20 @@ def lane_mismatch(a, b) -> int:
     return int(((a - b).abs() > ATOL + RTOL * b.abs()).sum())
 
 
-def cuda_ms(fn, repeats: int = 1, warmup: int = 0):
+def cuda_ms(fn, repeats: int = 1, warmup: int = 0, warm_s: float = 0.0):
     """(last result, mean ms per call) timed with CUDA events, after
-    ``warmup`` untimed calls (first-call set-up such as table uploads)."""
+    ``warmup`` untimed calls (first-call set-up such as table uploads) and
+    more untimed calls until ``warm_s`` seconds have passed (the SM clock
+    ramps up again after a stretch of light load)."""
     import torch
 
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    while time.perf_counter() - t0 < warm_s:
+        fn()
+        torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(repeats):
@@ -106,6 +139,14 @@ def cuda_ms(fn, repeats: int = 1, warmup: int = 0):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / repeats
+
+
+def sm_clock() -> str:
+    """The card's SM clock and power draw now, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -120,30 +161,35 @@ def ptxas_report(log: str) -> list[str]:
             frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)E", name)
-            label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)}>"
-                     if t else name)
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)},"
+                     f"LOOPM={t.group(4)}>" if t else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
 
 
 def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
-                vol_events: int = 0, grid_floats: int = 0) -> tuple[float, str]:
+                vol_events: int = 0, grid_floats: int = 0,
+                rk4_steps: int = 0) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for one
     tracer launch: each input read once (lanes, camera, scene table,
     density grids), each output written once (channel sums, per-lane rays
-    and iterations, and volume events for the volume kernel), and the
-    counted FP32 operations of every traced segment and every density
-    lookup of this run."""
+    and iterations, volume events for the volume kernel, RK4 steps for a
+    looped-mass one), and the counted FP32 operations of every traced
+    segment, every density lookup and (looped masses) every RK4 step of
+    this run."""
     n_out = 10 if cfg.want_aovs else 3
-    n_counts = 3 if cfg.has_volumes else 2
+    n_counts = 2 + cfg.has_volumes + (cfg.geodesic and cfg.looped_masses)
     nbytes = lanes * (8 + 4 * n_out + 4 * n_counts) + 4 * (table_floats + 32 + grid_floats)
     per_ray = (SPHERE_OPS * counts["n_sph"] + RECT_OPS * counts["n_rct"]
                + BOX_OPS * counts["n_box"])
+    n_mass = counts["n_mass"]
     if cfg.geodesic:
-        per_ray += GEO_BEGIN_OPS + GEO_BEGIN_PER_MASS_OPS * counts["n_mass"]
+        per_mass = LOOPM_BEGIN_PER_MASS_OPS if cfg.looped_masses else GEO_BEGIN_PER_MASS_OPS
+        per_ray += GEO_BEGIN_OPS + per_mass * n_mass
+    rk4_ops = rk4_steps * (RK4_STEP_OPS + 4 * (ACC_STAGE_OPS + ACC_PER_MASS_OPS * n_mass))
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = (rays * per_ray + vol_events * DENSITY_OPS) / PEAK_F32_S * 1e3
+    t_ops = (rays * per_ray + vol_events * DENSITY_OPS + rk4_ops) / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -161,10 +207,62 @@ def warp_stats(rays, iters) -> str:
             f"max {int(iters.max())}, rays per warp issue slot {eff:.3f}")
 
 
-def renderer(name: str, config, width: int, height: int, dev):
-    from bendy_tpu_torch import Renderer, load_scene
+def mass_ring(n_masses: int):
+    """The reference's multi_mass_scene (tests/test_looped_masses.py:45-72):
+    a ring of masses and four emitters behind it."""
+    import numpy as np
 
-    scene = load_scene(f"scenes/{name}.json.gz")
+    from bendy_tpu_torch import Camera, Data, Material, Object, ObjectFlags, Scene, Sphere
+
+    scene = Scene()
+    env = scene.add_data(Data(Material.emissive((0.2, 0.22, 0.3), 0.05)))
+    scene.set_root_material(env)
+    scene.add_object(Object(Camera(focal_length=0.05, sensor_size=0.024, focus=None))
+                     .with_tag("camera").with_translation([0.0, 0.0, 18.0]))
+    for k in range(n_masses):
+        ang = 2.0 * np.pi * k / n_masses
+        rs = 0.05 * (1 + k % 3)
+        scene.add_object(Object().with_tag(f"mass:{rs}").with_translation(
+            [1.8 * np.cos(ang), 1.4 * np.sin(ang), 0.3 * (k % 2)]))
+    for i, (px, py) in enumerate([(-4.0, 2.5), (3.5, -2.0), (0.2, 0.1), (5.0, 4.0)]):
+        mat = scene.add_data(Data(Material.emissive((1.0, 0.8, 0.6), 1.5 + 0.3 * i)))
+        scene.add_object(Object(Sphere(material=mat, radius=0.8))
+                         .with_translation([px, py, -25.0]).with_flags(ObjectFlags.LIGHT))
+    return scene
+
+
+def mass_ring_medium(n_masses: int):
+    """The ring inside a medium (tests/test_looped_masses.py:248-252)."""
+    from bendy_tpu_torch import Data, DensityMap, Material, Object, Sphere
+
+    scene = mass_ring(n_masses)
+    vol = scene.add_data(Data(DensityMap.with_func(
+        8, 8, 8, lambda x, y, z: 1.5 if (x + y + z) % 3 == 0 else 0.0)))
+    shell = scene.add_data(Data(Material.flat((1.0, 1.0, 1.0))))
+    scene.add_object(Object(Sphere(material=shell, radius=2.5, volume=vol)))
+    return scene
+
+
+def scene_by_name(name: str):
+    """A generated scene by its name here, else scenes/<name>.json.gz."""
+    import bendy_tpu_torch as bt
+
+    generated = {
+        "prim_grid_200": lambda: bt.build_prim_grid(200),
+        "prim_grid_256": lambda: bt.build_prim_grid(256),
+        "light_field_200": lambda: bt.build_light_field(200),
+        "mass_ring_13": lambda: mass_ring(13),
+        "mass_ring_12_medium": lambda: mass_ring_medium(12),
+    }
+    if name in generated:
+        return generated[name]()
+    return bt.load_scene(f"scenes/{name}.json.gz")
+
+
+def renderer(name: str, config, width: int, height: int, dev):
+    from bendy_tpu_torch import Renderer
+
+    scene = scene_by_name(name)
     cam = scene.find_by_tag("camera")
     scene.get_object(cam).inner.aspect_ratio = width / height
     return Renderer(scene, config, device=dev), cam
@@ -219,14 +317,36 @@ def golden_check(dev, name: str, pixels_off: int, rtol: float, atol: float) -> f
     return err
 
 
-def kernel_vs_plain(dev) -> dict:
-    """Phase 3; returns the largest |diff| of each kernel against the plain
-    version, keyed by its wrapper's name."""
+def phase3_cases() -> list:
+    """(scene, spp, Config, seed) of every kernel-vs-plain case at 16x16."""
+    from bendy_tpu_torch import Config, GeoParams
+
+    cases = [(name, 4, Config(max_bounces=3), 7) for name in SCENES]
+    cases += [(name, spp, Config(max_bounces=2), 3) for name in GEO_SCENES for spp in (1, 4)]
+    cases += [(name, 2, Config(max_bounces=3), 11) for name in VOL_SCENES]
+    cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3)
+              for spp in (1, 4)]
+    cases += [("cloud", 2, Config(max_bounces=3, vol_sampling="nearest"), 11)]
+    # the looped sweeps: primitives, primitives with media, lights, masses
+    cases += [("prim_grid_200", 2, Config(max_bounces=4), 7),
+              ("cloud_field", 2, Config(max_bounces=4), 11),
+              ("light_field_200", 2, Config(max_bounces=3), 5)]
+    cases += [("mass_cluster", spp, Config(max_bounces=2), 3) for spp in (1, 4)]
+    cases += [("mass_ring_13", 2, Config(max_bounces=2, geo=GeoParams(max_steps=96)), 3),
+              ("mass_ring_12_medium", 1, Config(max_bounces=2, max_volume_bounces=8,
+                                                 geo=GeoParams(max_steps=64)), 21)]
+    return cases
+
+
+def kernel_vs_plain(dev, names=None) -> dict:
+    """Phase 3 (the cases of ``names`` only, and no goldens, when given);
+    returns the largest |diff| of each kernel against the plain version,
+    keyed by its wrapper's name."""
     import torch
 
     from dataclasses import replace
 
-    from bendy_tpu_torch import Config, Output
+    from bendy_tpu_torch import Output
     from bendy_tpu_torch.ops.trace_kernel import make_tracer
     from bendy_tpu_torch.ops.wavefront import trace_core
     from bendy_tpu_torch.utils.rng import render_key
@@ -235,28 +355,30 @@ def kernel_vs_plain(dev) -> dict:
     pix = torch.arange(W * H, dtype=torch.int32, device=dev)
     sub = torch.zeros(W * H, dtype=torch.int32, device=dev)
     worst = {"trace_surface": 0.0, "trace_geodesic": 0.0, "trace_volume": 0.0}
-    cases = [(name, 4, Config(max_bounces=3), 7) for name in SCENES]
-    cases += [(name, spp, Config(max_bounces=2), 3) for name in GEO_SCENES for spp in (1, 4)]
-    cases += [(name, 2, Config(max_bounces=3), 11) for name in VOL_SCENES]
-    cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3)
-              for spp in (1, 4)]
-    cases += [("cloud", 2, Config(max_bounces=3, vol_sampling="nearest"), 11)]
-    for name, spp, config, seed in cases:
+    for name, spp, config, seed in phase3_cases():
+        if names is not None and name not in names:
+            continue
         for output in (Output.FULL, Output.NORMAL):
             r, cam = renderer(name, replace(config, output=output), W, H, dev)
             cfg = r.trace_config(r.config, cam)
             params = r.camera_params(cam)
+            t0 = time.perf_counter()
             kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix, sub)
             plain = trace_core(r.arrays, params, render_key(seed, 0), pix, sub, W, H, spp, 1, cfg)
             torch.cuda.synchronize()
-            tag = f"{name} spp {spp} {output.value}" + (" nearest" if cfg.vol_nearest else "")
+            loops = [f for f in ("looped_sweep", "looped_lights", "looped_masses")
+                     if getattr(cfg, f)]
+            tag = (f"{name} spp {spp} {output.value}" + (" nearest" if cfg.vol_nearest else "")
+                   + "".join(f" {f}" for f in loops)
+                   + f" ({time.perf_counter() - t0:.1f} s)")
             err = compare_lanes(tag, kern, plain, cfg)
             kind = ("trace_volume" if cfg.has_volumes else
                     "trace_geodesic" if cfg.geodesic else "trace_surface")
             worst[kind] = max(worst[kind], err)
-    worst["trace_surface"] = max(worst["trace_surface"],
-                                 golden_check(dev, "cornell", 0, RTOL, ATOL))
-    golden_check(dev, "volume", VOLUME_GOLDEN_PIXELS_OFF, 1e-5, 1e-6)
+    if names is None:
+        worst["trace_surface"] = max(worst["trace_surface"],
+                                     golden_check(dev, "cornell", 0, RTOL, ATOL))
+        golden_check(dev, "volume", VOLUME_GOLDEN_PIXELS_OFF, 1e-5, 1e-6)
     return worst
 
 
@@ -298,8 +420,9 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
 
 def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: int,
                             pass_spp: int, plain_rows: int, launch, dev) -> dict:
-    """Time the kernel alone at the main-path shape (CUDA events, one
-    warm-up, 10 calls), then one kernel pass and one plain pass at
+    """Time the kernel alone at the main-path shape (CUDA events, 10 calls
+    after at least 0.5 s of warm-up calls; the SM clock and power read
+    after them), then one kernel pass and one plain pass at
     ``pass_spp`` over the first ``plain_rows`` rows, compared per pixel and
     by ray count. Returns the timings, the bound and the largest |diff|."""
     import torch
@@ -318,18 +441,25 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     grid = r.arrays.vol_grid.contiguous() if cfg.has_volumes else None
     if grid is not None:
         lanes += (grid,)
+    looped_masses = cfg.geodesic and cfg.looped_masses
+    extra = {}
+    if looped_masses:  # each lane's RK4 steps, for the bound
+        extra["near_steps"] = torch.empty(pix.numel(), dtype=torch.int32, device=dev)
     res, kernel_ms = cuda_ms(lambda: launch(
         *lanes, width=W, height=H, spp=spp, spp_total=spp, subsample=n,
-        key=render_key(seed, 0), sample0=0, cfg=cfg), 10, 1)
+        key=render_key(seed, 0), sample0=0, cfg=cfg, **extra), 10, 1, warm_s=0.5)
+    clock = sm_clock()
     rays, iters = res[1], res[2]
     n_rays = int(rays.sum(dtype=torch.int64))
     n_vol = int(res[3].sum(dtype=torch.int64)) if grid is not None else 0
+    n_rk4 = int(extra["near_steps"].sum(dtype=torch.int64)) if looped_masses else 0
     bound_ms, bound_by = trace_bound(counts, table.numel(), cfg, n_rays, pix.numel(), n_vol,
-                                     0 if grid is None else grid.numel())
+                                     0 if grid is None else grid.numel(), n_rk4)
     march = f", march share {n_vol / n_rays:.4f} ({n_vol} volume events)" if grid is not None else ""
+    rk4 = f", {n_rk4} RK4 steps ({n_rk4 / n_rays:.4f} per ray)" if looped_masses else ""
     print(f"phase {phase}: {launch.__name__} alone {kernel_ms:.3f} ms per launch at {W}x{H} "
           f"{spp} spp, {n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}); "
-          f"{warp_stats(rays, iters)}{march}")
+          f"{warp_stats(rays, iters)}{march}{rk4}; SM clock, power after it {clock}")
     kern_pass = make_render_pass(r.arrays, W, H, plain_rows, pass_spp, n, cfg, "full")
     (k_sums, k_rays), pass_ms = cuda_ms(lambda: kern_pass(r._cam_packed, seed, 0, 0), 10, 1)
     (p_sums, p_rays), plain_ms = cuda_ms(
@@ -351,10 +481,40 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
         print(f"phase {phase}: the plain pass took over {PLAIN_BUDGET_S:.0f} s: narrow "
               "its row band")
     return dict(kernel_ms=kernel_ms, pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err,
-                bound_ms=bound_ms, bound_by=bound_by, rays=n_rays, vol_events=n_vol)
+                bound_ms=bound_ms, bound_by=bound_by, rays=n_rays, vol_events=n_vol,
+                rk4_steps=n_rk4, pass_spp=pass_spp)
 
 
-def main() -> int:
+# (phase, scene, Config kwargs, width, height, spp, subsample, wrapper name,
+#  spp and rows of the kernel pass and the plain pass, the TPU kernel it
+#  replaces)
+PALLAS = "bendy_tpu/ops/pallas_trace.py:255"
+MAIN_PATHS = [
+    (4, "cornell", {}, 256, 256, 64, 2, "trace_surface", 64, 256, PALLAS),
+    (5, "blackhole", dict(max_bounces=2), 512, 512, 32, 1, "trace_geodesic", 4, 512,
+     f"{PALLAS} (1d: geodesic)"),
+    (6, "cloud", {}, 256, 256, 64, 2, "trace_volume", 4, 256,
+     f"{PALLAS} (1b: baked sparse grid, bendy_tpu/ops/volume.py:182)"),
+    (7, "dense_cloud", {}, 256, 256, 64, 2, "trace_volume", 4, 256,
+     f"{PALLAS} (1c: dense-grid brick fetch, bendy_tpu/ops/volume.py:248)"),
+    (8, "blackhole_cloud", dict(max_bounces=2, volume_step=0.6), 512, 288, 32, 1,
+     "trace_volume", 4, 288, f"{PALLAS} (1b+1d: sparse grid under geodesics)"),
+    (9, "prim_grid_256", dict(max_bounces=4), 256, 256, 16, 1, "trace_surface", 4, 256,
+     f"{PALLAS} (1e-i: looped primitive sweep, bendy_tpu/ops/intersect.py:740)"),
+    (10, "cloud_field", dict(max_bounces=4), 256, 256, 16, 1, "trace_volume", 4, 256,
+     f"{PALLAS} (1e-i with 1b: looped primitive sweep in media, "
+     "bendy_tpu/ops/intersect.py:740)"),
+    (11, "mass_cluster", dict(max_bounces=2), 256, 256, 16, 1, "trace_geodesic", 4, 256,
+     f"{PALLAS} (1e-iii: looped mass sweep, bendy_tpu/geodesic.py:236,309,349)"),
+    (12, "light_field_200", dict(max_bounces=3), 256, 256, 16, 1, "trace_surface", 4, 256,
+     f"{PALLAS} (1e-ii: looped light sweep, bendy_tpu/ops/materials.py:132, "
+     "bendy_tpu/ops/intersect.py:1183)"),
+]
+
+
+def run(phases=None, phase3_names=None) -> int:
+    """Run the phases in ``phases`` (all when None; the card and the build
+    always run), phase 3 on the cases of ``phase3_names`` only when given."""
     import torch
 
     if not torch.cuda.is_available():
@@ -367,75 +527,60 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}; {smi}")
 
     from bendy_tpu_torch import Config, _build
-    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface, trace_volume
+    from bendy_tpu_torch.ops import trace_kernel
 
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
           + " | ".join(ptxas_report(_build.build_log())))
 
-    err16 = kernel_vs_plain(dev)
+    err16 = {}
+    if phases is None or 3 in phases:
+        err16 = kernel_vs_plain(dev, phase3_names)
 
-    # phase 4: the cornell main path through the surface kernel
-    cornell = main_path(4, "cornell", Config(), 256, 256, 64, 2, dev, trace_surface)
-    surf = kernel_alone_and_passes(4, cornell, 256, 256, 64, 2, 64, 256, trace_surface, dev)
-
-    # phase 5: the blackhole main path through the geodesic kernel
-    bh = main_path(5, "blackhole", Config(max_bounces=2), 512, 512, 32, 1, dev, trace_geodesic)
-    geo = kernel_alone_and_passes(5, bh, 512, 512, 32, 1, 4, 512, trace_geodesic, dev)
-
-    # phases 6-8: the media paths through the volume kernel
-    cloud = main_path(6, "cloud", Config(), 256, 256, 64, 2, dev, trace_volume)
-    vol_cloud = kernel_alone_and_passes(6, cloud, 256, 256, 64, 2, 4, 256, trace_volume, dev)
-    dense = main_path(7, "dense_cloud", Config(), 256, 256, 64, 2, dev, trace_volume)
-    vol_dense = kernel_alone_and_passes(7, dense, 256, 256, 64, 2, 4, 256, trace_volume, dev)
-    bhc_cfg = Config(max_bounces=2, volume_step=0.6)
-    bhc = main_path(8, "blackhole_cloud", bhc_cfg, 512, 288, 32, 1, dev, trace_volume)
-    vol_bhc = kernel_alone_and_passes(8, bhc, 512, 288, 32, 1, 4, 288, trace_volume, dev)
-
-    def entry(name, replaces, path, run, k, pass_spp):
-        return {
-            "name": name,
+    kernels = []
+    for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, replaces) in MAIN_PATHS:
+        if phases is not None and phase not in phases:
+            continue
+        launch = getattr(trace_kernel, wrapper)
+        path = main_path(phase, name, Config(**kw), W, H, spp, n, dev, launch)
+        k = kernel_alone_and_passes(phase, path, W, H, spp, n, pass_spp, rows, launch, dev)
+        kernels.append({
+            "name": wrapper,
             "route": "cuda",
             "source": "bendy_tpu_torch/csrc/trace_surface.cu",
             "replaces": replaces,
-            "launches": run["launches"],
+            "launches": path["launches"],
             "max_abs_err": k["max_err"],
             "ms": k["kernel_ms"],
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": None,
-            "path": path,
+            "path": f"{name} {W}x{H} {spp}spp" + (f" {n}x{n}" if n > 1 else ""),
             "pass_ms": k["pass_ms"],
-            "pass_spp": pass_spp,  # pass_ms, plain_ms and max_abs_err
-            "max_abs_err_16x16": err16[name],
+            "pass_spp": k["pass_spp"],  # pass_ms, plain_ms and max_abs_err
+            "plain_rows": rows,
+            "max_abs_err_16x16": err16.get(wrapper),
             "rays_per_launch": k["rays"],
             "volume_events_per_launch": k["vol_events"],
-            "mrays_per_s": run["rays"] / run["dt"] / 1e6,
-            "s_per_pass": run["dt"] / 4,
-        }
+            "rk4_steps_per_launch": k["rk4_steps"],
+            "mrays_per_s": path["rays"] / path["dt"] / 1e6,
+            "s_per_pass": path["dt"] / 4,
+        })
 
-    pallas = "bendy_tpu/ops/pallas_trace.py:255"
     print(smi)
-    print(json.dumps({"kernels": [
-        entry("trace_surface", pallas, "cornell 256x256 64spp 2x2", cornell, surf, 64),
-        entry("trace_geodesic", f"{pallas} (1d: geodesic)", "blackhole 512x512 32spp", bh,
-              geo, 4),
-        entry("trace_volume", f"{pallas} (1b: baked sparse grid, bendy_tpu/ops/volume.py:182)",
-              "cloud 256x256 64spp 2x2", cloud, vol_cloud, 4),
-        entry("trace_volume", f"{pallas} (1c: dense-grid brick fetch, "
-              "bendy_tpu/ops/volume.py:248)", "dense_cloud 256x256 64spp 2x2", dense,
-              vol_dense, 4),
-        entry("trace_volume", f"{pallas} (1b+1d: sparse grid under geodesics)",
-              "blackhole_cloud 512x288 32spp", bhc, vol_bhc, 4),
-    ]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main() -> int:
+    return run()
 
 
 if __name__ == "__main__":

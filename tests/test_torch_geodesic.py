@@ -17,7 +17,9 @@ holds the kernel to them on a card. Here they are held to ``bendy_tpu``:
   equal ray counts. No lane flips between capture and escape at these
   inputs, so none is allowed to;
 - the Renderer film, the trace configuration of every bundled scene
-  (volume knobs included), the refusals and the model builders.
+  (volume knobs included) and of three generated ones, the scenes that
+  were refused before the looped sweeps (they render now) and the model
+  builders.
 """
 
 import glob
@@ -32,6 +34,9 @@ import bendy_tpu.geodesic as ref_geo
 import bendy_tpu.models as ref_models
 import bendy_tpu.scene as ref_scene
 from bendy_tpu.film import Film as RefFilm
+from bendy_tpu.models.mass_cluster import build_mass_cluster as ref_build_mass_cluster
+from bendy_tpu.models.prim_grid import build_light_field as ref_build_light_field
+from bendy_tpu.models.prim_grid import build_prim_grid as ref_build_prim_grid
 from bendy_tpu.ops import intersect as ref_isect
 from bendy_tpu.ops.wavefront import trace as ref_trace
 from bendy_tpu.render import Config as RefConfig
@@ -355,14 +360,22 @@ def test_renderer_film_matches_reference_and_chunking():
 
 
 SCENES = sorted(glob.glob("scenes/*.json.gz"))
+# generated scenes past each loop threshold: primitives, lights, masses
+GENERATED = {"build_prim_grid(200)": (ref_build_prim_grid, 200),
+             "build_light_field(72)": (ref_build_light_field, 72),
+             "build_mass_cluster(12)": (ref_build_mass_cluster, 12)}
 FIELDS = ("geodesic", "geo", "looped_masses", "has_volumes", "has_diffuse", "has_metallic",
           "has_glass", "frustum_poly", "has_dof", "want_aovs", "max_volume_bounces",
           "volume_step", "vol_nearest", "looped_sweep", "looped_lights")
 
 
-@pytest.mark.parametrize("path", SCENES)
+@pytest.mark.parametrize("path", SCENES + list(GENERATED))
 def test_trace_config_matches_reference(path):
-    ref_s, port_s = ref_scene.load_scene(path), load_scene(path)
+    if path in GENERATED:
+        ref_build, n = GENERATED[path]
+        ref_s, port_s = ref_build(n), getattr(bendy_tpu_torch, ref_build.__name__)(n)
+    else:
+        ref_s, port_s = ref_scene.load_scene(path), load_scene(path)
     cam = ref_s.find_by_tag("camera")
     explicit = GeoParams(eta=0.1, max_steps=512)
     media = dict(volume_step=0.6, max_volume_bounces=16, vol_sampling="nearest")
@@ -388,28 +401,25 @@ def test_trace_config_matches_reference(path):
 @pytest.mark.parametrize("name,flag", [("mass_cluster", "looped_masses"),
                                        ("blackhole_cloud", "has_volumes")])
 def test_unported_geodesic_scenes_refused(name, flag):
-    """mass_cluster (more than 8 masses: the looped mass sweep) is refused.
-    blackhole_cloud (geodesics inside media) renders now; what stays
-    refused under its configuration is the looped primitive sweep
-    (cloud_field's), still to port."""
+    """Neither scene is refused any more. mass_cluster (more than 8 masses:
+    the looped mass sweep) and blackhole_cloud (geodesics inside media)
+    render through the Renderer on the CPU; blackhole_cloud's
+    configuration also traces with the looped primitive sweep on top
+    (cloud_field's), and make_tracer builds for both."""
     scene = load_scene(f"scenes/{name}.json.gz")
     cam = scene.find_by_tag("camera")
     r = Renderer(scene, device="cpu")
     cfg = r.trace_config(r.config, cam)
     assert cfg.geodesic and getattr(cfg, flag)
     lanes = torch.zeros(4, dtype=torch.int64)
+    film = Film(4, 4)
+    r.render(cam, RenderConfig(samples=1), film)
+    assert np.isfinite(film.mean()).all() and r.rays_traced > 0
     if flag == "has_volumes":
-        film = Film(4, 4)
-        r.render(cam, RenderConfig(samples=1), film)
-        assert np.isfinite(film.mean()).all() and r.rays_traced > 0
-        cfg, flag = replace(cfg, looped_sweep=True), "looped_sweep"
-    else:
-        with pytest.raises(NotImplementedError, match=flag):
-            r.render(cam, RenderConfig(samples=1), Film(4, 4))
-    with pytest.raises(NotImplementedError, match=flag):
-        trace_core(r.arrays, r.camera_params(cam), (1, 2), lanes, lanes, 4, 1, 1, 1, cfg)
-    with pytest.raises(NotImplementedError, match=flag):
-        make_tracer(r.arrays, 4, 1, 1, 1, cfg)
+        cfg = replace(cfg, looped_sweep=True)
+    res = trace_core(r.arrays, r.camera_params(cam), (1, 2), lanes, lanes, 4, 1, 1, 1, cfg)
+    assert int(res.rays) > 0 and torch.isfinite(res.radiance.x).all()
+    make_tracer(r.arrays, 4, 1, 1, 1, cfg)
 
 
 def test_renderer_defaults_to_the_card():

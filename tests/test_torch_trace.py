@@ -98,10 +98,11 @@ def test_stream_id_space_refused():
 @pytest.mark.parametrize("flag", ["has_volumes", "geodesic", "looped_sweep",
                                   "looped_lights", "looped_masses"])
 def test_unported_modes_refused(flag):
-    """The looped sweeps are refused. Media are ported, alone ([has_volumes])
-    and under geodesics ([geodesic], blackhole_cloud's mode): those trace,
-    and refuse only the looped sweep still to port on top of them
-    (cloud_field's looped_sweep, mass_cluster's looped_masses)."""
+    """Nothing is refused any more: every mode traces on the CPU with
+    finite radiance and rays > 0. Media alone ([has_volumes]) and under
+    geodesics ([geodesic], blackhole_cloud's mode) trace, and so do the
+    looped sweeps on top of them (cloud_field's looped_sweep, mass_cluster's
+    looped_masses), as the looped flags alone do on a flat scene."""
     _, port_r, cam = _renderers("cornell", "full")
     lanes = torch.zeros(4, dtype=torch.int64)
     flags = {flag: True}
@@ -110,11 +111,10 @@ def test_unported_modes_refused(flag):
         res = trace_core(port_r.arrays, port_r.camera_params(cam), (1, 2), lanes, lanes,
                          4, 1, 1, 1, TraceConfig(**flags))
         assert int(res.rays) > 0 and torch.isfinite(res.radiance.x).all()
-        flag = "looped_masses" if flag == "geodesic" else "looped_sweep"
-        flags[flag] = True
-    with pytest.raises(NotImplementedError, match=flag):
-        trace_core(port_r.arrays, port_r.camera_params(cam), (1, 2), lanes, lanes,
-                   4, 1, 1, 1, TraceConfig(**flags))
+        flags["looped_masses" if flag == "geodesic" else "looped_sweep"] = True
+    res = trace_core(port_r.arrays, port_r.camera_params(cam), (1, 2), lanes, lanes,
+                     4, 1, 1, 1, TraceConfig(**flags))
+    assert int(res.rays) > 0 and torch.isfinite(res.radiance.x).all()
 
 
 def test_active_mask_and_cpu_tracer_dispatch():
