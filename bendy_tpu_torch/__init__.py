@@ -17,6 +17,11 @@ never jax. Each file mirrors the ``bendy_tpu`` file of the same path:
     geodesic.py  Schwarzschild null-geodesic RK4 propagation
     film.py      progressive accumulation buffer + checkpointing
     render.py    Renderer / Config / RenderConfig front-end
+    parallel/    the sharded pass over a (tiles, samples) mesh of ranks
+                 (torch.distributed), the bootstrap and the film gather
+    cli.py       the command-line renderer (python3 -m bendy_tpu_torch.cli)
+    preview.py   the live preview + control server of --serve
+    tools/       the FP32 and tensor-core ceiling probes
 
 Ported so far: the surface main path (spheres, rects, boxes; all five
 materials; AOVs), geodesic lensing with up to 8 unrolled masses
@@ -24,8 +29,8 @@ materials; AOVs), geodesic lensing with up to 8 unrolled masses
 dense density grids, also under geodesics (volume, cloud, dense_cloud,
 blackhole_cloud), and the looped table sweeps: any primitive and light
 count the shared-memory table holds (cloud_field, prim_grid_256, many
-lights) and more than 8 masses (mass_cluster). Not ported: multi-device
-passes, the CLI and the preview server.
+lights) and more than 8 masses (mass_cluster); passes split over a mesh of
+ranks, the CLI, the preview server and the two ceiling probes.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); without a card the default raises.

@@ -6,7 +6,8 @@ seconds). The library goes to ``_build/<hash>/`` inside the package, keyed
 by a hash of the sources and flags, so a checkout builds everything it
 needs from its own sources and an edit builds anew. The flags keep IEEE
 division and sqrt and no multiply-add contraction: never
-``--use_fast_math`` (see ``csrc/trace_surface.cu``).
+``--use_fast_math`` (see ``csrc/trace_surface.cu``); the FP32-chain probe
+(``csrc/probes.cu``) fuses with ``__fmaf_rn`` where it means to.
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ SIGNATURES = {
         c_int,
     ),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),
+    # csrc/probes.cu: x, out, n, iters, fma, stream
+    "bendy_fp32_chain": ([c_void_p, c_void_p, c_int, c_int, c_int, c_void_p], c_int),
+    # tab (f32), onehot (bf16), partial, n, iters, stream
+    "bendy_bf16_dot_chain": ([c_void_p, c_void_p, c_void_p, c_int, c_int, c_void_p], c_int),
 }
 
 
@@ -85,7 +90,8 @@ def source_hash() -> str:
 
 @functools.cache
 def build() -> tuple[Path, float]:
-    """Compile the kernels if this source hash has no library yet.
+    """Compile the kernels if this source hash has no library yet: one
+    ``nvcc -c`` per source, all started together, then one link.
 
     Returns (library path, seconds spent compiling; 0.0 when it was built
     before). Raises if nvcc fails, with its output.
@@ -96,15 +102,27 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so", delete=False) as tmp:
-        tmp_path = Path(tmp.name)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp_path.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp_path, lib)  # atomic: a concurrent build never sees half a file
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))  # private to this build
+    try:
+        nvcc = find_nvcc()
+        objs = [str(tmp_dir / f"{src.stem}.o") for src in sources()]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[nvcc, *flags, "-c", "-o", o, str(src)] for o, src in zip(objs, sources())]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if not any(rc for _, _, rc in runs):
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_dir / LIB_NAME), *objs]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            runs.append((link, proc.stdout, proc.returncode))
+        (out_dir / "build.log").write_text("".join(" ".join(c) + "\n" + o for c, o, _ in runs))
+        failed = [f"{' '.join(c)} ({rc}):\n{o}" for c, o, rc in runs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp_dir / LIB_NAME, lib)  # atomic: a concurrent build never sees half a file
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib, time.perf_counter() - t0
 
 

@@ -340,33 +340,38 @@ trace_volume.launches = 0
 
 
 def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
-                subsample: int, cfg: TraceConfig):
+                subsample: int, cfg: TraceConfig, spp_total: int | None = None):
     """Build the tracer for one compiled scene.
 
-    Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B])
-    -> TraceSums``: on CUDA lane tensors the kernel (:func:`trace_volume`
-    for a configuration with volumes, else :func:`trace_geodesic` for a
-    geodesic one, else :func:`trace_surface`), on CPU ones the plain
-    :func:`trace_core`. Ray, iteration and volume-event counts are int64
-    sums of per-lane counts, with the same meaning on both routes.
+    Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B],
+    sample0=0) -> TraceSums``: on CUDA lane tensors the kernel
+    (:func:`trace_volume` for a configuration with volumes, else
+    :func:`trace_geodesic` for a geodesic one, else :func:`trace_surface`),
+    on CPU ones the plain :func:`trace_core`. Each lane traces the samples
+    [sample0, sample0+spp) of a global ``spp_total`` (default ``spp``), so
+    the sharded pass splits samples over ranks with globally unique RNG
+    streams. Ray, iteration and volume-event counts are int64 sums of
+    per-lane counts, with the same meaning on both routes.
     """
-    check_trace_args(width, height, spp, subsample, cfg)
+    spp_total = spp if spp_total is None else spp_total
+    check_trace_args(width, height, spp_total, subsample, cfg)
     table_np, counts = scene_table(scn.host_copy())
     tables: dict = {}
     grids: dict = {}
 
-    def run(cam_packed, seed, pass_idx, pix, sub) -> TraceSums:
+    def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0) -> TraceSums:
         key = render_key(seed, pass_idx)
         dev = pix.device
         if dev.type == "cpu":
             return trace_core(scn, unpack_camera(cam_packed), key, pix, sub, width,
-                              height, spp, subsample, cfg)
+                              height, spp, subsample, cfg, spp_total=spp_total,
+                              sample0=sample0)
         if dev.type != "cuda":
             raise ValueError(f"no tracer for device {dev}")
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
-        kw = dict(width=width, height=height, spp=spp, spp_total=spp, subsample=subsample,
-                  key=key, sample0=0, cfg=cfg)
+        kw = dict(width=width, height=height, spp=spp, spp_total=spp_total,
+                  subsample=subsample, key=key, sample0=sample0, cfg=cfg)
         lanes = (tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
                  sub.to(torch.int32))
         if cfg.has_volumes:

@@ -1,0 +1,55 @@
+"""Ceiling probes of the card, counterparts of the reference's ``tools/``.
+
+    vpu_peak.py         the FP32 ceiling: the FMA-chain kernel
+                        (csrc/probes.cu, replaces tools/vpu_peak.py:85)
+    mxu_shape_probe.py  the tensor-core ceiling at the brick-fetch shape:
+                        the bf16 dot-chain kernel (csrc/probes.cu,
+                        replaces tools/mxu_shape_probe.py:110)
+
+Each has a plain PyTorch version of its function, ``measure(...)`` and a
+``main()`` that prints one JSON line:
+
+    python3 -m bendy_tpu_torch.tools.vpu_peak [--rows R] [--iters N]
+    python3 -m bendy_tpu_torch.tools.mxu_shape_probe [--iters N] [--ns 1024,2048]
+
+Both measure on the card and raise without one.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+
+def cuda_ms(fn, repeats: int = 1, warmup: int = 0, warm_s: float = 0.0):
+    """(last result, mean ms per call) of ``fn`` timed with CUDA events,
+    after ``warmup`` untimed calls (first-call set-up such as table uploads)
+    and more untimed calls until ``warm_s`` seconds have passed (the SM
+    clock ramps up again after a stretch of light load)."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    while time.perf_counter() - t0 < warm_s:
+        fn()
+        torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / repeats
+
+
+def card() -> dict:
+    """The card's name, power limit, SM clock and power draw, as nvidia-smi
+    reads them now."""
+    q = "name,power.limit,clocks.sm,power.draw"
+    line = subprocess.run(
+        ["nvidia-smi", "-i", "0", f"--query-gpu={q}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    return dict(zip(q.split(","), (v.strip() for v in line.split(","))))

@@ -9,7 +9,8 @@ Phases, one line each (any failure exits non-zero):
   2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
      each instantiation's ptxas registers, stack and spills (surface,
      geodesic, and the volume ones with and without geodesics; the geodesic
-     ones with unrolled and with looped masses, LOOPM),
+     ones with unrolled and with looped masses, LOOPM) and of the two probe
+     kernels (csrc/probes.cu),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
@@ -61,7 +62,24 @@ Phases, one line each (any failure exits non-zero):
      16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel, as
      phase 5, with each lane's RK4 steps counted for the bound,
  12. the many-lights path (the looped light sweep): build_light_field(200)
-     at 256x256, 16 spp, Config(max_bounces=3), through the surface kernel.
+     at 256x256, 16 spp, Config(max_bounces=3), through the surface kernel,
+ 13. the sharded pass (make_kernel_pass_sharded): (a) cornell at 256x256,
+     64 spp, 2x2 subpixels, default Config on a (1,1) mesh, an NCCL world of
+     one in this process: a warm-up pass, 4 chained passes with fresh seeds
+     (Mrays/s, s per pass, launch counts), the film bit-equal to the
+     Renderer's pass at the same seed, the pass alone and the plain sharded
+     pass at spp 4; (b) 2x2 meshes of 4 spawned gloo ranks sharing this
+     card, on cornell at full size and on blackhole_cloud and mass_cluster
+     at 64x64, 4 spp, each film within rtol/atol 2e-5 of the unsharded
+     kernel pass with equal int64 rays,
+ 14. the CLI: python3 -m bendy_tpu_torch.cli on cornell 256x256, 64 spp,
+     2x2, 16 spp per pass with --checkpoint in a subprocess, the film
+     bit-equal to the same passes through the Renderer here; then --mesh 1x1,
+ 15. the probes: the FP32 chains (fma, nofma; FFMA/FADD counted in the
+     SASS) and the bf16 dot chain (n 1024-8192 and the f32 control), each
+     against its plain version at a small iteration count, then measured
+     through tools/vpu_peak.measure and tools/mxu_shape_probe.measure (the
+     dot chain beside its cuBLAS yardstick).
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes a few minutes, most of it the plain passes.
@@ -75,6 +93,8 @@ import re
 import subprocess
 import sys
 import time
+
+from bendy_tpu_torch.tools import card, cuda_ms
 
 SCENES = ("cornell", "cornell2", "scene")
 GEO_SCENES = ("blackhole", "binary_blackhole")
@@ -118,35 +138,10 @@ def lane_mismatch(a, b) -> int:
     return int(((a - b).abs() > ATOL + RTOL * b.abs()).sum())
 
 
-def cuda_ms(fn, repeats: int = 1, warmup: int = 0, warm_s: float = 0.0):
-    """(last result, mean ms per call) timed with CUDA events, after
-    ``warmup`` untimed calls (first-call set-up such as table uploads) and
-    more untimed calls until ``warm_s`` seconds have passed (the SM clock
-    ramps up again after a stretch of light load)."""
-    import torch
-
-    t0 = time.perf_counter()
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    while time.perf_counter() - t0 < warm_s:
-        fn()
-        torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end) / repeats
-
-
 def sm_clock() -> str:
     """The card's SM clock and power draw now, as nvidia-smi reads them."""
-    return subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    c = card()
+    return f"{c['clocks.sm']}, {c['power.draw']}"
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -162,8 +157,11 @@ def ptxas_report(log: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            p = re.search(r"(fp32_chain|bf16_dot_chain)_kernelILb(\d)E", name)
             label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)},"
-                     f"LOOPM={t.group(4)}>" if t else name)
+                     f"LOOPM={t.group(4)}>" if t else
+                     f"{p.group(1)}_kernel<{('FMA', 'F32IN')[p.group(1) != 'fp32_chain']}="
+                     f"{p.group(2)}>" if p else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
 
@@ -512,6 +510,388 @@ MAIN_PATHS = [
 ]
 
 
+SMOKE_DIR = "smoke_out"  # git-ignored scratch of phases 13-14
+MESH_TIMEOUT_S = 300.0
+# the spawned 2x2 passes of phase 13(b): (scene, Config kwargs, W, H, spp, subsample)
+MESH_CASES = [("cornell", {}, 256, 256, 64, 2),
+              ("blackhole_cloud", dict(max_bounces=2, volume_step=0.6), 64, 64, 4, 1),
+              ("mass_cluster", dict(max_bounces=2), 64, 64, 4, 1)]
+MESH_RTOL = MESH_ATOL = 2e-5  # tests/test_parallel.py:52: the samples axis sums in another order
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from bendy_tpu_torch.ops import trace_kernel
+    from bendy_tpu_torch.parallel import mesh
+    from bendy_tpu_torch.tools import mxu_shape_probe, vpu_peak
+
+    for fn in (trace_kernel.trace_surface, trace_kernel.trace_geodesic,
+               trace_kernel.trace_volume, mesh.make_kernel_pass_sharded,
+               vpu_peak.fp32_chain, mxu_shape_probe.bf16_dot_chain):
+        fn.launches = 0
+
+
+def sharded_pass(dev) -> dict:
+    """Phase 13: the sharded pass on the card. (a) cornell 256x256, 64 spp,
+    2x2 subpixels, default Config on a (1,1) mesh, an NCCL world of one in
+    this process: a warm-up pass, then 4 chained passes with fresh seeds
+    (bench.py's sharded row), the film bit-equal to the Renderer's pass at
+    the same seed; the kernel pass alone, and the plain sharded pass at spp
+    4. (b) 2x2 meshes of 4 spawned gloo ranks on this card, each film
+    against the unsharded kernel pass (rtol/atol 2e-5, equal int64 rays)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bendy_tpu_torch import Config, DeviceFilm, RenderConfig, Subsample
+    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, scene_table, trace_surface
+    from bendy_tpu_torch.parallel import (initialize, make_kernel_pass_sharded, make_mesh,
+                                          render_pass_sharded, render_scene_pass, spawn)
+    from bendy_tpu_torch.parallel.multihost import free_port
+
+    W = H = 256
+    spp, n = 64, 2
+    backend = initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device="cuda",
+                         timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        r, cam = renderer("cornell", Config(), W, H, dev)
+        r.camera_params(cam)
+        cfg = r.trace_config(r.config, cam)
+        fn = make_kernel_pass_sharded(r.arrays, mesh, W, H, spp, n, cfg, "full")
+        base = int.from_bytes(os.urandom(4), "little") & 0x7FFFFFF
+        fn(r._cam_packed, base, 0)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        total, ray_parts = None, []
+        for p in range(4):  # chained passes, fresh seeds
+            s, ry = fn(r._cam_packed, base + 1 + p, p)
+            total = s if total is None else total + s
+            ray_parts.append(ry)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, surface_launches = make_kernel_pass_sharded.launches, trace_surface.launches
+        rays = int(torch.stack(ray_parts).sum())
+        print(f"phase 13: (a) {backend} world of 1, (1,1) mesh, cornell {W}x{H} {spp} spp "
+              f"{n}x{n}: 4 passes in {dt:.4f} s, {dt / 4:.4f} s/pass, {rays} rays, "
+              f"{rays / dt / 1e6:.1f} Mrays/s, make_kernel_pass_sharded launches {launches}, "
+              f"trace_surface launches {surface_launches}")
+        if launches != 4 or surface_launches != 4:
+            fail("the sharded main path did not launch its kernel once per pass")
+        if not bool(torch.isfinite(total).all()) or float(total.mean()) <= 0:
+            fail("the sharded cornell film is not finite and non-zero")
+        seed = base + 1
+        sums, s_rays = fn(r._cam_packed, seed, 0)
+        film = DeviceFilm(W, H, device=dev)
+        r.rays_traced = 0
+        r.render(cam, RenderConfig(samples=spp, subsample=Subsample(n)), film, seed=seed)
+        equal = bool(torch.equal(sums, film.sum)) and int(s_rays) == r.rays_traced
+        print(f"phase 13: (a) sharded pass vs the Renderer's pass at seed {seed}: bit-equal "
+              f"{equal}, rays {int(s_rays)} vs {r.rays_traced}")
+        if not equal:
+            fail("the (1,1) sharded pass is not bit-equal to the unsharded pass")
+        (k_sums, k_rays), kernel_ms = cuda_ms(lambda: fn(r._cam_packed, seed, 0), 10, 1,
+                                              warm_s=0.5)
+        clock = sm_clock()
+        table_np, counts = scene_table(r.arrays.host_copy())
+        bound_ms, bound_by = trace_bound(counts, table_np.size, cfg, int(k_rays), W * H * n * n)
+        pass_spp = 4
+        fn4 = make_kernel_pass_sharded(r.arrays, mesh, W, H, pass_spp, n, cfg, "full")
+        k4, k4_rays = fn4(r._cam_packed, seed, 0)
+        (p4, p4_rays), plain_ms = cuda_ms(lambda: render_pass_sharded(
+            r.arrays, r.camera_params(cam), seed, 0, mesh, W, H, pass_spp, n, cfg, "full"))
+        close = ((k4 - p4).abs() <= ATOL + RTOL * p4.abs()).all(dim=-1)
+        share = float(close.float().mean())
+        max_err = float((k4 - p4).abs().max())
+        print(f"phase 13: (a) the sharded pass alone {kernel_ms:.3f} ms (bound {bound_ms:.3f} ms "
+              f"by {bound_by}); SM clock, power after it {clock}; kernel vs plain sharded pass "
+              f"at {pass_spp} spp: pixels within tol {share:.6f}, max |diff| {max_err:.3e}, "
+              f"rays {int(k4_rays)} vs {int(p4_rays)}, plain {plain_ms:.1f} ms")
+        if share < 0.999 or int(k4_rays) != int(p4_rays):
+            fail("the sharded kernel pass disagrees with the plain sharded pass")
+    finally:
+        dist.destroy_process_group()
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    for name, kw, w, h, s, sub in MESH_CASES:
+        out = os.path.join(SMOKE_DIR, f"mesh_{name}.npz")
+        if os.path.exists(out):
+            os.remove(out)
+        t0 = time.perf_counter()
+        spawn(render_scene_pass, 2, 2, device="cuda", backend="gloo",
+              timeout_s=MESH_TIMEOUT_S,
+              args=(f"scenes/{name}.json.gz", Config(**kw), w, h, s, sub, 7, 0, out))
+        wall = time.perf_counter() - t0
+        z = np.load(out)
+        rr, rcam = renderer(name, Config(**kw), w, h, dev)
+        rr.camera_params(rcam)
+        one, one_rays = make_render_pass(rr.arrays, w, h, h, s, sub,
+                                         rr.trace_config(rr.config, rcam), "full")(
+            rr._cam_packed, 7, 0, 0)
+        one = one.cpu().numpy()
+        ok = np.allclose(z["sums"], one, rtol=MESH_RTOL, atol=MESH_ATOL)
+        err = float(np.abs(z["sums"] - one).max())
+        print(f"phase 13: (b) 2x2 gloo mesh on one card, {name} {w}x{h} {s} spp {sub}x{sub}: "
+              f"within rtol/atol {MESH_RTOL:g} {ok}, max |diff| {err:.3e}, rays {int(z['rays'])} "
+              f"vs {int(one_rays)}; rank 0's pass {float(z['seconds']):.2f} s, spawn and join "
+              f"{wall:.1f} s")
+        if not ok or int(z["rays"]) != int(one_rays):
+            fail(f"the 2x2 sharded {name} film disagrees with the unsharded kernel pass")
+    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                launches=launches, max_err=max_err, rays=rays, dt=dt, pass_spp=pass_spp)
+
+
+def mesh_on_cards() -> int:
+    """The sharded pass across 4 cards (not part of ``run``, which needs one
+    card): 2x2 meshes of 4 spawned NCCL ranks, one card each, on
+    MESH_CASES after a warm-up pass, each film within rtol/atol 2e-5 of the
+    unsharded kernel pass on card 0 (timed alone with CUDA events beside
+    it), then the CLI's --mesh 2x2 on cornell. Run as
+        python3 -c "import chip_smoke as c, sys; sys.exit(c.mesh_on_cards())"
+    """
+    import numpy as np
+    import torch
+
+    from bendy_tpu_torch import Config
+    from bendy_tpu_torch.ops.trace_kernel import make_render_pass
+    from bendy_tpu_torch.parallel import render_scene_pass, spawn
+
+    cards = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"mesh on cards: {cards} card(s): {' | '.join(smi.splitlines())}")
+    if cards < 4:
+        fail(f"the 2x2 NCCL mesh needs 4 cards, found {cards}")
+    dev = torch.device("cuda", 0)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    for name, kw, w, h, s, sub in MESH_CASES:
+        out = os.path.join(SMOKE_DIR, f"mesh4_{name}.npz")
+        t0 = time.perf_counter()
+        spawn(render_scene_pass, 2, 2, device="cuda", timeout_s=MESH_TIMEOUT_S,
+              args=(f"scenes/{name}.json.gz", Config(**kw), w, h, s, sub, 7, 0, out, True))
+        wall = time.perf_counter() - t0
+        z = np.load(out)
+        rr, rcam = renderer(name, Config(**kw), w, h, dev)
+        rr.camera_params(rcam)
+        one_pass = make_render_pass(rr.arrays, w, h, h, s, sub, rr.trace_config(rr.config, rcam),
+                                    "full")
+        (one, one_rays), one_ms = cuda_ms(lambda: one_pass(rr._cam_packed, 7, 0, 0), 5, 1,
+                                          warm_s=0.5)
+        one = one.cpu().numpy()
+        ok = np.allclose(z["sums"], one, rtol=MESH_RTOL, atol=MESH_ATOL)
+        print(f"mesh on cards: 2x2 nccl, {name} {w}x{h} {s} spp {sub}x{sub}: within rtol/atol "
+              f"{MESH_RTOL:g} {ok}, max |diff| {float(np.abs(z['sums'] - one).max()):.3e}, rays "
+              f"{int(z['rays'])} vs {int(one_rays)}; rank 0's warm pass and gather "
+              f"{float(z['seconds']) * 1e3:.3f} ms against {one_ms:.3f} ms for the unsharded "
+              f"pass on one card; spawn and join {wall:.1f} s")
+        if not ok or int(z["rays"]) != int(one_rays):
+            fail(f"the 2x2 NCCL {name} film disagrees with the unsharded kernel pass")
+    proc = subprocess.run(
+        [sys.executable, "-m", "bendy_tpu_torch.cli", "--scene", "scenes/cornell.json.gz",
+         "--width", "256", "--height", "256", "--samples", "64", "--subsample", "2",
+         "--mesh", "2x2", "--screenshot", os.path.join(SMOKE_DIR, "mesh4.png")],
+        capture_output=True, text=True, timeout=600)
+    line = [ln for ln in proc.stderr.splitlines() if ln.startswith("mesh 2x2:")]
+    print(f"mesh on cards: CLI --mesh 2x2 exit {proc.returncode}: "
+          f"{line[0] if line else proc.stderr[-2000:]}")
+    if proc.returncode != 0 or not line:
+        fail("the CLI --mesh 2x2 failed on 4 cards")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": cards}}))
+    return 0
+
+
+def cli_on_card(dev) -> None:
+    """Phase 14: the port's CLI in a subprocess at cornell's main-path size,
+    its checkpoint bit-equal to the same passes through the Renderer here;
+    then --mesh 1x1."""
+    import numpy as np
+
+    from bendy_tpu_torch import Config, DeviceFilm, Film, RenderConfig, Subsample
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    ckpt = os.path.join(SMOKE_DIR, "cli.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    seed = 11
+    base = [sys.executable, "-m", "bendy_tpu_torch.cli", "--scene", "scenes/cornell.json.gz",
+            "--width", "256", "--height", "256", "--samples", "64", "--subsample", "2",
+            "--spp-per-pass", "16", "--seed", str(seed),
+            "--screenshot", os.path.join(SMOKE_DIR, "cli.png")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--checkpoint", ckpt], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    total = [ln for ln in proc.stderr.splitlines() if ln.startswith("total t:")]
+    print(f"phase 14: CLI exit {proc.returncode} in {wall:.1f} s: "
+          f"{total[0] if total else 'no telemetry line'}")
+    if proc.returncode != 0:
+        fail(f"the CLI failed:\n{proc.stdout}\n{proc.stderr}")
+    film, _ = Film.load_checkpoint(ckpt)
+    r, cam = renderer("cornell", Config(), 256, 256, dev)
+    mine = DeviceFilm(256, 256, device=dev)
+    while mine.samples < 64 * 4:
+        r.render(cam, RenderConfig(samples=16, subsample=Subsample(2)), mine, seed=seed)
+    equal = (film.passes, film.samples) == (mine.passes, mine.samples) and \
+        np.array_equal(film.sum, mine._host_sum())
+    print(f"phase 14: CLI checkpoint ({film.passes} passes, {film.samples} samples) bit-equal "
+          f"to the Renderer's passes here: {equal}")
+    if not equal:
+        fail("the CLI's film differs from the in-process Renderer's")
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--mesh", "1x1"], capture_output=True, text=True, timeout=600)
+    line = [ln for ln in proc.stderr.splitlines() if ln.startswith("mesh 1x1:")]
+    print(f"phase 14: CLI --mesh 1x1 exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+          f"{line[0] if line else 'no mesh line'}")
+    if proc.returncode != 0 or not line or "Mrays/s" not in line[0]:
+        fail(f"the CLI --mesh 1x1 failed:\n{proc.stdout}\n{proc.stderr}")
+
+
+def sass_counts() -> dict:
+    """FFMA / FADD counts in the SASS of the two FP32-chain instantiations
+    (cuobjdump), or {} where the toolkit has no cuobjdump."""
+    import shutil
+
+    from bendy_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build.build()[0])], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        for tag, label in (("fp32_chain_kernelILb1E", "fma"), ("fp32_chain_kernelILb0E", "nofma")):
+            if tag in name:
+                out[label] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("FFMA", "FADD")}
+    return out
+
+
+def probes(dev) -> list:
+    """Phase 15: the two ceiling probes, each held against its plain version
+    at a small iteration count, then measured through their entry points."""
+    import numpy as np
+    import torch
+
+    from bendy_tpu_torch.tools import mxu_shape_probe as mxu
+    from bendy_tpu_torch.tools import vpu_peak as vpu
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain dot in full f32
+    counts = sass_counts()
+    print(f"phase 15: SASS of the FP32 chains: {counts or 'cuobjdump not available'}")
+    if counts and (counts.get("fma", {}).get("FFMA", 0) < 32
+                   or counts.get("nofma", {}).get("FADD", 0) < 64):
+        fail("the FP32 chain's loop does not hold the FFMA / FADD it should")
+    plain_iters = 16
+    x = vpu.probe_input(vpu.ROWS, dev)
+    check = {}
+    for kind in ("fma", "nofma"):
+        got = vpu.fp32_chain(x, kind, plain_iters)
+        want, p_ms = cuda_ms(lambda: vpu.fp32_chain_plain(x, kind, plain_iters))
+        _, k_ms = cuda_ms(lambda: vpu.fp32_chain(x, kind, plain_iters), 10)
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=1e-5, atol=0))
+        check[kind] = dict(err=err, plain_ms=p_ms, kernel_ms=k_ms)
+        print(f"phase 15: fp32_chain {kind} vs plain at {vpu.ROWS}x128, {plain_iters} iters: "
+              f"within rtol 1e-5 {ok}, max |diff| {err:.3e}; kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms")
+        if not ok:
+            fail(f"fp32_chain {kind} disagrees with its plain version")
+    rng = np.random.default_rng(3)
+    dot_err = 0.0
+    for n, dtype_name, random in ((1024, "bf16", False), (2048, "bf16", False),
+                                  (4096, "bf16", False), (8192, "bf16", False),
+                                  (2048, "f32", False), (1024, "bf16", True),
+                                  (1024, "f32", True)):
+        tab, oh = mxu.probe_inputs(n, dtype_name, dev)
+        if random:  # small values whose bf16 rounding the perturbation moves; one-hot columns
+            tab = torch.from_numpy(rng.integers(1, 64, (mxu.M, mxu.K)).astype(np.float32)
+                                   * np.float32(2**-14)).to(dev, tab.dtype)
+            oh = torch.from_numpy(np.eye(mxu.K, dtype=np.float32)[rng.integers(0, mxu.K, n)].T
+                                  .copy()).to(dev, oh.dtype)
+        got = mxu.bf16_dot_chain(tab, oh, 4)
+        want = mxu.bf16_dot_chain_plain(tab, oh, 4)
+        equal = bool(torch.equal(got, want))
+        dot_err = max(dot_err, float((got - want).abs().max()))
+        lib = ""
+        if random:  # the yardstick computes the same sum, eagerly and as a graph replay
+            replay, _ = mxu.library_graph(tab, oh, 4, 3)
+            lib_equal = bool(torch.equal(mxu.library_dot_chain(tab, oh, 4, 3), want)) and \
+                bool(torch.equal(replay(), want))
+            equal = equal and lib_equal
+            lib = f", cuBLAS yardstick (eager and graph) equal {lib_equal}"
+        print(f"phase 15: bf16_dot_chain n {n} {dtype_name}{' random' if random else ''} vs "
+              f"plain at 4 iters: equal {equal}{lib}")
+        if not equal:
+            fail(f"bf16_dot_chain or its yardstick disagrees with the plain version at n {n} "
+                 f"{dtype_name}")
+    tab, oh = mxu.probe_inputs(2048, "bf16", dev)
+    dot_plain_iters = 64
+    _, dot_plain_ms = cuda_ms(lambda: mxu.bf16_dot_chain_plain(tab, oh, dot_plain_iters))
+    _, dot_kernel_ms_small = cuda_ms(lambda: mxu.bf16_dot_chain(tab, oh, dot_plain_iters), 10)
+
+    reset_launches()
+    fma = vpu.measure("fma")
+    nofma = vpu.measure("nofma")
+    fp32_launches = vpu.fp32_chain.launches
+    for m in (fma, nofma):
+        print(f"phase 15: fp32_chain {m['kind']}: {m['ops_per_s']:.4e} ops/s median of 5 "
+              f"launches of {m['ms']:.2f} ms ({m['iters']} iters x {m['rows']}x128), best "
+              f"{m['ops_per_s_best']:.4e}, {m['share_of_peak']:.4f} of "
+              f"{vpu.peak(m['kind']):.3g}; SM clock {m['sm_clock']}, power {m['power_draw']}")
+    print(f"phase 15: fusion ratio fma/nofma {fma['ops_per_s'] / nofma['ops_per_s']:.4f}")
+    dots = {}
+    for n in (1024, 2048, 4096, 8192):
+        dots[n] = mxu.measure(n)
+    dots["f32"] = mxu.measure(2048, dtype_name="f32", library=False)
+    dot_launches = mxu.bf16_dot_chain.launches
+    for key, m in dots.items():
+        lib = (f"; cuBLAS {m['library_ms']:.3f} ms ({m['library_flops_per_s']:.4e} FLOP/s, "
+               f"{mxu.LIBRARY_FORM}, {m['library_chunk']} iterations per product; ms by "
+               f"chunk {m['library_ms_by_chunk']})" if "library_ms" in m else "")
+        print(f"phase 15: bf16_dot_chain n {m['n']} {m['dtype']}: {m['flops_per_s']:.4e} FLOP/s "
+              f"({m['share_of_peak']:.4f} of {mxu.PEAK_BF16_S:.3g}), {m['ms']:.2f} ms per launch "
+              f"of {m['iters']} iters{lib}; SM clock {m['sm_clock']}, power {m['power_draw']}")
+    print(f"phase 15: launches fp32_chain {fp32_launches}, bf16_dot_chain {dot_launches}")
+    if fp32_launches < 10 or dot_launches < 25:
+        fail("the probes' entry points did not launch their kernels")
+
+    def probe_bound(ops, peak, nbytes):
+        t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    fb, fb_by = probe_bound(vpu.ops(fma["rows"], fma["iters"]), vpu.PEAK_F32_S,
+                            fma["rows"] * 128 * 8)
+    d = dots[2048]
+    db, db_by = probe_bound(mxu.flops(2048, d["iters"]), mxu.PEAK_BF16_S,
+                            2 * (mxu.M * mxu.K + mxu.K * 2048) + 4 * mxu.M * 2048)
+    return [
+        {"name": "fp32_chain", "route": "cuda", "source": "bendy_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/vpu_peak.py:85", "launches": fp32_launches,
+         "max_abs_err": max(c["err"] for c in check.values()), "ms": fma["ms"],
+         "plain_ms": check["fma"]["plain_ms"], "bound_ms": fb, "bound_by": fb_by,
+         "library_ms": None, "kind": "fma", "rows": fma["rows"], "iters": fma["iters"],
+         "plain_iters": plain_iters, "kernel_ms_at_plain_iters": check["fma"]["kernel_ms"],
+         "fma_ops_per_s": fma["ops_per_s"], "nofma_ops_per_s": nofma["ops_per_s"],
+         "nofma_ms": nofma["ms"], "fusion_ratio": fma["ops_per_s"] / nofma["ops_per_s"],
+         "fma_share_of_peak": fma["share_of_peak"],
+         "nofma_share_of_peak": nofma["share_of_peak"], "sass": counts},
+        {"name": "bf16_dot_chain", "route": "cuda", "source": "bendy_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/mxu_shape_probe.py:110", "launches": dot_launches,
+         "max_abs_err": dot_err, "ms": d["ms"], "plain_ms": dot_plain_ms, "bound_ms": db,
+         "bound_by": db_by, "library_ms": d["library_ms"], "n": 2048, "iters": d["iters"],
+         "plain_iters": dot_plain_iters, "kernel_ms_at_plain_iters": dot_kernel_ms_small,
+         "library_form": mxu.LIBRARY_FORM, "library_chunk": d["library_chunk"],
+         "flops_per_s": {str(k): m["flops_per_s"] for k, m in dots.items()},
+         "share_of_peak": {str(k): m["share_of_peak"] for k, m in dots.items()},
+         "library_ms_by_n": {str(k): m.get("library_ms") for k, m in dots.items()},
+         "ms_by_n": {str(k): m["ms"] for k, m in dots.items()},
+         "iters_by_n": {str(k): m["iters"] for k, m in dots.items()}},
+    ]
+
+
 def run(phases=None, phase3_names=None) -> int:
     """Run the phases in ``phases`` (all when None; the card and the build
     always run), phase 3 on the cases of ``phase3_names`` only when given."""
@@ -570,6 +950,24 @@ def run(phases=None, phase3_names=None) -> int:
             "mrays_per_s": path["rays"] / path["dt"] / 1e6,
             "s_per_pass": path["dt"] / 4,
         })
+
+    if phases is None or 13 in phases:
+        s = sharded_pass(dev)
+        kernels.append({
+            "name": "make_kernel_pass_sharded", "route": "cuda",
+            "source": "bendy_tpu_torch/csrc/trace_surface.cu",
+            "wrapper": "bendy_tpu_torch/parallel/mesh.py::make_kernel_pass_sharded",
+            "replaces": "bendy_tpu/parallel/mesh.py:146",
+            "launches": s["launches"], "max_abs_err": s["max_err"], "ms": s["kernel_ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": None, "path": "cornell 256x256 64spp 2x2, (1,1) mesh, nccl",
+            "pass_spp": s["pass_spp"], "mrays_per_s": s["rays"] / s["dt"] / 1e6,
+            "s_per_pass": s["dt"] / 4,
+        })
+    if phases is None or 14 in phases:
+        cli_on_card(dev)
+    if phases is None or 15 in phases:
+        kernels += probes(dev)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -89,7 +89,11 @@ def test_checkpoints_cross_load(tmp_path):
 
 
 def test_import_leaves_jax_out():
-    code = "import bendy_tpu_torch, sys; assert 'jax' not in sys.modules, 'jax imported'"
+    code = ("import sys, bendy_tpu_torch, bendy_tpu_torch.parallel, bendy_tpu_torch.cli, "
+            "bendy_tpu_torch.preview, bendy_tpu_torch.tools.vpu_peak, "
+            "bendy_tpu_torch.tools.mxu_shape_probe; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bendy_tpu.'))"
+            " or m == 'bendy_tpu']; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
