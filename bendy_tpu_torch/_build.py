@@ -58,6 +58,13 @@ SIGNATURES = {
                        c_int, c_void_p, c_void_p],
         c_int,
     ),
+    # samp, cnt, n, spp, n_out, first, max_iters, out, rays, iters, vevents,
+    #   near_steps, over_cap, stream
+    "bendy_fold_samples": (
+        [c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_int, c_void_p, c_void_p, c_void_p,
+         c_void_p, c_void_p, c_void_p, c_void_p],
+        c_int,
+    ),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),
     # csrc/probes.cu: x, out, n, iters, fma, stream
     "bendy_fp32_chain": ([c_void_p, c_void_p, c_int, c_int, c_int, c_void_p], c_int),

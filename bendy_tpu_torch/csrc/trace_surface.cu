@@ -30,7 +30,9 @@
 //     (1e-iii: bendy_tpu/geodesic.py::geo_step_begin_looped :236,
 //     _acc_looped :309, rk4_step_looped :349 over mass_table :196) computes
 //     another discretization, so it is an instantiation of its own: LOOPM
-//     (FLAG_LOOPM, with GEO, in bendy_trace_geodesic and bendy_trace_volume).
+//     (FLAG_LOOPM, with GEO, in bendy_trace_geodesic and bendy_trace_volume),
+//     one thread per (lane, sample), whose samples a second kernel behind
+//     bendy_fold_samples adds in order (fold_kernel).
 // Its plain PyTorch version is bendy_tpu_torch/ops/wavefront.py::trace_core
 // (geodesic mode: bendy_tpu_torch/geodesic.py; media:
 // bendy_tpu_torch/ops/volume.py); the wrappers and the table layout are in
@@ -54,12 +56,18 @@
 //     and exits on its own (Hopper's per-thread control flow in place of the
 //     TPU's per-block masked loop). A warp runs until its slowest lane is
 //     done; this first version accepts that divergence (wavefront sorting and
-//     persistent threads are later work).
+//     persistent threads are later work). The LOOPM instantiations instead
+//     run one thread per (lane, sample) and fold the samples afterwards
+//     (below).
 //   - lane state stays in registers; each lane shades only its own material
 //     instead of evaluating every branch under a mask.
 //   - the scene is NOT baked: the compiled tables arrive as one flat f32
 //     buffer with run-time counts and are staged into shared memory per
-//     block, so editing or moving an object rebuilds nothing.
+//     block, so editing or moving an object rebuilds nothing. A table past
+//     the 227 KiB a block can stage (FLAG_GTAB, chosen by the wrapper) is
+//     read in place from global memory instead, through L1 like the density
+//     grids: the GTAB instantiations, a template flag of their own, so that
+//     the shared-memory ones compile as before.
 //   - the TPU workarounds are gone: bool state, native uint32_t RNG words,
 //     no lane-varying zero seeds.
 //   - geodesics and media are template parameters, so the surface
@@ -140,15 +148,55 @@
 //     thrown past f32's range (r² = inf): the max keeps the NaN of inf − inf
 //     there, as the plain version's clamp does, so both lanes go NaN alike
 //     (with fmaxf the kernel went on and added the environment).
-//   - What likely bounds it: FP32 issue, 4 stages × M masses × ~25
-//     operations per chord step (at M = 64 some 6,400, with a divide and a
-//     sqrt per mass and stage), and divergence across photon-ring lanes.
-//     The LOOPM instantiations can write each lane's count of RK4 steps
-//     (near_steps, optional), so that a caller can count that work.
-//     Every lane of a warp reads the same mass row at once, a shared-memory
+//   - What bounds it: FP32 issue, 4 stages × M masses × ~25 operations per
+//     chord step (at M = 64 some 6,400, with a divide and a sqrt per mass
+//     and stage), and the straggler tail: one thread per lane ran a
+//     photon-ring lane's 16 samples one after another (16 × 258 iterations
+//     against a mean of 379) on an SM that had emptied, with 65,536 lanes
+//     filling a quarter of the card's thread slots.
+//   - So one thread traces one (lane, sample): thread `item` takes sample
+//     item % spp of lane item / spp (spp: the samples of this launch, a
+//     chunk of the call's when the wrapper splits them), so the samples of
+//     one lane sit side by side and a photon-ring pixel's long samples share
+//     a warp. The thread runs the lane loop below with a sample range of
+//     one and the same stream ids, so every RNG word is the same, and writes
+//     that sample's sums (depth_n applied) and counts (rays, iterations,
+//     volume events, RK4 steps) to per-item buffers [words, n·spp].
+//     fold_kernel then adds each lane's items in sample order from 0, as
+//     the lane loop adds its finished paths (acc = acc + rad from 0), so the
+//     result is bit-equal to one thread per lane and to the plain version.
+//   - The cap. A thread's cap is the whole lane's, max_iters of the call's
+//     spp, so no sample is cut where the lane loop would not cut it. The
+//     lane loop cuts where a lane's iteration sum passes that cap; a cut
+//     sample's partial counts cannot be rebuilt, so fold_kernel counts such
+//     lanes (over_cap) and the caller holds that count at 0. Bounds on one
+//     path's iterations (a regeneration shares the first trace's
+//     iteration; every iteration but a path's last traces):
+//       geodesic: a near chord is taken while geo_steps <= max_steps and
+//       adds one, so at most max_steps + 1 per path; at most max_bounces + 1
+//       events scatter (one at bounce = max_bounces is still taken); one
+//       iteration ends the path; a near chord that hits is both. A path
+//       takes at most max_steps + max_bounces + 3 = per_path + 1
+//       iterations (per_path = max_bounces + 2 + max_steps,
+//       TraceConfig.max_iters). With spp >= 2 the cap per_path·spp holds
+//       any one path, so no thread is cut; a lane loop is cut only if its
+//       paths average more than per_path, which needs paths that spend both
+//       budgets to the last step. With spp = 1 the thread is the lane loop.
+//       geodesic in media: at each bounce level 0..max_bounces the lane
+//       takes one surface-mode event (entering a medium, or leaving the
+//       level by a scatter or an exit) and at most max_volume_bounces march
+//       steps (taken while vbounce <= max_volume_bounces, from 1), the last
+//       of which may leave the level; near chords are surface-mode only, at
+//       most max_steps + 1; one more iteration ends the path. A path takes
+//       at most (max_bounces + 1)(max_volume_bounces + 1) + max_steps + 2
+//       iterations, max_bounces + max_volume_bounces + 1 under per_path =
+//       (max_bounces + 2)(max_volume_bounces + 2) + max_steps: the cap
+//       never binds.
+//   - Every lane of a warp reads the same mass row at once, a shared-memory
 //     broadcast without bank conflicts; the loop runs over the run-time
 //     count with a partial unroll of 4 that keeps the order; only near
-//     lanes take the RK4 step. No speed claim is made here.
+//     lanes take the RK4 step. The fold reads each word of a lane's
+//     samples in order (n·spp·(n_out + 4) words once) and is bound by bytes.
 //
 // Media (the VOL instantiation; ops/volume.py and trace_core's march mode
 // are the order):
@@ -202,7 +250,8 @@ constexpr int FACE_FRONT = 0, FACE_BACK = 1, FACE_VOLUME = 2, FACE_VOLUME_FRONT 
               FACE_VOLUME_BACK = 4;
 
 constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
-              FLAG_GEO = 32, FLAG_LOOPM = 64;
+              FLAG_GEO = 32, FLAG_LOOPM = 64, FLAG_GTAB = 128;
+constexpr int N_COUNTS = 4;  // per-item counts of a LOOPM launch: rays, iters, vevents, near_steps
 
 constexpr uint32_t CAMERA_TAG = 0x100000u;
 constexpr float INF = std::numeric_limits<float>::infinity();
@@ -223,8 +272,10 @@ __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y 
 __device__ __forceinline__ V3 normalize(V3 a) { return a * (1.0f / sqrtf(dot(a, a))); }
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
 
+// LOOPM: n lanes and spp samples give n·spp items, and out, rays, iters,
+// vevents and near_steps are per item ([n_out, n·spp], [n·spp])
 struct Params {
-  const float* table;  // global copy; staged into shared memory
+  const float* table;  // global copy; staged into shared memory unless FLAG_GTAB
   const float* cam;    // packed camera [32] (trace_kernel.pack_camera_host)
   const int32_t* pix;
   const int32_t* sub;
@@ -245,7 +296,7 @@ struct Params {
   int G, D, H, W;
   float volume_step;
   int max_volume_bounces, nearest;
-  int32_t* near_steps;                           // LOOPM only, optional: [n] RK4 steps per lane
+  int32_t* near_steps;                           // LOOPM only, optional: RK4 steps per item
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -734,13 +785,23 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-template <bool AOVS, bool GEO, bool VOL, bool LOOPM>
+template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB>
 __global__ void __launch_bounds__(128) trace_kernel(Params P) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) tab[i] = P.table[i];
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= P.n) return;  // ragged last block
+  extern __shared__ float smem_tab[];
+  const float* tab = smem_tab;
+  if constexpr (GTAB) {
+    tab = P.table;  // past shared memory: read in place
+  } else {
+    for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) smem_tab[i] = P.table[i];
+    __syncthreads();
+  }
+  // one thread per lane, or with LOOPM one per (lane, sample): item =
+  // lane·spp + s traces the single sample sample0 + s (the other
+  // instantiations read P.spp, P.sample0 and P.n as before, so that they
+  // compile as before)
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= (LOOPM ? P.n * P.spp : P.n)) return;  // ragged last block
+  const int lane = LOOPM ? item / P.spp : item;
 
   const float* lights = tab + P.n_sph * SPH_COLS + P.n_rct * RCT_COLS + P.n_box * BOX_COLS;
   const int lstride = LIGHT_HEAD + LIGHT_FACE_COLS * P.n_face;
@@ -781,7 +842,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
 
   for (; it < P.max_iters; ++it) {
     if (!alive) {
-      if (sample + 1 >= P.spp) break;  // this lane is done
+      if (sample + 1 >= (LOOPM ? 1 : P.spp)) break;  // this lane is done
       // === finalize the dead path, regenerate a camera ray ==============
       if (path_open) {
         acc_rad = acc_rad + rad;
@@ -794,7 +855,8 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       ++sample;
       path_open = true;
       path_step = 0;
-      sid = (pixv * P.spp_total + (P.sample0 + (uint32_t)sample)) * nn + subv;
+      const uint32_t sample0 = LOOPM ? P.sample0 + (uint32_t)(item % P.spp) : P.sample0;
+      sid = (pixv * P.spp_total + (sample0 + (uint32_t)sample)) * nn + subv;
       float uj[4];
       uniforms4(sid, CAMERA_TAG, 0u, P.key0, P.key1, uj);
       float u = u_base + (uj[0] - 0.5f) * P.pw_n;
@@ -1079,34 +1141,72 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       acc_dep = acc_dep + depth_n(aov_dep, P.clip_min, P.dep_den);
     }
   }
-  const int N = P.n;
-  P.out[lane] = acc_rad.x;
-  P.out[N + lane] = acc_rad.y;
-  P.out[2 * N + lane] = acc_rad.z;
+  const int N = LOOPM ? P.n * P.spp : P.n;
+  P.out[item] = acc_rad.x;
+  P.out[N + item] = acc_rad.y;
+  P.out[2 * N + item] = acc_rad.z;
   if (AOVS) {
-    P.out[3 * N + lane] = acc_alb.x;
-    P.out[4 * N + lane] = acc_alb.y;
-    P.out[5 * N + lane] = acc_alb.z;
-    P.out[6 * N + lane] = acc_nrm.x;
-    P.out[7 * N + lane] = acc_nrm.y;
-    P.out[8 * N + lane] = acc_nrm.z;
-    P.out[9 * N + lane] = acc_dep;
+    P.out[3 * N + item] = acc_alb.x;
+    P.out[4 * N + item] = acc_alb.y;
+    P.out[5 * N + item] = acc_alb.z;
+    P.out[6 * N + item] = acc_nrm.x;
+    P.out[7 * N + item] = acc_nrm.y;
+    P.out[8 * N + item] = acc_nrm.z;
+    P.out[9 * N + item] = acc_dep;
   }
-  P.rays[lane] = rays;
-  P.iters[lane] = it;
-  if constexpr (VOL) P.vevents[lane] = vev;
+  P.rays[item] = rays;
+  P.iters[item] = it;
+  if constexpr (VOL) P.vevents[item] = vev;
   if constexpr (LOOPM) {
-    if (P.near_steps != nullptr) P.near_steps[lane] = n_near;
+    if (P.near_steps != nullptr) P.near_steps[item] = n_near;
+  }
+}
+
+// The ordered fold of a LOOPM launch: one thread per lane adds the lane's
+// spp per-item words in sample order, acc = acc + v from 0.0f (or from the
+// running sums of the samples before this chunk when !first), the counts as
+// integers, and writes the one-thread-per-lane layouts: out [n_out, n],
+// rays, iters and the optional vevents and near_steps [n]. With
+// max_iters >= 0 (the call's last chunk) it adds to *over_cap each lane
+// whose iteration sum passes the lane cap. Bound by bytes: each word is
+// read once and each lane's words written once.
+__global__ void __launch_bounds__(128) fold_kernel(const float* samp, const int32_t* cnt, int n,
+                                                   int spp, int n_out, bool first,
+                                                   int max_iters, float* out, int32_t* rays,
+                                                   int32_t* iters, int32_t* vevents,
+                                                   int32_t* near_steps, int32_t* over_cap) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const size_t items = (size_t)n * spp, base = (size_t)lane * spp;
+  for (int k = 0; k < n_out; ++k) {
+    const float* v = samp + k * items + base;
+    float acc = first ? 0.0f : out[(size_t)k * n + lane];
+    for (int s = 0; s < spp; ++s) acc = acc + v[s];
+    out[(size_t)k * n + lane] = acc;
+  }
+  int32_t* const dst[N_COUNTS] = {rays, iters, vevents, near_steps};
+#pragma unroll
+  for (int w = 0; w < N_COUNTS; ++w) {
+    if (dst[w] == nullptr) continue;
+    const int32_t* c = cnt + w * items + base;
+    int32_t acc = first ? 0 : dst[w][lane];
+    for (int s = 0; s < spp; ++s) acc += c[s];
+    dst[w][lane] = acc;
+    if (w == 1 && max_iters >= 0 && acc > max_iters) atomicAdd(over_cap, 1);
   }
 }
 
 template <bool GEO, bool VOL, bool LOOPM = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
-  const size_t smem = (size_t)P.table_floats * sizeof(float);
+  const bool gtab = (P.flags & FLAG_GTAB) != 0;
+  const size_t smem = gtab ? 0 : (size_t)P.table_floats * sizeof(float);
   const int threads = 128;
-  const int blocks = (P.n + threads - 1) / threads;
-  auto kernel =
-      want_aovs ? trace_kernel<true, GEO, VOL, LOOPM> : trace_kernel<false, GEO, VOL, LOOPM>;
+  const int items = LOOPM ? P.n * P.spp : P.n;
+  const int blocks = (items + threads - 1) / threads;
+  auto kernel = gtab ? (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, true>
+                                  : trace_kernel<false, GEO, VOL, LOOPM, true>)
+                     : (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, false>
+                                  : trace_kernel<false, GEO, VOL, LOOPM, false>);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, threads, smem, s>>>(P);
@@ -1183,14 +1283,17 @@ int bendy_trace_surface(TRACE_ARGS, void* stream) {
 
 // Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, or
 // with FLAG_LOOPM the LOOPM one over any n_mass >= 1; the mass block after
-// the environment in `table`) on `stream`. With FLAG_LOOPM a non-null
-// `near_steps` [n] int32 receives each lane's RK4 step count; otherwise it
-// is ignored.
+// the environment in `table`) on `stream`. With FLAG_LOOPM it runs one
+// thread per (lane, sample): out, rays and iters are per item, [n_out,
+// n·spp] and [n·spp] (item = lane·spp + s, at most INT_MAX items), for
+// bendy_fold_samples to fold, and a non-null `near_steps` [n·spp] int32
+// receives each item's RK4 step count; without it `near_steps` is ignored.
 int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                          float far, int max_steps, float growth, void* near_steps,
                          void* stream) {
   const bool loopm = (flags & FLAG_LOOPM) != 0;
-  if (!(flags & FLAG_GEO) || n_mass < 1 || (!loopm && n_mass > MAX_MASSES))
+  if (!(flags & FLAG_GEO) || n_mass < 1 || (!loopm && n_mass > MAX_MASSES) ||
+      (loopm && (long long)n * spp > INT32_MAX))
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
   P.n_mass = n_mass;
@@ -1210,13 +1313,15 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
 // `grid` [G,D,H,W] f32, march step and volume-bounce cap, trilinear or
 // nearest lookups, per-lane volume-event counts into `vevents` [n] int32.
 // With FLAG_GEO it is the geodesic one inside media (n_mass, FLAG_LOOPM and
-// the GeoParams as for bendy_trace_geodesic); without, n_mass is ignored.
+// the GeoParams as for bendy_trace_geodesic, with FLAG_LOOPM `vevents` per
+// item too); without, n_mass is ignored.
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                        float far, int max_steps, float growth, void* near_steps,
                        const void* grid, int G, int D, int H, int W, float volume_step,
                        int max_volume_bounces, int nearest, void* vevents, void* stream) {
   const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0;
   if ((geo && (n_mass < 1 || (!loopm && n_mass > MAX_MASSES))) || (loopm && !geo) ||
+      (loopm && (long long)n * spp > INT32_MAX) ||
       grid == nullptr || vevents == nullptr || G < 1 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
@@ -1241,6 +1346,28 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
   if (!geo) return launch<false, true>(P, want_aovs != 0, s);
   return loopm ? launch<true, true, true>(P, want_aovs != 0, s)
                : launch<true, true>(P, want_aovs != 0, s);
+}
+
+// Fold one LOOPM launch's per-item words on `stream` (fold_kernel): `samp`
+// [n_out, n·spp] f32 and `cnt` [4, n·spp] int32 (rays, iters, vevents,
+// near_steps) into `out` [n_out, n], `rays`, `iters` and the optional
+// `vevents`, `near_steps` [n] int32; `first` = 0 carries on from their
+// values, max_iters >= 0 counts lanes past it into `over_cap` [1] int32.
+int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_out, int first,
+                       int max_iters, void* out, void* rays, void* iters, void* vevents,
+                       void* near_steps, void* over_cap, void* stream) {
+  if (n < 0 || spp < 1 || (n_out != 3 && n_out != 10) || samp == nullptr || cnt == nullptr ||
+      out == nullptr || rays == nullptr || iters == nullptr ||
+      (max_iters >= 0 && over_cap == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int threads = 128;
+  fold_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(samp), static_cast<const int32_t*>(cnt), n, spp, n_out,
+      first != 0, max_iters, static_cast<float*>(out), static_cast<int32_t*>(rays),
+      static_cast<int32_t*>(iters), static_cast<int32_t*>(vevents),
+      static_cast<int32_t*>(near_steps), static_cast<int32_t*>(over_cap));
+  return (int)cudaGetLastError();
 }
 
 const char* bendy_cuda_error_string(int code) {

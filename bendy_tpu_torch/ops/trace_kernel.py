@@ -15,7 +15,11 @@ instantiations) and the volume one (:func:`trace_volume`: march mode and
 the density lookup of sparse and dense grids, with or without geodesics,
 unrolled or looped). Primitives and lights are swept by run-time loops
 over the table in every instantiation, so the reference's looped
-primitive and light sweeps need no instantiation of their own.
+primitive and light sweeps need no instantiation of their own. The LOOPM
+instantiations run one thread per (lane, sample) instead, so that a
+photon-ring pixel's long samples spread over threads, and a second kernel
+(:func:`fold_samples`) adds each lane's samples in sample order, bit-equal
+to one thread per lane.
 
 Dispatch is by the device of the lane tensors and by ``cfg.has_volumes``,
 ``cfg.geodesic`` and ``cfg.looped_masses``, with no fallback: CUDA tensors launch the matching
@@ -25,7 +29,8 @@ version, anything else raises.
 The scene is not baked into the kernel (the TPU kernel recompiles on any
 scene value change): :func:`scene_table` flattens the compiled tables into
 one f32 buffer with run-time counts, which the kernel stages into shared
-memory, and the geodesic knobs (``GeoParams``) are launch arguments, so
+memory (or, past ``MAX_TABLE_BYTES``, reads in place from global memory),
+and the geodesic knobs (``GeoParams``) are launch arguments, so
 editing a scene or its ``geodesic`` block rebuilds nothing. The density
 grids go to the kernel as their own contiguous ``[G, D, H, W]`` f32
 buffer with the four extents as launch arguments: a 32³ grid (128 KiB)
@@ -47,13 +52,23 @@ from bendy_tpu_torch.utils.rng import render_key
 from bendy_tpu_torch.utils.v3 import V3
 
 N_OUT = 10  # rx ry rz ax ay az nx ny nz dep
-MAX_TABLE_BYTES = 227 * 1024  # shared memory one block can use on sm_90
+# shared memory one block can use on sm_90: a larger scene table is read in
+# place from global memory (the GTAB instantiations)
+MAX_TABLE_BYTES = 227 * 1024
 
 MAX_MASSES = 8  # the geodesic kernel's mass unroll (render.MASS_LOOP_THRESHOLD)
 
 # kernel flag bits (csrc/trace_surface.cu FLAG_*)
 FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY, FLAG_GEO = 1, 2, 4, 8, 16, 32
 FLAG_LOOPM = 64  # the looped mass sweep (the LOOPM instantiations)
+FLAG_GTAB = 128  # the scene table stays in global memory
+
+# a looped-mass launch runs one thread per (lane, sample) into per-item
+# buffers of n_out floats and N_COUNTS int32 counts (rays, iters, vevents,
+# near_steps); past SPLIT_BUDGET_BYTES of them the wrapper launches the
+# samples in chunks (at 1080p, 256 spp they would take 28 GB)
+N_COUNTS = 4
+SPLIT_BUDGET_BYTES = 256 << 20
 
 
 def pack_camera_host(sensor, focal, aspect, fstop, focus, yfov,
@@ -172,14 +187,32 @@ def _flags(cfg: TraceConfig) -> int:
             | (FLAG_LOOPM if cfg.geodesic and cfg.looped_masses else 0))
 
 
+def table_in_global(nbytes: int) -> bool:
+    """Whether a scene table of ``nbytes`` stays in global memory (the
+    GTAB instantiations) instead of being staged in shared memory."""
+    return nbytes > MAX_TABLE_BYTES
+
+
+def _check_launch(entry: str, dev: torch.device, rc: int) -> None:
+    """Raise on a refused launch (``rc``, the C entry's cudaGetLastError())."""
+    from bendy_tpu_torch import _build
+
+    if rc != 0:
+        msg = _build.library().bendy_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{entry} launch failed on {dev}: CUDA error {rc} ({msg})")
+
+
 def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
             pix: torch.Tensor, sub: torch.Tensor, width: int, height: int, spp: int,
             spp_total: int, subsample: int, key: tuple, sample0: int,
-            cfg: TraceConfig, extra: tuple = ()):
-    """Check the arguments, allocate the outputs and launch the C entry
-    point ``entry`` on the current stream; ``extra`` are the entry's
-    arguments after ``want_aovs``, where a tensor goes in as its pointer.
-    Returns (out, rays, iters)."""
+            cfg: TraceConfig, extra: tuple = (), outs: tuple | None = None,
+            max_iters: int | None = None):
+    """Check the arguments and launch the C entry point ``entry`` on the
+    current stream; ``extra`` are the entry's arguments after
+    ``want_aovs``, where a tensor goes in as its pointer. ``outs`` (out,
+    rays, iters) are the kernel's outputs (a looped-mass launch's per-item
+    buffers), else allocated per lane; ``max_iters`` is the loop cap
+    (default ``cfg.max_iters(spp)``). Returns (out, rays, iters)."""
     from bendy_tpu_torch import _build
 
     dev = pix.device
@@ -194,33 +227,173 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
                              f"got {t.dtype} on {t.device}")
     if pix.shape != (B,) or sub.shape != (B,) or cam_packed.numel() < 18:
         raise ValueError("pix and sub must be [B]; cam_packed the [1,32] camera")
-    if table.numel() * 4 > MAX_TABLE_BYTES:
-        raise ValueError(f"scene table of {table.numel() * 4} bytes exceeds one "
-                         f"block's shared memory ({MAX_TABLE_BYTES})")
     if B >= 2**31:
         raise ValueError("lane count must fit int32")
-    n_out = N_OUT if cfg.want_aovs else 3
-    out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
-    rays = torch.empty(B, dtype=torch.int32, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    if outs is None:
+        n_out = N_OUT if cfg.want_aovs else 3
+        outs = (torch.empty((n_out, B), dtype=torch.float32, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev))
+    out, rays, iters = outs
     if B == 0:
         return out, rays, iters
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, entry)(
+    flags = _flags(cfg) | (FLAG_GTAB if table_in_global(table.numel() * 4) else 0)
+    rc = getattr(_build.library(), entry)(
         table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
         sub.data_ptr(), out.data_ptr(), rays.data_ptr(), iters.data_ptr(),
         B, width, height, spp, subsample, spp_total & 0xFFFFFFFF,
         key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, sample0 & 0xFFFFFFFF,
-        cfg.max_bounces, cfg.max_iters(spp), cfg.clip_min, cfg.clip_max,
-        _flags(cfg), counts["n_sph"], counts["n_rct"], counts["n_box"],
-        counts["n_light"], counts["n_face"], int(cfg.want_aovs),
-        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra), stream,
+        cfg.max_bounces, cfg.max_iters(spp) if max_iters is None else max_iters,
+        cfg.clip_min, cfg.clip_max, flags, counts["n_sph"], counts["n_rct"],
+        counts["n_box"], counts["n_light"], counts["n_face"], int(cfg.want_aovs),
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        msg = lib.bendy_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
+    _check_launch(entry, dev, rc)
     return out, rays, iters
+
+
+def split_samples(lanes: int, spp: int, n_out: int) -> int:
+    """Samples per chunk of a looped-mass launch: as many as keep its
+    per-item buffers within ``SPLIT_BUDGET_BYTES``, at least one (one
+    sample's buffers are no larger than the lanes' own outputs)."""
+    per_sample = max(lanes, 1) * 4 * (n_out + N_COUNTS)
+    return max(1, min(spp, SPLIT_BUDGET_BYTES // per_sample))
+
+
+_OVER_CAP: dict = {}  # device -> [1] int32 (over_cap_lanes)
+
+
+def over_cap_lanes(device) -> torch.Tensor:
+    """[1] int32 on ``device``: the lanes of every looped-mass launch there,
+    since it was last zeroed (``.zero_()``), whose iteration sum passed the
+    lane cap ``cfg.max_iters(spp)``. One thread per lane would have cut
+    such a lane where the split traced every sample whole, so the two
+    results differ there (csrc/trace_surface.cu, "The cap")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _OVER_CAP:
+        _OVER_CAP[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _OVER_CAP[dev]
+
+
+def _traced(entry: str, table, counts, cam_packed, pix, sub, width, height, spp, spp_total,
+            subsample, key, sample0, cfg: TraceConfig, extra, vevents=None, near_steps=None,
+            item_counts=None):
+    """Launch ``entry``: one thread per lane, or with looped masses one per
+    (lane, sample) into per-item buffers, each chunk of samples followed by
+    its ordered fold (:func:`fold_samples`) into the per-lane outputs.
+    ``extra(near_steps, vevents)`` gives the entry's arguments after
+    ``want_aovs``. ``item_counts``, optional [N_COUNTS, B, spp] int32,
+    receives a looped-mass launch's per-item counts (row 2, vevents, only
+    with volumes). Returns (out, rays, iters)."""
+    if not (cfg.geodesic and cfg.looped_masses):
+        return _launch(entry, table, counts, cam_packed, pix, sub, width, height, spp, spp_total,
+                       subsample, key, sample0, cfg, extra=extra(near_steps, vevents))
+    dev, B = pix.device, pix.shape[0]
+    if spp < 1:
+        raise ValueError(f"a looped-mass launch traces at least one sample, got spp {spp}")
+    n_out = N_OUT if cfg.want_aovs else 3
+    out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
+    rays = torch.empty(B, dtype=torch.int32, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    if item_counts is not None and (item_counts.shape != (N_COUNTS, B, spp)
+                                    or item_counts.dtype != torch.int32
+                                    or item_counts.device != dev):
+        raise ValueError(f"item_counts: a [{N_COUNTS}, B, spp] int32 tensor beside the lanes")
+    sc = split_samples(B, spp, n_out)
+    samp = torch.empty(n_out * B * sc, dtype=torch.float32, device=dev)
+    cnt = torch.empty(N_COUNTS * B * sc, dtype=torch.int32, device=dev)
+    cap = cfg.max_iters(spp)  # the whole lane's cap for every item
+    for c0 in range(0, spp, sc):
+        s = min(sc, spp - c0)
+        f = samp[:n_out * B * s].view(n_out, B * s)
+        c = cnt[:N_COUNTS * B * s].view(N_COUNTS, B * s)
+        _launch(entry, table, counts, cam_packed, pix, sub, width, height, s, spp_total,
+                subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]),
+                outs=(f, c[0], c[1]), max_iters=cap)
+        fold_samples(f, c, s, out, rays, iters, vevents, near_steps, first=c0 == 0,
+                     max_iters=cap if c0 + s == spp else -1, over_cap=over_cap_lanes(dev))
+        if item_counts is not None:
+            item_counts[:, :, c0:c0 + s] = c.view(N_COUNTS, B, s)
+    return out, rays, iters
+
+
+def fold_samples_plain(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
+                       rays: torch.Tensor, iters: torch.Tensor,
+                       vevents: torch.Tensor | None = None,
+                       near_steps: torch.Tensor | None = None, *, first: bool = True,
+                       max_iters: int = -1, over_cap: torch.Tensor | None = None) -> None:
+    """Plain version of :func:`fold_samples`: per lane, the per-item words
+    added in sample order from 0 (or from the outputs' values when not
+    ``first``), in place."""
+    n_out, B = out.shape
+    f = samp.view(n_out, B, spp)
+    c = cnt.view(N_COUNTS, B, spp)
+    acc = torch.zeros_like(out) if first else out.clone()
+    for s in range(spp):
+        acc = acc + f[:, :, s]
+    out.copy_(acc)
+    for row, dst in enumerate((rays, iters, vevents, near_steps)):
+        if dst is None:
+            continue
+        tot = torch.zeros_like(dst) if first else dst.clone()
+        for s in range(spp):
+            tot = tot + c[row, :, s]
+        dst.copy_(tot)
+    if max_iters >= 0:
+        over_cap += (iters > max_iters).sum(dtype=torch.int32)
+
+
+def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
+                 rays: torch.Tensor, iters: torch.Tensor, vevents: torch.Tensor | None = None,
+                 near_steps: torch.Tensor | None = None, *, first: bool = True,
+                 max_iters: int = -1, over_cap: torch.Tensor | None = None) -> None:
+    """The ordered fold of a looped-mass launch (``fold_kernel`` of
+    ``csrc/trace_surface.cu``), in place on the current stream: ``samp``
+    [n_out, B·spp] f32 and ``cnt`` [N_COUNTS, B·spp] int32 per item (item =
+    lane·spp + s) into ``out`` [n_out, B] and the [B] int32 ``rays``,
+    ``iters``, ``vevents`` and ``near_steps`` (the last two optional).
+    Each lane's words are added in sample order from 0, or from the
+    outputs' values when not ``first`` (the next chunk of samples), so the
+    sums are bit-equal to one thread tracing the lane's samples in turn.
+    With ``max_iters >= 0`` the lanes whose iteration sum passes it are
+    added to ``over_cap`` ([1] int32). CPU tensors run
+    :func:`fold_samples_plain`; CUDA ones launch the kernel (adding one to
+    ``fold_samples.launches``) or raise."""
+    from bendy_tpu_torch import _build
+
+    dev = out.device
+    n_out, B = out.shape
+    if max_iters >= 0 and over_cap is None:
+        raise ValueError("fold_samples: max_iters needs an over_cap counter")
+    ints = [t for t in (rays, iters, vevents, near_steps, over_cap) if t is not None]
+    if (samp.shape != (n_out, B * spp) or cnt.shape != (N_COUNTS, B * spp)
+            or samp.dtype != torch.float32 or out.dtype != torch.float32
+            or any(t.dtype != torch.int32 for t in (cnt, *ints))
+            or any(t.shape != (B,) for t in (rays, iters, vevents, near_steps) if t is not None)
+            or any(t.device != dev or not t.is_contiguous() for t in (samp, cnt, out, *ints))):
+        raise ValueError(f"fold_samples: expected contiguous samp [n_out, B·spp] f32, cnt "
+                         f"[{N_COUNTS}, B·spp] int32, out [n_out, B] f32 and [B] int32 counts "
+                         f"on {dev}")
+    if dev.type == "cpu":
+        return fold_samples_plain(samp, cnt, spp, out, rays, iters, vevents, near_steps,
+                                  first=first, max_iters=max_iters, over_cap=over_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"fold_samples runs on CPU or CUDA tensors, got {dev}")
+    if B == 0:
+        return None
+    ptr = [None if t is None else t.data_ptr() for t in (vevents, near_steps, over_cap)]
+    rc = _build.library().bendy_fold_samples(
+        samp.data_ptr(), cnt.data_ptr(), B, spp, n_out, int(first), max_iters, out.data_ptr(),
+        rays.data_ptr(), iters.data_ptr(), *ptr, torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("bendy_fold_samples", dev, rc)
+    fold_samples.launches += 1
+    return None
+
+
+fold_samples.launches = 0
 
 
 def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
@@ -251,23 +424,29 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                    pix: torch.Tensor, sub: torch.Tensor, *, width: int,
                    height: int, spp: int, spp_total: int, subsample: int,
                    key: tuple, sample0: int, cfg: TraceConfig,
-                   near_steps: torch.Tensor | None = None):
+                   near_steps: torch.Tensor | None = None,
+                   item_counts: torch.Tensor | None = None):
     """Launch the geodesic instantiation of ``csrc/trace_surface.cu`` (RK4
     chord stepping; unrolled masses, or the LOOPM one with
     ``cfg.looped_masses``) on the current stream.
 
     Same outputs as :func:`trace_surface`; the ``GeoParams`` go in as
-    launch arguments. With ``cfg.looped_masses``, ``near_steps`` (an
-    optional [B] int32 output) receives each lane's count of RK4 steps.
-    Adds one to ``trace_geodesic.launches`` per launch. Raises unless
-    ``cfg.geodesic`` without volumes and 1 <= n_mass (at most
-    ``MAX_MASSES`` unless ``cfg.looped_masses``).
+    launch arguments. With ``cfg.looped_masses`` the kernel runs one thread
+    per (lane, sample) and the fold kernel adds each lane's samples in
+    order (:func:`fold_samples`, chunks of :func:`split_samples`), with the
+    same sums as one thread per lane; ``near_steps`` (an optional [B] int32
+    output) receives each lane's count of RK4 steps and ``item_counts``
+    those of :func:`_traced`. Adds one to ``trace_geodesic.launches`` per
+    call. Raises unless ``cfg.geodesic`` without volumes and 1 <= n_mass
+    (at most ``MAX_MASSES`` unless ``cfg.looped_masses``).
     """
     if cfg.has_volumes:
         raise ValueError("a configuration with volumes launches trace_volume")
-    res = _launch("bendy_trace_geodesic", table, counts, cam_packed, pix, sub, width,
-                  height, spp, spp_total, subsample, key, sample0, cfg,
-                  extra=(*_geo_args(counts, cfg), _near_steps(near_steps, pix, cfg)))
+    geo = _geo_args(counts, cfg)
+    res = _traced("bendy_trace_geodesic", table, counts, cam_packed, pix, sub, width, height,
+                  spp, spp_total, subsample, key, sample0, cfg,
+                  lambda near, vev: (*geo, near),
+                  near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts)
     if pix.shape[0]:
         trace_geodesic.launches += 1
     return res
@@ -279,8 +458,7 @@ trace_geodesic.launches = 0
 def _geo_args(counts: dict, cfg: TraceConfig) -> tuple:
     """(n_mass, GeoParams...) launch arguments of a geodesic configuration:
     1 to ``MAX_MASSES`` unrolled masses, or with ``cfg.looped_masses`` any
-    count from 1 that the shared-memory table holds (``_launch`` checks the
-    table)."""
+    count from 1."""
     n_mass = counts["n_mass"]
     if not cfg.geodesic or n_mass < 1 or (n_mass > MAX_MASSES and not cfg.looped_masses):
         raise ValueError(f"a geodesic launch takes 1 to {MAX_MASSES} unrolled masses or "
@@ -304,7 +482,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                  pix: torch.Tensor, sub: torch.Tensor, grid: torch.Tensor, *, width: int,
                  height: int, spp: int, spp_total: int, subsample: int,
                  key: tuple, sample0: int, cfg: TraceConfig,
-                 near_steps: torch.Tensor | None = None):
+                 near_steps: torch.Tensor | None = None,
+                 item_counts: torch.Tensor | None = None):
     """Launch the volume instantiation of ``csrc/trace_surface.cu`` (march
     mode and the 8-corner density lookup of ``grid``, the ``[G, D, H, W]``
     f32 stack of the scene's density grids; geodesic inside media when
@@ -312,8 +491,9 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
 
     Returns (out, rays, iters) as :func:`trace_surface`, then vol_events
     [B] int32, each lane's count of volume events (density lookups);
-    ``near_steps`` as for :func:`trace_geodesic`. Adds one to
-    ``trace_volume.launches`` per launch. Raises unless
+    looped masses, ``near_steps`` and ``item_counts`` as for
+    :func:`trace_geodesic`. Adds one to ``trace_volume.launches`` per
+    call. Raises unless
     ``cfg.has_volumes``, on a grid the kernel does not take, and as
     :func:`trace_geodesic` on a geodesic configuration it does not take.
     """
@@ -326,11 +506,12 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     geo = _geo_args(counts, cfg) if cfg.geodesic else (0, 0.0, 0.0, 0.0, 0.0, 0, 0.0)
     vevents = torch.empty(pix.shape[0], dtype=torch.int32, device=pix.device)
     G, D, H, W = grid.shape
-    out, rays, iters = _launch(
+    out, rays, iters = _traced(
         "bendy_trace_volume", table, counts, cam_packed, pix, sub, width, height, spp,
         spp_total, subsample, key, sample0, cfg,
-        extra=(*geo, _near_steps(near_steps, pix, cfg), grid, G, D, H, W, cfg.volume_step,
-               cfg.max_volume_bounces, int(cfg.vol_nearest), vevents))
+        lambda near, vev: (*geo, near, grid, G, D, H, W, cfg.volume_step,
+                           cfg.max_volume_bounces, int(cfg.vol_nearest), vev),
+        vevents=vevents, near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts)
     if pix.shape[0]:
         trace_volume.launches += 1
     return out, rays, iters, vevents
@@ -351,7 +532,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     [sample0, sample0+spp) of a global ``spp_total`` (default ``spp``), so
     the sharded pass splits samples over ranks with globally unique RNG
     streams. Ray, iteration and volume-event counts are int64 sums of
-    per-lane counts, with the same meaning on both routes.
+    per-lane counts, with the same meaning on both routes, and
+    ``lane_counts`` holds the per-lane counts themselves.
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
@@ -378,18 +560,18 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
             if dev not in grids:
                 grids[dev] = scn.vol_grid.to(dev).contiguous()
             out, rays, iters, vol = trace_volume(*lanes, grids[dev], **kw)
-            vol = vol.sum(dtype=torch.int64)
         else:
             launch = trace_geodesic if cfg.geodesic else trace_surface
             out, rays, iters = launch(*lanes, **kw)
-            vol = torch.zeros((), dtype=torch.int64, device=dev)
+            vol = torch.zeros_like(rays)
+        lane_counts = dict(rays=rays, iters=iters, vol_events=vol)
+        sums = (rays.sum(dtype=torch.int64), iters.sum(dtype=torch.int64),
+                vol.sum(dtype=torch.int64))
         rad = V3(out[0], out[1], out[2])
-        rays = rays.sum(dtype=torch.int64)
-        iters = iters.sum(dtype=torch.int64)
         if not cfg.want_aovs:
-            return TraceSums(rad, rad, rad, rad.x, rays, iters, vol)
+            return TraceSums(rad, rad, rad, rad.x, *sums, lane_counts=lane_counts)
         return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
-                         out[9], rays, iters, vol)
+                         out[9], *sums, lane_counts=lane_counts)
 
     return run
 

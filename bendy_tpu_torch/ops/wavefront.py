@@ -153,6 +153,8 @@ class TraceSums:
     #   length (iterations it entered with work left), as the kernel counts
     vol_events: torch.Tensor  # [] int64: volume events (density lookups),
     #   0 without volumes
+    lane_counts: dict | None = None  # the per-lane counts behind the sums:
+    #   rays, iters, vol_events [B] (and near_steps, RK4 steps, from trace_core)
 
 
 def check_trace_args(width: int, height: int, spp_total: int, subsample: int,
@@ -259,6 +261,7 @@ def trace_core(
     rays = torch.zeros(B, dtype=torch.int64, device=dev)
     lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
     vol_events = torch.zeros(B, dtype=torch.int64, device=dev)
+    near_steps = torch.zeros(B, dtype=torch.int64, device=dev)  # RK4 steps (near chords)
     dep_den = cfg.clip_max - cfg.clip_min
 
     def depth_n(d):
@@ -391,6 +394,7 @@ def trace_core(
             dirv = V3.where(geo_cont, d_next, dirv)
             mode = torch.where(geo_cont, MODE_SURFACE, mode).to(torch.int32)
             geo_steps = geo_steps + near.to(torch.int32)
+            near_steps = near_steps + near.to(torch.int64)
 
         if cfg.want_aovs:
             claim = (surf | miss) & aov_open
@@ -435,9 +439,11 @@ def trace_core(
     rays_total = rays.sum()
     iters = lane_iters.sum()
     n_vol = vol_events.sum()
+    lane_counts = dict(rays=rays, iters=lane_iters, vol_events=vol_events, near_steps=near_steps)
     if not cfg.want_aovs:
         # AOV slots alias the radiance (callers only read .radiance)
-        return TraceSums(radiance, radiance, radiance, radiance.x, rays_total, iters, n_vol)
+        return TraceSums(radiance, radiance, radiance, radiance.x, rays_total, iters, n_vol,
+                         lane_counts)
     return TraceSums(
         radiance=radiance,
         aov_albedo=acc_alb + V3.where(fin, aov_alb, zv),
@@ -446,4 +452,5 @@ def trace_core(
         rays=rays_total,
         iters=iters,
         vol_events=n_vol,
+        lane_counts=lane_counts,
     )

@@ -44,6 +44,38 @@ def cuda_ms(fn, repeats: int = 1, warmup: int = 0, warm_s: float = 0.0):
     return out, start.elapsed_time(end) / repeats
 
 
+def cuda_ms_median(fn, repeats: int = 7, warmup: int = 1, warm_s: float = 0.5):
+    """(last result, median, min, max ms) of ``repeats`` calls ``fn(i)``,
+    i = 1..repeats, each timed alone between its own pair of CUDA events
+    so that ``fn`` can take a fresh seed from ``i`` (bench.py's
+    timed_render protocol), after ``warmup`` untimed calls ``fn(0)`` and
+    more until ``warm_s`` seconds have passed. An untimed ``fn(0)`` goes
+    ahead of each timed call, so that the card is busy while the host
+    prepares it, as in a chain of passes: the events then time the card's
+    work and not the host's launch overhead."""
+    import statistics
+
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn(0)
+    torch.cuda.synchronize()
+    while time.perf_counter() - t0 < warm_s:
+        fn(0)
+        torch.cuda.synchronize()
+    times = []
+    for i in range(1, repeats + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fn(0)
+        start.record()
+        out = fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, statistics.median(times), min(times), max(times)
+
+
 def card() -> dict:
     """The card's name, power limit, SM clock and power draw, as nvidia-smi
     reads them now."""

@@ -9,8 +9,9 @@ Phases, one line each (any failure exits non-zero):
   2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
      each instantiation's ptxas registers, stack and spills (surface,
      geodesic, and the volume ones with and without geodesics; the geodesic
-     ones with unrolled and with looped masses, LOOPM) and of the two probe
-     kernels (csrc/probes.cu),
+     ones with unrolled and with looped masses, LOOPM; each with the table
+     in shared or in global memory, GTAB), of the fold kernel and of the
+     two probe kernels (csrc/probes.cu),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
@@ -19,29 +20,35 @@ Phases, one line each (any failure exits non-zero):
      cloud and dense_cloud at spp 2, max_bounces=3, seed 11, on
      blackhole_cloud at spp 1 and 4, Config(max_bounces=2,
      volume_step=0.6), seed 3, and on cloud with nearest sampling, FULL and
-     NORMAL; the looped sweeps: build_prim_grid(200) at spp 2,
-     max_bounces=4, seed 7, cloud_field at spp 2, max_bounces=4, seed 11,
-     build_light_field(200) at spp 2, max_bounces=3, seed 5, mass_cluster
-     at spp 1 and 4, max_bounces=2, seed 3, a 13-mass ring at spp 2 and 12
-     masses inside a medium at spp 1 (the reference's multi_mass_scene),
-     FULL and NORMAL (per lane rtol 5e-4, atol 1e-5, equal int64 ray
-     counts, per-lane iteration sums and volume-event counts); then the Renderer
+     NORMAL; the looped sweeps: build_prim_grid(200), (1024) (a table past
+     48 KiB) and (3072) (past shared memory: read in global memory) at spp
+     2, max_bounces=4, seed 7, cloud_field at spp 2, max_bounces=4, seed
+     11, build_light_field(200) at spp 2, max_bounces=3, seed 5,
+     mass_cluster at spp 1, 4 and 16, max_bounces=2, seed 3, a 13-mass
+     ring at spp 2 and 12 masses inside a medium at spp 2 (the reference's
+     multi_mass_scene), FULL and NORMAL (per lane rtol 5e-4, atol 1e-5,
+     equal int64 ray counts and equal per-lane rays, iterations and
+     volume events; the looped-mass cases with 0 lanes past the lane cap);
+     blackhole, cloud, blackhole_cloud at spp 4, mass_cluster at spp 4 and
+     the medium case also with the table forced into global memory, and
+     the last two with one sample per chunk; then the Renderer
      against the cornell CPU golden at the same tolerance, and against the
      volume golden within the budget tests/test_torch_volume.py holds,
   4. the cornell main path: Renderer(cornell) at 256x256, 64 spp, 2x2
      subpixels, default Config, into a DeviceFilm — one warm-up pass, then
      4 chained timed passes (Mrays/s, seconds per pass, the surface kernel's
-     launch count); then the kernel alone, one kernel pass (lanes, launch,
-     subpixel sum) and one plain pass at the same geometry and seed, each
-     timed with CUDA events; the two passes are compared per pixel and by
-     ray count,
+     launch count); then the kernel alone and one kernel pass (lanes,
+     launch, subpixel sum), each the median and spread of 7 calls with
+     fresh seeds between their own CUDA events after 0.5 s of warm-up, and
+     one plain pass at the same geometry and seed; the two passes are
+     compared per pixel and by ray count,
   5. the blackhole main path (bench.py's blackhole_geodesic row):
      Renderer(blackhole, Config(max_bounces=2)) at 512x512, 32 spp, no
      subpixels, into a DeviceFilm — one warm-up pass, then 4 chained timed
      passes (the geodesic kernel's launch count); the geodesic kernel alone
-     (CUDA events, one warm-up, 10 calls), its per-lane loop-length spread
-     and rays per warp issue slot; then one kernel pass and one plain pass
-     at spp 4, compared per pixel and by ray count,
+     (as in phase 4), its per-lane loop-length spread and rays per warp
+     issue slot; then one kernel pass and one plain pass at spp 4,
+     compared per pixel and by ray count,
   6. the cloud main path (sparse 16^3 grid): Renderer(cloud) at 256x256,
      64 spp, 2x2 subpixels, default Config, as phase 4, through the volume
      kernel; the kernel alone with its loop-length spread, rays per warp
@@ -59,8 +66,12 @@ Phases, one line each (any failure exits non-zero):
      looped sweep with media): 256x256, 16 spp, Config(max_bounces=4),
      through the volume kernel, as phase 6,
  11. the mass_cluster main path (64 masses, the looped mass sweep): 256x256,
-     16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel, as
-     phase 5, with each lane's RK4 steps counted for the bound,
+     16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel (one
+     thread per (lane, sample)) and the fold kernel, as phase 5, with each
+     lane's RK4 steps counted for the bound; the per-item and per-lane
+     loop lengths and the slowest block over the mean block of both
+     designs (the same paths), and the fold kernel alone against its plain
+     version and torch.sum,
  12. the many-lights path (the looped light sweep): build_light_field(200)
      at 256x256, 16 spp, Config(max_bounces=3), through the surface kernel,
  13. the sharded pass (make_kernel_pass_sharded): (a) cornell at 256x256,
@@ -87,6 +98,7 @@ the whole run takes a few minutes, most of it the plain passes.
     python3 -c "import chip_smoke as c; c.run(phases=(2, 3))"   # a subset
 """
 
+import contextlib
 import json
 import os
 import re
@@ -94,7 +106,7 @@ import subprocess
 import sys
 import time
 
-from bendy_tpu_torch.tools import card, cuda_ms
+from bendy_tpu_torch.tools import card, cuda_ms, cuda_ms_median
 
 SCENES = ("cornell", "cornell2", "scene")
 GEO_SCENES = ("blackhole", "binary_blackhole")
@@ -104,6 +116,7 @@ RTOL, ATOL = 5e-4, 1e-5
 # rtol 1e-5 / atol 1e-6 (8 of 256 on the CPU; tests/test_torch_volume.py)
 VOLUME_GOLDEN_PIXELS_OFF = 16
 PLAIN_BUDGET_S = 60.0  # a plain pass slower than this is narrowed to a row band
+REPEATS = 7  # timed calls, each with a fresh seed, behind every kernel-alone median
 
 # H100 SXM datasheet peaks: HBM bytes/s, FP32 non-tensor FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -156,12 +169,13 @@ def ptxas_report(log: str) -> list[str]:
             frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
             p = re.search(r"(fp32_chain|bf16_dot_chain)_kernelILb(\d)E", name)
             label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)},"
-                     f"LOOPM={t.group(4)}>" if t else
+                     f"LOOPM={t.group(4)},GTAB={t.group(5)}>" if t else
                      f"{p.group(1)}_kernel<{('FMA', 'F32IN')[p.group(1) != 'fp32_chain']}="
-                     f"{p.group(2)}>" if p else name)
+                     f"{p.group(2)}>" if p else
+                     "fold_kernel" if "fold_kernel" in name else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
 
@@ -191,18 +205,28 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def warp_stats(rays, iters) -> str:
-    """Per-lane loop-length spread and rays per warp issue slot (the sum of
-    per-lane rays over 32 x the slowest lane's loop length per warp of 32
-    consecutive lanes)."""
+def warp_stats(rays, iters, what: str = "lane") -> str:
+    """Per-thread loop-length spread and rays per warp issue slot (the sum of
+    per-thread rays over 32 x the slowest thread's loop length per warp of
+    32 consecutive threads); a thread is a lane, or an item (lane, sample)
+    of a looped-mass launch."""
     import torch
 
     n = iters.numel() // 32 * 32
     slots = 32 * int(iters[:n].view(-1, 32).max(dim=1).values.sum(dtype=torch.int64))
     eff = int(rays[:n].sum(dtype=torch.int64)) / max(slots, 1)
     it = iters.double()
-    return (f"lane loop lengths min {int(iters.min())} mean {float(it.mean()):.1f} "
+    return (f"{what} loop lengths min {int(iters.min())} mean {float(it.mean()):.1f} "
             f"max {int(iters.max())}, rays per warp issue slot {eff:.3f}")
+
+
+def block_tail(iters, threads: int = 128) -> float:
+    """The slowest block's loop length over the mean block's, a block's
+    length being its slowest thread's (blocks of ``threads`` consecutive
+    threads)."""
+    n = iters.numel() // threads * threads
+    blocks = iters[:n].view(-1, threads).max(dim=1).values.double()
+    return float(blocks.max() / blocks.mean())
 
 
 def mass_ring(n_masses: int):
@@ -248,6 +272,8 @@ def scene_by_name(name: str):
     generated = {
         "prim_grid_200": lambda: bt.build_prim_grid(200),
         "prim_grid_256": lambda: bt.build_prim_grid(256),
+        "prim_grid_1024": lambda: bt.build_prim_grid(1024),  # table past 48 KiB
+        "prim_grid_3072": lambda: bt.build_prim_grid(3072),  # table past shared memory
         "light_field_200": lambda: bt.build_light_field(200),
         "mass_ring_13": lambda: mass_ring(13),
         "mass_ring_12_medium": lambda: mass_ring_medium(12),
@@ -268,8 +294,8 @@ def renderer(name: str, config, width: int, height: int, dev):
 
 def compare_lanes(tag: str, kern, plain, cfg) -> float:
     """Fail unless the kernel's TraceSums equal the plain version's per lane
-    (rtol/atol) with equal int64 ray counts and per-lane iteration sums;
-    returns the largest |diff|."""
+    (rtol/atol) with equal int64 ray counts and equal per-lane rays,
+    iterations and volume events; returns the largest |diff|."""
     import torch
 
     fields = [("radiance", "xyz")]
@@ -284,10 +310,12 @@ def compare_lanes(tag: str, kern, plain, cfg) -> float:
     rays_k, rays_p = int(kern.rays), int(plain.rays)
     iters_k, iters_p = int(kern.iters), int(plain.iters)
     vol_k, vol_p = int(kern.vol_events), int(plain.vol_events)
+    counts_off = sum(int((kern.lane_counts[k].long() != plain.lane_counts[k]).sum())
+                     for k in ("rays", "iters", "vol_events"))
     print(f"phase 3: {tag}: lanes off {bad}, max |diff| {err:.3e}, rays kernel {rays_k} "
           f"plain {rays_p}, lane iterations kernel {iters_k} plain {iters_p}, volume events "
-          f"kernel {vol_k} plain {vol_p}")
-    if (bad or rays_k != rays_p or iters_k != iters_p or vol_k != vol_p
+          f"kernel {vol_k} plain {vol_p}, per-lane counts off {counts_off}")
+    if (bad or counts_off or rays_k != rays_p or iters_k != iters_p or vol_k != vol_p
             or kern.rays.dtype != torch.int64):
         fail(f"kernel disagrees with plain on {tag}")
     return err
@@ -315,37 +343,69 @@ def golden_check(dev, name: str, pixels_off: int, rtol: float, atol: float) -> f
     return err
 
 
+GLOBAL_TABLE = {"MAX_TABLE_BYTES": 0}  # the GTAB instantiations on a small table
+ONE_SAMPLE_CHUNKS = {"SPLIT_BUDGET_BYTES": 1}  # a looped-mass launch, one sample per chunk
+
+
 def phase3_cases() -> list:
-    """(scene, spp, Config, seed) of every kernel-vs-plain case at 16x16."""
+    """(scene, spp, Config, seed, variants) of every kernel-vs-plain case at
+    16x16: the kernel runs as the wrapper chooses, then once more under
+    each variant's settings of ``ops/trace_kernel``, all against one plain
+    trace."""
     from bendy_tpu_torch import Config, GeoParams
 
-    cases = [(name, 4, Config(max_bounces=3), 7) for name in SCENES]
-    cases += [(name, spp, Config(max_bounces=2), 3) for name in GEO_SCENES for spp in (1, 4)]
-    cases += [(name, 2, Config(max_bounces=3), 11) for name in VOL_SCENES]
-    cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3)
-              for spp in (1, 4)]
-    cases += [("cloud", 2, Config(max_bounces=3, vol_sampling="nearest"), 11)]
-    # the looped sweeps: primitives, primitives with media, lights, masses
-    cases += [("prim_grid_200", 2, Config(max_bounces=4), 7),
-              ("cloud_field", 2, Config(max_bounces=4), 11),
-              ("light_field_200", 2, Config(max_bounces=3), 5)]
-    cases += [("mass_cluster", spp, Config(max_bounces=2), 3) for spp in (1, 4)]
-    cases += [("mass_ring_13", 2, Config(max_bounces=2, geo=GeoParams(max_steps=96)), 3),
-              ("mass_ring_12_medium", 1, Config(max_bounces=2, max_volume_bounces=8,
-                                                 geo=GeoParams(max_steps=64)), 21)]
+    cases = [(name, 4, Config(max_bounces=3), 7, ()) for name in SCENES]
+    cases += [(name, spp, Config(max_bounces=2), 3, (GLOBAL_TABLE,) * (spp == 4))
+              for name in GEO_SCENES for spp in (1, 4)]
+    cases += [(name, 2, Config(max_bounces=3), 11, (GLOBAL_TABLE,) * (name == "cloud"))
+              for name in VOL_SCENES]
+    cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3,
+               (GLOBAL_TABLE,) * (spp == 4)) for spp in (1, 4)]
+    cases += [("cloud", 2, Config(max_bounces=3, vol_sampling="nearest"), 11, ())]
+    # the looped sweeps: primitives (with tables past 48 KiB and past shared
+    # memory), primitives with media, lights, masses (split over samples,
+    # and in chunks of one sample)
+    cases += [("prim_grid_200", 2, Config(max_bounces=4), 7, ()),
+              ("prim_grid_1024", 2, Config(max_bounces=4), 7, ()),
+              ("prim_grid_3072", 2, Config(max_bounces=4), 7, ()),
+              ("cloud_field", 2, Config(max_bounces=4), 11, ()),
+              ("light_field_200", 2, Config(max_bounces=3), 5, ())]
+    cases += [("mass_cluster", spp, Config(max_bounces=2), 3,
+               (GLOBAL_TABLE, ONE_SAMPLE_CHUNKS) * (spp == 4)) for spp in (1, 4, 16)]
+    cases += [("mass_ring_13", 2, Config(max_bounces=2, geo=GeoParams(max_steps=96)), 3, ()),
+              ("mass_ring_12_medium", 2, Config(max_bounces=2, max_volume_bounces=8,
+                                                 geo=GeoParams(max_steps=64)), 21,
+               (GLOBAL_TABLE, ONE_SAMPLE_CHUNKS))]
     return cases
+
+
+@contextlib.contextmanager
+def trace_kernel_settings(settings: dict):
+    """``ops/trace_kernel``'s module settings as given, for one block."""
+    from bendy_tpu_torch.ops import trace_kernel
+
+    old = {k: getattr(trace_kernel, k) for k in settings}
+    for k, v in settings.items():
+        setattr(trace_kernel, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(trace_kernel, k, v)
 
 
 def kernel_vs_plain(dev, names=None) -> dict:
     """Phase 3 (the cases of ``names`` only, and no goldens, when given);
     returns the largest |diff| of each kernel against the plain version,
-    keyed by its wrapper's name."""
+    keyed by its wrapper's name. Every looped-mass case also holds the
+    over-cap count (csrc/trace_surface.cu, "The cap") at 0."""
     import torch
 
     from dataclasses import replace
 
     from bendy_tpu_torch import Output
-    from bendy_tpu_torch.ops.trace_kernel import make_tracer
+    from bendy_tpu_torch.ops import trace_kernel
+    from bendy_tpu_torch.ops.trace_kernel import make_tracer, over_cap_lanes, split_samples
     from bendy_tpu_torch.ops.wavefront import trace_core
     from bendy_tpu_torch.utils.rng import render_key
 
@@ -353,7 +413,7 @@ def kernel_vs_plain(dev, names=None) -> dict:
     pix = torch.arange(W * H, dtype=torch.int32, device=dev)
     sub = torch.zeros(W * H, dtype=torch.int32, device=dev)
     worst = {"trace_surface": 0.0, "trace_geodesic": 0.0, "trace_volume": 0.0}
-    for name, spp, config, seed in phase3_cases():
+    for name, spp, config, seed, variants in phase3_cases():
         if names is not None and name not in names:
             continue
         for output in (Output.FULL, Output.NORMAL):
@@ -361,18 +421,33 @@ def kernel_vs_plain(dev, names=None) -> dict:
             cfg = r.trace_config(r.config, cam)
             params = r.camera_params(cam)
             t0 = time.perf_counter()
-            kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix, sub)
             plain = trace_core(r.arrays, params, render_key(seed, 0), pix, sub, W, H, spp, 1, cfg)
-            torch.cuda.synchronize()
-            loops = [f for f in ("looped_sweep", "looped_lights", "looped_masses")
-                     if getattr(cfg, f)]
-            tag = (f"{name} spp {spp} {output.value}" + (" nearest" if cfg.vol_nearest else "")
-                   + "".join(f" {f}" for f in loops)
-                   + f" ({time.perf_counter() - t0:.1f} s)")
-            err = compare_lanes(tag, kern, plain, cfg)
-            kind = ("trace_volume" if cfg.has_volumes else
-                    "trace_geodesic" if cfg.geodesic else "trace_surface")
-            worst[kind] = max(worst[kind], err)
+            plain_s = time.perf_counter() - t0
+            table_bytes = trace_kernel.scene_table(r.arrays.host_copy())[0].nbytes
+            for settings in ({}, *variants):
+                with trace_kernel_settings(settings):
+                    over_cap_lanes(dev).zero_()
+                    kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix,
+                                                                     sub)
+                    torch.cuda.synchronize()
+                    over = int(over_cap_lanes(dev))
+                    gtab = trace_kernel.table_in_global(table_bytes)
+                    chunks = -(-spp // split_samples(W * H, spp, 10 if cfg.want_aovs else 3))
+                loops = [f for f in ("looped_sweep", "looped_lights", "looped_masses")
+                         if getattr(cfg, f)]
+                tag = (f"{name} spp {spp} {output.value}"
+                       + (" nearest" if cfg.vol_nearest else "")
+                       + "".join(f" {f}" for f in loops)
+                       + f", table {table_bytes} B in {'global' if gtab else 'shared'} memory"
+                       + (f", {chunks} chunk(s), over-cap lanes {over}"
+                          if cfg.looped_masses else "")
+                       + f" (plain {plain_s:.1f} s)")
+                err = compare_lanes(tag, kern, plain, cfg)
+                if over:
+                    fail(f"{over} lanes of {tag} passed the lane cap")
+                kind = ("trace_volume" if cfg.has_volumes else
+                        "trace_geodesic" if cfg.geodesic else "trace_surface")
+                worst[kind] = max(worst[kind], err)
     if names is None:
         worst["trace_surface"] = max(worst["trace_surface"],
                                      golden_check(dev, "cornell", 0, RTOL, ATOL))
@@ -384,45 +459,54 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
               launch) -> dict:
     """Drive one main path: a warm-up pass, then 4 chained passes into a
     DeviceFilm with every launch count set to 0 just before them; fails
-    unless ``launch`` (the path's kernel wrapper) ran once per pass."""
+    unless ``launch`` (the path's kernel wrapper) ran once per pass, and on
+    a looped-mass path the fold kernel too."""
     import numpy as np
 
     from bendy_tpu_torch import DeviceFilm, RenderConfig, Subsample
-    from bendy_tpu_torch.ops.trace_kernel import trace_geodesic, trace_surface, trace_volume
+    from bendy_tpu_torch.ops.trace_kernel import fold_samples
 
     r, cam = renderer(name, config, W, H, dev)
+    cfg = r.trace_config(r.config, cam)
     rc = RenderConfig(samples=spp, subsample=Subsample(n))
     seed = int.from_bytes(os.urandom(4), "little")
     film = DeviceFilm(W, H, device=dev)
     r.render(cam, rc, film, seed=seed)  # warm-up (and first-use build)
     film.synchronize()
     rays0 = r.rays_traced
-    trace_surface.launches = trace_geodesic.launches = trace_volume.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(4):
         r.render(cam, rc, film, seed=seed)
     film.synchronize()
     dt = time.perf_counter() - t0
-    launches = launch.launches
+    launches, folds = launch.launches, fold_samples.launches
     rays = r.rays_traced - rays0
     mean = film.mean()
     print(f"phase {phase}: main path {name} {W}x{H} {spp} spp {n}x{n}: 4 passes in {dt:.4f} s, "
           f"{dt / 4:.4f} s/pass, {rays} rays ({rays // 4} per pass), "
-          f"{rays / dt / 1e6:.1f} Mrays/s, {launch.__name__} launches {launches}")
+          f"{rays / dt / 1e6:.1f} Mrays/s, {launch.__name__} launches {launches}, "
+          f"fold_samples launches {folds}")
     if launches != 4:
         fail(f"main path launched {launch.__name__} {launches} times, expected 4")
+    if cfg.geodesic and cfg.looped_masses and folds < 4:
+        fail(f"the looped-mass main path launched fold_samples {folds} times, expected 4")
     if not (np.isfinite(mean).all() and mean.shape == (H, W, 3) and mean.mean() > 0):
         fail(f"{name} main-path film is not finite and non-zero")
-    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, launches=launches)
+    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, launches=launches, folds=folds)
 
 
 def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: int,
                             pass_spp: int, plain_rows: int, launch, dev) -> dict:
-    """Time the kernel alone at the main-path shape (CUDA events, 10 calls
+    """Time the kernel alone at the main-path shape (the median and spread
+    of REPEATS calls, each between its own CUDA events with a fresh seed,
     after at least 0.5 s of warm-up calls; the SM clock and power read
-    after them), then one kernel pass and one plain pass at
-    ``pass_spp`` over the first ``plain_rows`` rows, compared per pixel and
-    by ray count. Returns the timings, the bound and the largest |diff|."""
+    after them), then one kernel pass (timed the same way) and one plain
+    pass at ``pass_spp`` over the first ``plain_rows`` rows, compared per
+    pixel and by ray count. A looped-mass path also prints its per-item
+    and per-lane loop lengths and block tails, and times the fold kernel
+    alone (:func:`fold_alone`). Returns the timings, the bound and the
+    largest |diff|."""
     import torch
 
     from bendy_tpu_torch.ops.trace_kernel import make_render_pass, pass_lanes, scene_table
@@ -443,9 +527,14 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     extra = {}
     if looped_masses:  # each lane's RK4 steps, for the bound
         extra["near_steps"] = torch.empty(pix.numel(), dtype=torch.int32, device=dev)
-    res, kernel_ms = cuda_ms(lambda: launch(
-        *lanes, width=W, height=H, spp=spp, spp_total=spp, subsample=n,
-        key=render_key(seed, 0), sample0=0, cfg=cfg, **extra), 10, 1, warm_s=0.5)
+
+    keys = [render_key(seed + i, 0) for i in range(REPEATS + 1)]  # host work, not timed
+
+    def call(i, **more):
+        return launch(*lanes, width=W, height=H, spp=spp, spp_total=spp, subsample=n,
+                      key=keys[i], sample0=0, cfg=cfg, **extra, **more)
+
+    res, kernel_ms, kernel_lo, kernel_hi = cuda_ms_median(call, REPEATS)
     clock = sm_clock()
     rays, iters = res[1], res[2]
     n_rays = int(rays.sum(dtype=torch.int64))
@@ -455,11 +544,27 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
                                      0 if grid is None else grid.numel(), n_rk4)
     march = f", march share {n_vol / n_rays:.4f} ({n_vol} volume events)" if grid is not None else ""
     rk4 = f", {n_rk4} RK4 steps ({n_rk4 / n_rays:.4f} per ray)" if looped_masses else ""
-    print(f"phase {phase}: {launch.__name__} alone {kernel_ms:.3f} ms per launch at {W}x{H} "
-          f"{spp} spp, {n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}); "
+    print(f"phase {phase}: {launch.__name__} alone median {kernel_ms:.3f} ms per launch (min "
+          f"{kernel_lo:.3f}, max {kernel_hi:.3f}, {REPEATS} seeds) at {W}x{H} {spp} spp, "
+          f"{n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}); "
           f"{warp_stats(rays, iters)}{march}{rk4}; SM clock, power after it {clock}")
+    fold = None
+    if looped_masses:
+        item_counts = torch.empty((4, pix.numel(), spp), dtype=torch.int32, device=dev)
+        call(REPEATS, item_counts=item_counts)
+        item_rays, item_iters = item_counts[0].reshape(-1), item_counts[1].reshape(-1)
+        lane_iters = item_counts[1].sum(dim=1, dtype=torch.int32)
+        print(f"phase {phase}: one thread per (lane, sample): "
+              f"{warp_stats(item_rays, item_iters, 'item')}, slowest block over the mean block "
+              f"{block_tail(item_iters):.3f}; one thread per lane (the parent design, the same "
+              f"paths): {warp_stats(item_counts[0].sum(dim=1), lane_iters)}, slowest block over "
+              f"the mean block {block_tail(lane_iters):.3f}")
+        fold = fold_alone(phase, pix.numel(), spp, 10 if cfg.want_aovs else 3, cfg.max_iters(spp),
+                          dev)
     kern_pass = make_render_pass(r.arrays, W, H, plain_rows, pass_spp, n, cfg, "full")
-    (k_sums, k_rays), pass_ms = cuda_ms(lambda: kern_pass(r._cam_packed, seed, 0, 0), 10, 1)
+    (k_sums, k_rays), pass_ms, _, _ = cuda_ms_median(
+        lambda i: kern_pass(r._cam_packed, seed + i, 0, 0), REPEATS)
+    (k_sums, k_rays) = kern_pass(r._cam_packed, seed, 0, 0)
     (p_sums, p_rays), plain_ms = cuda_ms(
         lambda: render_pass(r.arrays, r.camera_params(cam), seed, 0, 0, W, H, plain_rows,
                             pass_spp, n, cfg, "full"))
@@ -478,9 +583,53 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     if plain_ms > PLAIN_BUDGET_S * 1e3:
         print(f"phase {phase}: the plain pass took over {PLAIN_BUDGET_S:.0f} s: narrow "
               "its row band")
-    return dict(kernel_ms=kernel_ms, pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err,
-                bound_ms=bound_ms, bound_by=bound_by, rays=n_rays, vol_events=n_vol,
-                rk4_steps=n_rk4, pass_spp=pass_spp)
+    return dict(kernel_ms=kernel_ms, kernel_ms_min=kernel_lo, kernel_ms_max=kernel_hi,
+                pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err, bound_ms=bound_ms,
+                bound_by=bound_by, rays=n_rays, vol_events=n_vol, rk4_steps=n_rk4,
+                pass_spp=pass_spp, fold=fold)
+
+
+def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> dict:
+    """The fold kernel alone at a main path's shape: ``lanes`` x ``spp``
+    items of seeded random words (the fold's work does not depend on
+    them), held bit for bit to its plain version (``fold_samples_plain``);
+    the median and spread of REPEATS launches, the plain version's time,
+    and one PyTorch sum over the samples (``torch.sum``, which does not
+    promise the order) as the library yardstick. The bound is bytes: every
+    item word read once, every lane word written once."""
+    import torch
+
+    from bendy_tpu_torch.ops.trace_kernel import N_COUNTS, fold_samples, fold_samples_plain
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    items = lanes * spp
+    samp = torch.randn((n_out, items), generator=g, device=dev) * 10.0 ** torch.randint(
+        -6, 6, (n_out, items), generator=g, device=dev)
+    cnt = torch.randint(0, 300, (N_COUNTS, items), generator=g, device=dev, dtype=torch.int32)
+
+    def outputs():
+        return (torch.empty((n_out, lanes), device=dev),
+                *torch.empty((2, lanes), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    got, want = outputs(), outputs()
+    fold_samples(samp, cnt, spp, *got[:3], max_iters=cap, over_cap=got[3])
+    _, plain_ms = cuda_ms(lambda: fold_samples_plain(samp, cnt, spp, *want[:3], max_iters=cap,
+                                                     over_cap=want[3]))
+    equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+    err = float((got[0] - want[0]).abs().max())
+    _, ms, lo, hi = cuda_ms_median(lambda i: fold_samples(samp, cnt, spp, *got[:3]), REPEATS)
+    _, library_ms = cuda_ms(lambda: samp.view(n_out, lanes, spp).sum(dim=2), 10, 1)
+    nbytes = 4 * (n_out + 2) * (items + lanes)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"phase {phase}: fold_samples alone median {ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) at "
+          f"{lanes} lanes x {spp} samples, {n_out} sums and 2 counts (bound {bound_ms:.4f} ms by "
+          f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), plain "
+          f"{plain_ms:.3f} ms, torch.sum over the samples {library_ms:.4f} ms")
+    if not equal:
+        fail("fold_samples disagrees with its plain version")
+    return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms, max_err=err, bound_ms=bound_ms,
+                library_ms=library_ms)
 
 
 # (phase, scene, Config kwargs, width, height, spp, subsample, wrapper name,
@@ -526,7 +675,7 @@ def reset_launches() -> None:
     from bendy_tpu_torch.tools import mxu_shape_probe, vpu_peak
 
     for fn in (trace_kernel.trace_surface, trace_kernel.trace_geodesic,
-               trace_kernel.trace_volume, mesh.make_kernel_pass_sharded,
+               trace_kernel.trace_volume, trace_kernel.fold_samples, mesh.make_kernel_pass_sharded,
                vpu_peak.fp32_chain, mxu_shape_probe.bf16_dot_chain):
         fn.launches = 0
 
@@ -927,6 +1076,7 @@ def run(phases=None, phase3_names=None) -> int:
         launch = getattr(trace_kernel, wrapper)
         path = main_path(phase, name, Config(**kw), W, H, spp, n, dev, launch)
         k = kernel_alone_and_passes(phase, path, W, H, spp, n, pass_spp, rows, launch, dev)
+        label = f"{name} {W}x{H} {spp}spp" + (f" {n}x{n}" if n > 1 else "")
         kernels.append({
             "name": wrapper,
             "route": "cuda",
@@ -939,7 +1089,9 @@ def run(phases=None, phase3_names=None) -> int:
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": None,
-            "path": f"{name} {W}x{H} {spp}spp" + (f" {n}x{n}" if n > 1 else ""),
+            "path": label,
+            "ms_min": k["kernel_ms_min"],  # ms is the median of REPEATS seeds
+            "ms_max": k["kernel_ms_max"],
             "pass_ms": k["pass_ms"],
             "pass_spp": k["pass_spp"],  # pass_ms, plain_ms and max_abs_err
             "plain_rows": rows,
@@ -950,6 +1102,17 @@ def run(phases=None, phase3_names=None) -> int:
             "mrays_per_s": path["rays"] / path["dt"] / 1e6,
             "s_per_pass": path["dt"] / 4,
         })
+        if k["fold"] is not None:
+            f = k["fold"]
+            kernels.append({
+                "name": "fold_samples", "route": "cuda",
+                "source": "bendy_tpu_torch/csrc/trace_surface.cu",
+                "replaces": f"{replaces}: the ordered fold of its split over samples",
+                "launches": path["folds"], "max_abs_err": f["max_err"], "ms": f["ms"],
+                "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": "bytes",
+                "library_ms": f["library_ms"], "library_form": "torch.sum over the samples",
+                "path": label, "ms_min": f["ms_min"], "ms_max": f["ms_max"],
+            })
 
     if phases is None or 13 in phases:
         s = sharded_pass(dev)
