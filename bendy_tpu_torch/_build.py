@@ -40,7 +40,7 @@ _TRACE_ARGS = [
     c_void_p, c_int, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
     c_int, c_int, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_uint,
     c_int, c_int, c_float, c_float, c_int, c_int, c_int, c_int, c_int, c_int,
-    c_int,
+    c_int, c_int, c_void_p,  # ... want_aovs, bvh0, bvh_tests
 ]
 SIGNATURES = {
     "bendy_trace_surface": (_TRACE_ARGS + [c_void_p], c_int),

@@ -18,15 +18,20 @@
 //     volume_shade (:489-520) and the march mode of trace_core
 //     (wavefront.py:544-548, 593-604, 697-746); with GEO, geodesics inside
 //     media (wavefront.py:559-572, 589, 738-739);
-//   - the looped table sweeps (1e), in every entry point: the primitive
-//     sweep (1e-i: bendy_tpu/ops/intersect.py::nearest_hit_looped :740 over
-//     prim_tables :495) and the light sweep (1e-ii: ops/materials.py::
-//     sample_light_point_looped :132, intersect.py::light_pdf_looped :1183)
-//     are the same run-time loops over the shared-memory table that every
-//     instantiation runs (nearest_hit, sample_light_point, light_pdf below):
-//     the TPU needs a looped form because an XLA unroll's compile time
-//     grows with the count and Mosaic indexes only SMEM by a traced row,
-//     and the reference proves its two forms equal. The looped mass sweep
+//   - the looped table sweeps (1e), in every entry point: the light sweep
+//     (1e-ii: ops/materials.py::sample_light_point_looped :132,
+//     intersect.py::light_pdf_looped :1183) is the same run-time loop over
+//     the shared-memory table that every instantiation runs
+//     (sample_light_point, light_pdf below): the TPU needs a looped form
+//     because an XLA unroll's compile time grows with the count and Mosaic
+//     indexes only SMEM by a traced row, and the reference proves its two
+//     forms equal. The primitive sweep (1e-i: bendy_tpu/ops/intersect.py::
+//     nearest_hit_looped :740 over prim_tables :495) is the run-time loop of
+//     nearest_hit below in small scenes; past render.LOOP_SWEEP_THRESHOLD
+//     primitives without geodesics the BVH instantiations (FLAG_BVH, in
+//     bendy_trace_surface and bendy_trace_volume) walk a tree of boxes over
+//     the primitives instead (nearest_hit_bvh, ops/bvh.py), with the
+//     sweep's winner bit for bit. The looped mass sweep
 //     (1e-iii: bendy_tpu/geodesic.py::geo_step_begin_looped :236,
 //     _acc_looped :309, rk4_step_looped :349 over mass_table :196) computes
 //     another discretization, so it is an instantiation of its own: LOOPM
@@ -250,8 +255,18 @@ constexpr int FACE_FRONT = 0, FACE_BACK = 1, FACE_VOLUME = 2, FACE_VOLUME_FRONT 
               FACE_VOLUME_BACK = 4;
 
 constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
-              FLAG_GEO = 32, FLAG_LOOPM = 64, FLAG_GTAB = 128;
+              FLAG_GEO = 32, FLAG_LOOPM = 64, FLAG_GTAB = 128, FLAG_BVH = 256;
 constexpr int N_COUNTS = 4;  // per-item counts of a LOOPM launch: rays, iters, vevents, near_steps
+
+// the BVH node block (ops/bvh.py::build_bvh): a header, 8 floats per node,
+// then the keys; the walk's stack of uint16 node indices in shared memory,
+// BVH_STACK per thread, thread-major within a level (no bank conflicts)
+constexpr int BVH_HEAD = 16, BVH_NODE = 8, BVH_STACK = 16, BVH_THREADS = 128;
+constexpr int H_NODES = 0, H_ALWAYS = 1, H_SPH = 2, H_RMAX = 3, H_KRB = 4, H_CABS = 5, H_MAG = 6,
+              H_RT = 7, H_CENTER = 8;
+constexpr size_t BVH_STACK_BYTES = sizeof(uint16_t) * BVH_STACK * BVH_THREADS;
+constexpr float BVH_S0 = (float)1.2e-5, BVH_E4U = (float)(4.0 / 16777216.0);
+constexpr float BVH_S_MAX = (float)0.01, BVH_T_GROWTH = (float)1.02;
 
 constexpr uint32_t CAMERA_TAG = 0x100000u;
 constexpr float INF = std::numeric_limits<float>::infinity();
@@ -297,6 +312,8 @@ struct Params {
   float volume_step;
   int max_volume_bounces, nearest;
   int32_t* near_steps;                           // LOOPM only, optional: RK4 steps per item
+  int bvh0;                                      // BVH only: the node block's offset in the table
+  int32_t* bvh_tests;                            // BVH only, optional: [2, n] node, prim tests
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -520,57 +537,12 @@ __device__ __forceinline__ bool ends_inside(V3 org, V3 dir, float cmax, const fl
   return dot(e, e) <= row[3] * row[3];
 }
 
-// nearest hit over spheres, traced rects, then boxes; a later primitive wins
-// only on a strictly smaller t (ops/intersect.py::nearest_hit + _manifold).
-// VOL: a marching lane's last sphere reports an interior VOLUME pseudo-hit
-// at t = cmax while the step's end point is still inside it; every volume
-// addition sits in an `if constexpr (VOL)` block, so the other
-// instantiations compile as before media existed.
+// the Hit of a winner (`win`, a row of kind 0 sphere, 1 rect, 2 box, or
+// nullptr on a miss), with the rect / box manifold carries c_p, c_zb
 template <bool VOL>
-__device__ __forceinline__ HitT<VOL> nearest_hit(const float* tab, int n_sph, int n_rct,
-                                                 int n_box, float cmin, float cmax, V3 org,
-                                                 V3 dir, bool march, int last_sph) {
-  float t_best = INF;
-  const float* win = nullptr;
-  int kind = 0;  // 0 sphere, 1 rect, 2 box
-  float c_p = 0.0f;
-  V3 c_zb = {0.0f, 0.0f, 0.0f};
-  const float* row = tab;
-  for (int k = 0; k < n_sph; ++k, row += SPH_COLS) {
-    float t = sphere_t(org, dir, cmin, cmax, ld3(row), row[3]);
-    if constexpr (VOL) {
-      if (march && k == last_sph && ends_inside(org, dir, cmax, row)) t = cmax;
-    }
-    if (t < t_best) {
-      t_best = t;
-      win = row;
-      kind = 0;
-    }
-  }
-  for (int k = 0; k < n_rct; ++k, row += RCT_COLS) {
-    float p;
-    float t = rect_t(org, dir, cmin, cmax, ld3(row), ld3(row + 3), ld3(row + 6), ld3(row + 9),
-                     row[12], row[13], p);
-    if (t < t_best) {
-      t_best = t;
-      win = row;
-      kind = 1;
-      c_p = p;
-      c_zb = ld3(row + 9);
-    }
-  }
-  for (int k = 0; k < n_box; ++k, row += BOX_COLS) {
-    float p_sign;
-    V3 zb_like;
-    float t = box_t(org, dir, cmin, cmax, row, p_sign, zb_like);
-    if (t < t_best) {
-      t_best = t;
-      win = row;
-      kind = 2;
-      c_p = p_sign;
-      c_zb = zb_like;
-    }
-  }
+__device__ __forceinline__ HitT<VOL> hit_record(const float* tab, float t_best, const float* win,
+                                                int kind, float c_p, V3 c_zb, float cmax, V3 org,
+                                                V3 dir, bool march, int last_sph) {
   HitT<VOL> h;
   h.t = t_best;
   h.face = -1;
@@ -620,6 +592,283 @@ __device__ __forceinline__ HitT<VOL> nearest_hit(const float* tab, int n_sph, in
     if constexpr (VOL) h.vgrid = -1;
   }
   return h;
+}
+
+// ---- the BVH walk (ops/bvh.py) -------------------------------------------
+//
+// The BVH instantiations (FLAG_BVH: the looped-sweep scenes, past
+// render.LOOP_SWEEP_THRESHOLD primitives, without geodesics) find the
+// sweep's nearest hit by walking a tree of boxes over the primitives
+// instead of testing every row. The sweep keeps the first row with the
+// smallest t: the lexicographic least (t, key) over all primitives, key =
+// sphere row, then n_sph + rect row, then n_sph + n_rct + box row. The walk
+// tests each primitive it reaches with the same sphere_t / rect_t / box_t
+// and the lane's own clip and keeps the least (t, key), which does not
+// depend on the order of the tests, so it finds the same winner with the
+// same t bit for bit provided it skips only subtrees that hold no candidate.
+// A node is skipped when its box, padded by the per-ray distance of
+// ops/bvh.py (an error bound of the f32 tests: a sphere test reports points
+// up to ~sqrt(|dir|² - 1)·t outside the sphere, since the half-b quadratic
+// assumes a unit direction), misses [cmin, min(cmax, t_best)].
+//
+// What bounds it on this card: the latency of the dependent node loads and
+// the stack, and divergence between lanes whose walks differ in length.
+// The design tests both children of an inner node at once (two independent
+// box tests), goes on to the one the segment enters first and pushes the
+// other, so t_best shrinks early and far subtrees are culled, never pushes
+// a child the segment misses, tests a popped node's box again against the
+// shrunk t_best, and keeps the stack in shared memory (uint16 node
+// indices, BVH_STACK per thread), not in a local array that would spill.
+
+// a node's padding in t along each axis for a search up to tlim
+// (ops/bvh.py::pad_for)
+struct BvhPad {
+  float x, y, z;
+};
+
+__device__ __forceinline__ BvhPad bvh_pad(V3 inv, float pad0, float pad1, float t_a, float tlim) {
+  const float pad = pad0 + pad1 * fminf(tlim, t_a);
+  return {pad * fabsf(inv.x), pad * fabsf(inv.y), pad * fabsf(inv.z)};
+}
+
+// whether the segment [cmin, tlim] meets node `nd`'s box padded by tp, its
+// entry t and the node's last two words (ops/bvh.py::node_visit)
+__device__ __forceinline__ bool bvh_node(const float* nd, V3 org, V3 inv, BvhPad tp, float cmin,
+                                         float tlim, float& tn, float& z, float& w) {
+  const float4 a = *reinterpret_cast<const float4*>(nd);
+  const float4 b = *reinterpret_cast<const float4*>(nd + 4);
+  const float t0x = (a.x - org.x) * inv.x, t1x = (a.w - org.x) * inv.x;
+  const float t0y = (a.y - org.y) * inv.y, t1y = (b.x - org.y) * inv.y;
+  const float t0z = (a.z - org.z) * inv.z, t1z = (b.y - org.z) * inv.z;
+  tn = fmaxf(fmaxf(fminf(t0x, t1x) - tp.x, fminf(t0y, t1y) - tp.y), fminf(t0z, t1z) - tp.z);
+  const float tf = fminf(fminf(fmaxf(t0x, t1x) + tp.x, fmaxf(t0y, t1y) + tp.y),
+                         fmaxf(t0z, t1z) + tp.z);
+  z = b.z;
+  w = b.w;
+  return !(tn > fminf(tf, tlim) || tf < cmin);
+}
+
+// primitive `key`'s t with the lane's clip, and the rect / box manifold
+// carries (ops/bvh.py::_prim_t)
+__device__ __forceinline__ float bvh_prim_t(const float* tab, int n_sph, int n_rct, int key, V3 org,
+                                            V3 dir, float cmin, float cmax, float& p, V3& zb,
+                                            const float*& row, int& kind) {
+  if (key < n_sph) {
+    row = tab + key * SPH_COLS;
+    kind = 0;
+    return sphere_t(org, dir, cmin, cmax, ld3(row), row[3]);
+  }
+  if (key < n_sph + n_rct) {
+    row = tab + n_sph * SPH_COLS + (key - n_sph) * RCT_COLS;
+    kind = 1;
+    zb = ld3(row + 9);
+    return rect_t(org, dir, cmin, cmax, ld3(row), ld3(row + 3), ld3(row + 6), zb, row[12],
+                  row[13], p);
+  }
+  row = tab + n_sph * SPH_COLS + n_rct * RCT_COLS + (key - n_sph - n_rct) * BOX_COLS;
+  kind = 2;
+  return box_t(org, dir, cmin, cmax, row, p, zb);
+}
+
+// nearest_hit by the walk: the march pseudo-hit of the lane's last sphere
+// first (outside any culling; that sphere is skipped where the walk meets
+// it), then the always-tested keys, then the tree.
+// Counts the node boxes and primitives tested (the winner's manifold, one
+// more primitive test, not counted).
+template <bool VOL>
+__device__ __forceinline__ HitT<VOL> nearest_hit_bvh(const float* tab, int n_sph, int n_rct,
+                                                     const float* bvh, uint16_t* stack,
+                                                     float cmin, float cmax, V3 org, V3 dir,
+                                                     bool march, int last_sph, int& node_tests,
+                                                     int& prim_tests) {
+  const int n_node = (int)bvh[H_NODES], n_always = (int)bvh[H_ALWAYS];
+  const float* nodes = bvh + BVH_HEAD;
+  const float* keys = nodes + BVH_NODE * n_node;
+  float t_best = INF;
+  int k_best = -1;
+  auto consider = [&](int key) {
+    float p;
+    V3 zb;
+    const float* row;
+    int kind;
+    const float t = bvh_prim_t(tab, n_sph, n_rct, key, org, dir, cmin, cmax, p, zb, row, kind);
+    if (t < t_best || (t == t_best && key < k_best)) {
+      t_best = t;
+      k_best = key;
+    }
+  };
+  bool skip_last = false;  // a marching lane's last sphere is tested here only
+  if constexpr (VOL) {
+    if (march && last_sph >= 0) {
+      skip_last = true;
+      const float* row = tab + last_sph * SPH_COLS;
+      float t = sphere_t(org, dir, cmin, cmax, ld3(row), row[3]);
+      if (ends_inside(org, dir, cmax, row)) t = cmax;
+      ++prim_tests;
+      if (t < t_best || (t == t_best && last_sph < k_best)) {
+        t_best = t;
+        k_best = last_sph;
+      }
+    }
+  }
+  for (int i = 0; i < n_always; ++i) {
+    const int key = (int)keys[i];
+    if (skip_last && key == last_sph) continue;
+    ++prim_tests;
+    consider(key);
+  }
+  if (n_node > 0) {
+    // per-ray constants (ops/bvh.py::ray_setup)
+    const V3 inv = {1.0f / dir.x, 1.0f / dir.y, 1.0f / dir.z};
+    const float dd = dot(dir, dir);
+    const float s =
+        bvh[H_SPH] != 0.0f ? sqrtf(BVH_S0 + (fabsf(dd - 1.0f) + BVH_E4U) * 3.0f) : 0.0f;
+    const float absorg = (fabsf(org.x) + fabsf(org.y)) + fabsf(org.z);
+    const float dist = (fabsf(org.x - bvh[H_CENTER]) + fabsf(org.y - bvh[H_CENTER + 1])) +
+                       fabsf(org.z - bvh[H_CENTER + 2]);
+    const float q = bvh[H_CABS] * (absorg + bvh[H_MAG]);
+    const float pad0 = s * bvh[H_RMAX] + q;
+    const float pad1 = s + bvh[H_KRB];
+    const float t_a = s <= BVH_S_MAX ? (dist + (bvh[H_RT] + q)) * BVH_T_GROWTH : INF;
+    BvhPad tp = bvh_pad(inv, pad0, pad1, t_a, fminf(cmax, t_best));
+    // the current node (one whose box the segment meets) and its last two
+    // words: an inner node's right child and -1, a leaf's first key and
+    // count
+    int node = 0, sp = 0;
+    float tn, cur_z, cur_w;
+    ++node_tests;
+    bool at = bvh_node(nodes, org, inv, tp, cmin, fminf(cmax, t_best), tn, cur_z, cur_w);
+    while (at) {
+      if (cur_w > 0.0f) {  // a leaf: keys [first, first + count)
+        const int first = (int)cur_z, count = (int)cur_w;
+        const float before = t_best;
+        for (int j = 0; j < count; ++j) {
+          const int key = (int)keys[first + j];
+          if (skip_last && key == last_sph) continue;
+          ++prim_tests;
+          consider(key);
+        }
+        if (t_best != before) tp = bvh_pad(inv, pad0, pad1, t_a, fminf(cmax, t_best));
+      } else {  // inner: both children's boxes, the one entered first visited first
+        const int left = node + 1, right = (int)cur_z;
+        const float tlim = fminf(cmax, t_best);
+        float tn_l, tn_r, z_l, w_l, z_r, w_r;
+        const bool v_l =
+            bvh_node(nodes + BVH_NODE * left, org, inv, tp, cmin, tlim, tn_l, z_l, w_l);
+        const bool v_r =
+            bvh_node(nodes + BVH_NODE * right, org, inv, tp, cmin, tlim, tn_r, z_r, w_r);
+        node_tests += 2;
+        if (v_l || v_r) {
+          const bool l_first = tn_l <= tn_r;
+          if (v_l && v_r) stack[BVH_THREADS * sp++] = (uint16_t)(l_first ? right : left);
+          const bool go_l = v_l && (!v_r || l_first);
+          node = go_l ? left : right;
+          cur_z = go_l ? z_l : z_r;
+          cur_w = go_l ? w_l : w_r;
+          continue;
+        }
+      }
+      // pop until a node's box still meets the segment: t_best may have
+      // shrunk since it was pushed
+      at = false;
+      while (sp > 0) {
+        node = stack[BVH_THREADS * --sp];
+        ++node_tests;
+        if (bvh_node(nodes + BVH_NODE * node, org, inv, tp, cmin, fminf(cmax, t_best), tn, cur_z,
+                     cur_w)) {
+          at = true;
+          break;
+        }
+      }
+    }
+  }
+  const float* win = nullptr;
+  int kind = 0;
+  float c_p = 0.0f;
+  V3 c_zb = {0.0f, 0.0f, 0.0f};
+  if (k_best >= 0) {
+    float p;
+    V3 zb;
+    bvh_prim_t(tab, n_sph, n_rct, k_best, org, dir, cmin, cmax, p, zb, win, kind);
+    if (kind != 0) {
+      c_p = p;
+      c_zb = zb;
+    }
+  }
+  return hit_record<VOL>(tab, t_best, win, kind, c_p, c_zb, cmax, org, dir, march, last_sph);
+}
+
+// the BVH instantiations' walk state, an empty struct in the others (their
+// nearest_hit then compiles to the same code as before the BVH existed:
+// ptxas reports the same registers): the node block, the thread's stack,
+// and its counts of node and primitive tests
+template <bool BVH>
+struct BvhState {};
+template <>
+struct BvhState<true> {
+  const float* bvh = nullptr;
+  uint16_t* stack = nullptr;
+  int node_tests = 0, prim_tests = 0;
+};
+
+// nearest hit over spheres, traced rects, then boxes; a later primitive wins
+// only on a strictly smaller t (ops/intersect.py::nearest_hit + _manifold).
+// VOL: a marching lane's last sphere reports an interior VOLUME pseudo-hit
+// at t = cmax while the step's end point is still inside it; every volume
+// addition sits in an `if constexpr (VOL)` block, so the other
+// instantiations compile as before media existed. BVH: the walk instead
+// (nearest_hit_bvh), with the same winner.
+template <bool VOL, bool BVH = false>
+__device__ __forceinline__ HitT<VOL> nearest_hit(const float* tab, int n_sph, int n_rct,
+                                                 int n_box, float cmin, float cmax, V3 org,
+                                                 V3 dir, bool march, int last_sph,
+                                                 BvhState<BVH>& walk) {
+  if constexpr (BVH) {
+    return nearest_hit_bvh<VOL>(tab, n_sph, n_rct, walk.bvh, walk.stack, cmin, cmax, org, dir,
+                                march, last_sph, walk.node_tests, walk.prim_tests);
+  }
+  float t_best = INF;
+  const float* win = nullptr;
+  int kind = 0;  // 0 sphere, 1 rect, 2 box
+  float c_p = 0.0f;
+  V3 c_zb = {0.0f, 0.0f, 0.0f};
+  const float* row = tab;
+  for (int k = 0; k < n_sph; ++k, row += SPH_COLS) {
+    float t = sphere_t(org, dir, cmin, cmax, ld3(row), row[3]);
+    if constexpr (VOL) {
+      if (march && k == last_sph && ends_inside(org, dir, cmax, row)) t = cmax;
+    }
+    if (t < t_best) {
+      t_best = t;
+      win = row;
+      kind = 0;
+    }
+  }
+  for (int k = 0; k < n_rct; ++k, row += RCT_COLS) {
+    float p;
+    float t = rect_t(org, dir, cmin, cmax, ld3(row), ld3(row + 3), ld3(row + 6), ld3(row + 9),
+                     row[12], row[13], p);
+    if (t < t_best) {
+      t_best = t;
+      win = row;
+      kind = 1;
+      c_p = p;
+      c_zb = ld3(row + 9);
+    }
+  }
+  for (int k = 0; k < n_box; ++k, row += BOX_COLS) {
+    float p_sign;
+    V3 zb_like;
+    float t = box_t(org, dir, cmin, cmax, row, p_sign, zb_like);
+    if (t < t_best) {
+      t_best = t;
+      win = row;
+      kind = 2;
+      c_p = p_sign;
+      c_zb = zb_like;
+    }
+  }
+  return hit_record<VOL>(tab, t_best, win, kind, c_p, c_zb, cmax, org, dir, march, last_sph);
 }
 
 // ---- lights (ops/materials.py::sample_light_point, intersect.light_pdf) --
@@ -785,15 +1034,24 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB>
+template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH = false>
 __global__ void __launch_bounds__(128) trace_kernel(Params P) {
-  extern __shared__ float smem_tab[];
+  extern __shared__ __align__(16) float smem_tab[];  // float4 node loads (BVH)
   const float* tab = smem_tab;
   if constexpr (GTAB) {
     tab = P.table;  // past shared memory: read in place
   } else {
     for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) smem_tab[i] = P.table[i];
     __syncthreads();
+  }
+  // BVH: the node block inside the table (staged with it, or in place with
+  // GTAB), each thread's walk stack after the staged table, and the
+  // per-thread counts of node and primitive tests
+  BvhState<BVH> walk;
+  if constexpr (BVH) {
+    walk.bvh = tab + P.bvh0;
+    walk.stack =
+        reinterpret_cast<uint16_t*>(smem_tab + (GTAB ? 0 : P.table_floats)) + threadIdx.x;
   }
   // one thread per lane, or with LOOPM one per (lane, sample): item =
   // lane·spp + s traces the single sample sample0 + s (the other
@@ -1005,8 +1263,8 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       }
     }
     ++rays;
-    HitT<VOL> h = nearest_hit<VOL>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
-                                   march, last_sph);
+    HitT<VOL> h = nearest_hit<VOL, BVH>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
+                                        march, last_sph, walk);
     if (GEO && is_near) ++geo_steps;
     if constexpr (LOOPM) n_near += is_near;
     if (GEO && is_near && h.face < 0) {
@@ -1160,6 +1418,12 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   if constexpr (LOOPM) {
     if (P.near_steps != nullptr) P.near_steps[item] = n_near;
   }
+  if constexpr (BVH) {
+    if (P.bvh_tests != nullptr) {
+      P.bvh_tests[item] = walk.node_tests;
+      P.bvh_tests[N + item] = walk.prim_tests;
+    }
+  }
 }
 
 // The ordered fold of a LOOPM launch: one thread per lane adds the lane's
@@ -1196,17 +1460,18 @@ __global__ void __launch_bounds__(128) fold_kernel(const float* samp, const int3
   }
 }
 
-template <bool GEO, bool VOL, bool LOOPM = false>
+template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
   const bool gtab = (P.flags & FLAG_GTAB) != 0;
-  const size_t smem = gtab ? 0 : (size_t)P.table_floats * sizeof(float);
-  const int threads = 128;
+  const size_t smem = (gtab ? 0 : (size_t)P.table_floats * sizeof(float)) +
+                      (BVH ? BVH_STACK_BYTES : 0);
+  const int threads = BVH_THREADS;
   const int items = LOOPM ? P.n * P.spp : P.n;
   const int blocks = (items + threads - 1) / threads;
-  auto kernel = gtab ? (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, true>
-                                  : trace_kernel<false, GEO, VOL, LOOPM, true>)
-                     : (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, false>
-                                  : trace_kernel<false, GEO, VOL, LOOPM, false>);
+  auto kernel = gtab ? (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, true, BVH>
+                                  : trace_kernel<false, GEO, VOL, LOOPM, true, BVH>)
+                     : (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, false, BVH>
+                                  : trace_kernel<false, GEO, VOL, LOOPM, false, BVH>);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<blocks, threads, smem, s>>>(P);
@@ -1220,7 +1485,7 @@ Params make_params(const void* table, int table_floats, const void* cam, const v
                    int height, int spp, int subsample, unsigned spp_total, unsigned key0,
                    unsigned key1, unsigned sample0, int max_bounces, int max_iters,
                    float clip_min, float clip_max, int flags, int n_sph, int n_rct, int n_box,
-                   int n_light, int n_face) {
+                   int n_light, int n_face, int bvh0, void* bvh_tests) {
   Params P = {};
   P.table = static_cast<const float*>(table);
   P.cam = static_cast<const float*>(cam);
@@ -1256,7 +1521,15 @@ Params make_params(const void* table, int table_floats, const void* cam, const v
   P.n_box = n_box;
   P.n_light = n_light;
   P.n_face = n_face;
+  P.bvh0 = bvh0;
+  P.bvh_tests = static_cast<int32_t*>(bvh_tests);
   return P;
+}
+
+// a BVH launch needs its node block inside the table, at a float4 boundary
+bool bvh_args_ok(int flags, int bvh0, int table_floats) {
+  return !(flags & FLAG_BVH) ||
+         (bvh0 >= 0 && bvh0 % 4 == 0 && (long long)bvh0 + BVH_HEAD <= table_floats);
 }
 
 }  // namespace
@@ -1266,19 +1539,25 @@ Params make_params(const void* table, int table_floats, const void* cam, const v
       void *out, void *rays, void *iters, int n, int width, int height, int spp, int subsample,   \
       unsigned spp_total, unsigned key0, unsigned key1, unsigned sample0, int max_bounces,       \
       int max_iters, float clip_min, float clip_max, int flags, int n_sph, int n_rct, int n_box, \
-      int n_light, int n_face, int want_aovs
+      int n_light, int n_face, int want_aovs, int bvh0, void *bvh_tests
 #define TRACE_PARAMS                                                                             \
   make_params(table, table_floats, cam, pix, sub, out, rays, iters, n, width, height, spp,      \
               subsample, spp_total, key0, key1, sample0, max_bounces, max_iters, clip_min,       \
-              clip_max, flags, n_sph, n_rct, n_box, n_light, n_face)
+              clip_max, flags, n_sph, n_rct, n_box, n_light, n_face, bvh0, bvh_tests)
 
 extern "C" {
 
 // Launch the surface instantiation on `stream`; returns cudaGetLastError()
 // (0 = launched), or cudaErrorInvalidValue for a geodesic configuration.
+// With FLAG_BVH it walks the node block at float `bvh0` of `table`
+// (ops/bvh.py) and, when `bvh_tests` is not null, writes each lane's node
+// and primitive test counts to it ([2, n] int32); without, both are ignored.
 int bendy_trace_surface(TRACE_ARGS, void* stream) {
-  if (flags & (FLAG_GEO | FLAG_LOOPM)) return (int)cudaErrorInvalidValue;
-  return launch<false, false>(TRACE_PARAMS, want_aovs != 0, static_cast<cudaStream_t>(stream));
+  if ((flags & (FLAG_GEO | FLAG_LOOPM)) || !bvh_args_ok(flags, bvh0, table_floats))
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (flags & FLAG_BVH) return launch<false, false, false, true>(TRACE_PARAMS, want_aovs != 0, s);
+  return launch<false, false>(TRACE_PARAMS, want_aovs != 0, s);
 }
 
 // Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, or
@@ -1292,7 +1571,8 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
                          float far, int max_steps, float growth, void* near_steps,
                          void* stream) {
   const bool loopm = (flags & FLAG_LOOPM) != 0;
-  if (!(flags & FLAG_GEO) || n_mass < 1 || (!loopm && n_mass > MAX_MASSES) ||
+  if (!(flags & FLAG_GEO) || (flags & FLAG_BVH) || n_mass < 1 ||
+      (!loopm && n_mass > MAX_MASSES) ||
       (loopm && (long long)n * spp > INT32_MAX))
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
@@ -1314,13 +1594,15 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
 // nearest lookups, per-lane volume-event counts into `vevents` [n] int32.
 // With FLAG_GEO it is the geodesic one inside media (n_mass, FLAG_LOOPM and
 // the GeoParams as for bendy_trace_geodesic, with FLAG_LOOPM `vevents` per
-// item too); without, n_mass is ignored.
+// item too); without, n_mass is ignored, and FLAG_BVH walks the node block
+// as for bendy_trace_surface.
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                        float far, int max_steps, float growth, void* near_steps,
                        const void* grid, int G, int D, int H, int W, float volume_step,
                        int max_volume_bounces, int nearest, void* vevents, void* stream) {
   const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0;
   if ((geo && (n_mass < 1 || (!loopm && n_mass > MAX_MASSES))) || (loopm && !geo) ||
+      (geo && (flags & FLAG_BVH)) || !bvh_args_ok(flags, bvh0, table_floats) ||
       (loopm && (long long)n * spp > INT32_MAX) ||
       grid == nullptr || vevents == nullptr || G < 1 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
@@ -1343,7 +1625,10 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
   P.max_volume_bounces = max_volume_bounces;
   P.nearest = nearest;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!geo) return launch<false, true>(P, want_aovs != 0, s);
+  if (!geo) {
+    return (flags & FLAG_BVH) ? launch<false, true, false, true>(P, want_aovs != 0, s)
+                              : launch<false, true>(P, want_aovs != 0, s);
+  }
   return loopm ? launch<true, true, true>(P, want_aovs != 0, s)
                : launch<true, true>(P, want_aovs != 0, s);
 }

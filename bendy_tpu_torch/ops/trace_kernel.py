@@ -45,6 +45,8 @@ import numpy as np
 import torch
 
 from bendy_tpu_torch.geodesic import GeoParams
+from bendy_tpu_torch.ops.bvh import (BOX_COLS, BVH_STACK, RCT_COLS, SPH_COLS, build_bvh,
+                                     bvh_counts, uses_bvh)
 from bendy_tpu_torch.ops.camera import CameraParams
 from bendy_tpu_torch.ops.wavefront import TraceConfig, TraceSums, check_trace_args, trace_core
 from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
@@ -62,6 +64,10 @@ MAX_MASSES = 8  # the geodesic kernel's mass unroll (render.MASS_LOOP_THRESHOLD)
 FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY, FLAG_GEO = 1, 2, 4, 8, 16, 32
 FLAG_LOOPM = 64  # the looped mass sweep (the LOOPM instantiations)
 FLAG_GTAB = 128  # the scene table stays in global memory
+FLAG_BVH = 256  # nearest hits by the BVH walk (the looped-sweep scenes, ops/bvh.py)
+# a BVH launch's walk stacks: uint16 node indices, BVH_STACK per thread of a
+# 128-thread block, in shared memory after the staged table
+BVH_STACK_BYTES = 2 * BVH_STACK * 128
 
 # a looped-mass launch runs one thread per (lane, sample) into per-item
 # buffers of n_out floats and N_COUNTS int32 counts (rays, iters, vevents,
@@ -177,6 +183,23 @@ def scene_table(host: SceneArrays) -> tuple[np.ndarray, dict]:
     return table, counts
 
 
+def tracer_table(host: SceneArrays, cfg: TraceConfig) -> tuple[np.ndarray, dict]:
+    """The kernel's table for ``cfg``: :func:`scene_table`, and for a
+    configuration that walks the BVH (:func:`bendy_tpu_torch.ops.bvh.uses_bvh`)
+    its node block appended after the mass block at a float4 boundary, so
+    every earlier offset stays; the counts then also hold the block's offset
+    ``bvh0`` and its ``n_node`` and ``n_key``."""
+    table, counts = scene_table(host)
+    if not uses_bvh(cfg):
+        return table, counts
+    o1 = counts["n_sph"] * SPH_COLS
+    o2 = o1 + counts["n_rct"] * RCT_COLS
+    block = build_bvh(table[:o1], table[o1:o2], table[o2:o2 + counts["n_box"] * BOX_COLS])
+    bvh0 = -(-table.size // 4) * 4
+    table = np.concatenate([table, np.zeros(bvh0 - table.size, np.float32), block])
+    return table, dict(counts, bvh0=bvh0, **bvh_counts(block))
+
+
 def _flags(cfg: TraceConfig) -> int:
     return ((FLAG_DIFFUSE if cfg.has_diffuse else 0)
             | (FLAG_METALLIC if cfg.has_metallic else 0)
@@ -187,10 +210,11 @@ def _flags(cfg: TraceConfig) -> int:
             | (FLAG_LOOPM if cfg.geodesic and cfg.looped_masses else 0))
 
 
-def table_in_global(nbytes: int) -> bool:
-    """Whether a scene table of ``nbytes`` stays in global memory (the
-    GTAB instantiations) instead of being staged in shared memory."""
-    return nbytes > MAX_TABLE_BYTES
+def table_in_global(nbytes: int, bvh: bool = False) -> bool:
+    """Whether a scene table of ``nbytes`` (node block included) stays in
+    global memory (the GTAB instantiations) instead of being staged in
+    shared memory, where a BVH launch also keeps its walk stacks."""
+    return nbytes + (BVH_STACK_BYTES if bvh else 0) > MAX_TABLE_BYTES
 
 
 def _check_launch(entry: str, dev: torch.device, rc: int) -> None:
@@ -206,13 +230,16 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
             pix: torch.Tensor, sub: torch.Tensor, width: int, height: int, spp: int,
             spp_total: int, subsample: int, key: tuple, sample0: int,
             cfg: TraceConfig, extra: tuple = (), outs: tuple | None = None,
-            max_iters: int | None = None):
+            max_iters: int | None = None, bvh_tests: torch.Tensor | None = None):
     """Check the arguments and launch the C entry point ``entry`` on the
     current stream; ``extra`` are the entry's arguments after
-    ``want_aovs``, where a tensor goes in as its pointer. ``outs`` (out,
+    ``bvh_tests``, where a tensor goes in as its pointer. ``outs`` (out,
     rays, iters) are the kernel's outputs (a looped-mass launch's per-item
     buffers), else allocated per lane; ``max_iters`` is the loop cap
-    (default ``cfg.max_iters(spp)``). Returns (out, rays, iters)."""
+    (default ``cfg.max_iters(spp)``). A table with a node block (``bvh0``
+    in ``counts``) launches the BVH instantiation, which writes each lane's
+    node and primitive test counts to ``bvh_tests`` ([2, B] int32) when it
+    is given. Returns (out, rays, iters)."""
     from bendy_tpu_torch import _build
 
     dev = pix.device
@@ -229,6 +256,12 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
         raise ValueError("pix and sub must be [B]; cam_packed the [1,32] camera")
     if B >= 2**31:
         raise ValueError("lane count must fit int32")
+    bvh0 = counts.get("bvh0", -1)
+    if bvh_tests is not None and (bvh0 < 0 or bvh_tests.shape != (2, B) or bvh_tests.device != dev
+                                  or bvh_tests.dtype != torch.int32
+                                  or not bvh_tests.is_contiguous()):
+        raise ValueError("bvh_tests: a contiguous [2, B] int32 tensor beside the lanes, for a "
+                         "table with a node block")
     if outs is None:
         n_out = N_OUT if cfg.want_aovs else 3
         outs = (torch.empty((n_out, B), dtype=torch.float32, device=dev),
@@ -237,7 +270,8 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
     out, rays, iters = outs
     if B == 0:
         return out, rays, iters
-    flags = _flags(cfg) | (FLAG_GTAB if table_in_global(table.numel() * 4) else 0)
+    flags = (_flags(cfg) | (FLAG_GTAB if table_in_global(table.numel() * 4, bvh0 >= 0) else 0)
+             | (FLAG_BVH if bvh0 >= 0 else 0))
     rc = getattr(_build.library(), entry)(
         table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
         sub.data_ptr(), out.data_ptr(), rays.data_ptr(), iters.data_ptr(),
@@ -245,7 +279,8 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
         key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, sample0 & 0xFFFFFFFF,
         cfg.max_bounces, cfg.max_iters(spp) if max_iters is None else max_iters,
         cfg.clip_min, cfg.clip_max, flags, counts["n_sph"], counts["n_rct"],
-        counts["n_box"], counts["n_light"], counts["n_face"], int(cfg.want_aovs),
+        counts["n_box"], counts["n_light"], counts["n_face"], int(cfg.want_aovs), bvh0,
+        None if bvh_tests is None else bvh_tests.data_ptr(),
         *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -280,17 +315,19 @@ def over_cap_lanes(device) -> torch.Tensor:
 
 def _traced(entry: str, table, counts, cam_packed, pix, sub, width, height, spp, spp_total,
             subsample, key, sample0, cfg: TraceConfig, extra, vevents=None, near_steps=None,
-            item_counts=None):
+            item_counts=None, bvh_tests=None):
     """Launch ``entry``: one thread per lane, or with looped masses one per
     (lane, sample) into per-item buffers, each chunk of samples followed by
     its ordered fold (:func:`fold_samples`) into the per-lane outputs.
     ``extra(near_steps, vevents)`` gives the entry's arguments after
-    ``want_aovs``. ``item_counts``, optional [N_COUNTS, B, spp] int32,
+    ``bvh_tests``. ``item_counts``, optional [N_COUNTS, B, spp] int32,
     receives a looped-mass launch's per-item counts (row 2, vevents, only
-    with volumes). Returns (out, rays, iters)."""
+    with volumes). ``bvh_tests`` as for :func:`_launch`. Returns (out,
+    rays, iters)."""
     if not (cfg.geodesic and cfg.looped_masses):
         return _launch(entry, table, counts, cam_packed, pix, sub, width, height, spp, spp_total,
-                       subsample, key, sample0, cfg, extra=extra(near_steps, vevents))
+                       subsample, key, sample0, cfg, extra=extra(near_steps, vevents),
+                       bvh_tests=bvh_tests)
     dev, B = pix.device, pix.shape[0]
     if spp < 1:
         raise ValueError(f"a looped-mass launch traces at least one sample, got spp {spp}")
@@ -399,9 +436,12 @@ fold_samples.launches = 0
 def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                   pix: torch.Tensor, sub: torch.Tensor, *, width: int,
                   height: int, spp: int, spp_total: int, subsample: int,
-                  key: tuple, sample0: int, cfg: TraceConfig):
+                  key: tuple, sample0: int, cfg: TraceConfig,
+                  bvh_tests: torch.Tensor | None = None):
     """Launch the flat surface instantiation of ``csrc/trace_surface.cu``
-    on the current stream.
+    on the current stream; the BVH one for a table of :func:`tracer_table`
+    with a node block, whose per-lane node and primitive test counts go to
+    ``bvh_tests`` ([2, B] int32) when it is given.
 
     Returns (out [3 or 10, B] f32 channel sums, rays [B] int32, iters
     [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
@@ -411,7 +451,7 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
         raise ValueError("a geodesic configuration launches trace_geodesic, one with "
                          "volumes trace_volume")
     res = _launch("bendy_trace_surface", table, counts, cam_packed, pix, sub, width,
-                  height, spp, spp_total, subsample, key, sample0, cfg)
+                  height, spp, spp_total, subsample, key, sample0, cfg, bvh_tests=bvh_tests)
     if pix.shape[0]:
         trace_surface.launches += 1
     return res
@@ -483,7 +523,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                  height: int, spp: int, spp_total: int, subsample: int,
                  key: tuple, sample0: int, cfg: TraceConfig,
                  near_steps: torch.Tensor | None = None,
-                 item_counts: torch.Tensor | None = None):
+                 item_counts: torch.Tensor | None = None,
+                 bvh_tests: torch.Tensor | None = None):
     """Launch the volume instantiation of ``csrc/trace_surface.cu`` (march
     mode and the 8-corner density lookup of ``grid``, the ``[G, D, H, W]``
     f32 stack of the scene's density grids; geodesic inside media when
@@ -492,7 +533,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     Returns (out, rays, iters) as :func:`trace_surface`, then vol_events
     [B] int32, each lane's count of volume events (density lookups);
     looped masses, ``near_steps`` and ``item_counts`` as for
-    :func:`trace_geodesic`. Adds one to ``trace_volume.launches`` per
+    :func:`trace_geodesic`, the BVH and ``bvh_tests`` as for
+    :func:`trace_surface`. Adds one to ``trace_volume.launches`` per
     call. Raises unless
     ``cfg.has_volumes``, on a grid the kernel does not take, and as
     :func:`trace_geodesic` on a geodesic configuration it does not take.
@@ -511,7 +553,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
         spp_total, subsample, key, sample0, cfg,
         lambda near, vev: (*geo, near, grid, G, D, H, W, cfg.volume_step,
                            cfg.max_volume_bounces, int(cfg.vol_nearest), vev),
-        vevents=vevents, near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts)
+        vevents=vevents, near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts,
+        bvh_tests=bvh_tests)
     if pix.shape[0]:
         trace_volume.launches += 1
     return out, rays, iters, vevents
@@ -525,25 +568,33 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     """Build the tracer for one compiled scene.
 
     Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B],
-    sample0=0) -> TraceSums``: on CUDA lane tensors the kernel
-    (:func:`trace_volume` for a configuration with volumes, else
+    sample0=0, count_tests=False) -> TraceSums``: on CUDA lane tensors the
+    kernel (:func:`trace_volume` for a configuration with volumes, else
     :func:`trace_geodesic` for a geodesic one, else :func:`trace_surface`),
     on CPU ones the plain :func:`trace_core`. Each lane traces the samples
     [sample0, sample0+spp) of a global ``spp_total`` (default ``spp``), so
     the sharded pass splits samples over ranks with globally unique RNG
     streams. Ray, iteration and volume-event counts are int64 sums of
     per-lane counts, with the same meaning on both routes, and
-    ``lane_counts`` holds the per-lane counts themselves.
+    ``lane_counts`` holds the per-lane counts themselves. The looped-sweep
+    scenes (``cfg.looped_sweep``) without geodesics walk a BVH built here
+    once (:func:`tracer_table`); ``count_tests`` then adds each lane's node
+    and primitive tests to ``lane_counts`` (``node_tests``,
+    ``prim_tests``). The CPU route sweeps every primitive, the image the
+    walk is held to.
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
-    table_np, counts = scene_table(scn.host_copy())
+    table_np, counts = tracer_table(scn.host_copy(), cfg)
     tables: dict = {}
     grids: dict = {}
 
-    def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0) -> TraceSums:
+    def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0,
+            count_tests: bool = False) -> TraceSums:
         key = render_key(seed, pass_idx)
         dev = pix.device
+        if count_tests and ("bvh0" not in counts or dev.type != "cuda"):
+            raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
         if dev.type == "cpu":
             return trace_core(scn, unpack_camera(cam_packed), key, pix, sub, width,
                               height, spp, subsample, cfg, spp_total=spp_total,
@@ -554,6 +605,10 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
             tables[dev] = torch.from_numpy(table_np).to(dev)
         kw = dict(width=width, height=height, spp=spp, spp_total=spp_total,
                   subsample=subsample, key=key, sample0=sample0, cfg=cfg)
+        tests = None
+        if count_tests:
+            tests = torch.empty((2, pix.shape[0]), dtype=torch.int32, device=dev)
+            kw["bvh_tests"] = tests
         lanes = (tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
                  sub.to(torch.int32))
         if cfg.has_volumes:
@@ -565,6 +620,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
             out, rays, iters = launch(*lanes, **kw)
             vol = torch.zeros_like(rays)
         lane_counts = dict(rays=rays, iters=iters, vol_events=vol)
+        if tests is not None:
+            lane_counts.update(node_tests=tests[0], prim_tests=tests[1])
         sums = (rays.sum(dtype=torch.int64), iters.sum(dtype=torch.int64),
                 vol.sum(dtype=torch.int64))
         rad = V3(out[0], out[1], out[2])

@@ -76,6 +76,7 @@ from bendy_tpu_torch.geodesic import (
     rk4_step,
     rk4_step_looped,
 )
+from bendy_tpu_torch.ops.bvh import BvhTables, nearest_hit_bvh_plain
 from bendy_tpu_torch.ops.camera import CameraParams, camera_ray, ndc_base
 from bendy_tpu_torch.ops.intersect import FACE_BACK, FACE_FRONT, FACE_VOLUME_BACK, nearest_hit
 from bendy_tpu_torch.ops.materials import shade_surface
@@ -211,14 +212,22 @@ def trace_core(
     spp_total: int | None = None,
     sample0: int = 0,
     active: torch.Tensor | None = None,
+    bvh: BvhTables | None = None,
 ) -> TraceSums:
     """Trace spp samples for every (pixel, subpixel) lane; return sums.
 
     ``spp_total``/``sample0`` assign this call the samples
     [sample0, sample0+spp) of a global spp_total, keeping globally unique
     RNG stream ids. ``active`` ([B] bool, optional) marks real lanes;
-    others start with their sample budget spent and return zeros.
+    others start with their sample budget spent and return zeros. With
+    ``bvh`` (a node block on the lanes' device, flat space only) each
+    nearest hit walks it as the CUDA tracer's BVH instantiations do
+    (:func:`bendy_tpu_torch.ops.bvh.nearest_hit_bvh_plain`), which finds
+    the sweep's winners, and ``lane_counts`` adds each lane's node and
+    primitive tests.
     """
+    if bvh is not None and cfg.geodesic:
+        raise ValueError("the BVH walk serves flat space only; geodesic chords sweep")
     if spp_total is None:
         spp_total = spp
     check_trace_args(width, height, spp_total, subsample, cfg)
@@ -262,6 +271,8 @@ def trace_core(
     lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
     vol_events = torch.zeros(B, dtype=torch.int64, device=dev)
     near_steps = torch.zeros(B, dtype=torch.int64, device=dev)  # RK4 steps (near chords)
+    node_tests = torch.zeros(B, dtype=torch.int64, device=dev)  # BVH walk (with ``bvh``)
+    prim_tests = torch.zeros(B, dtype=torch.int64, device=dev)
     dep_den = cfg.clip_max - cfg.clip_min
 
     def depth_n(d):
@@ -355,7 +366,15 @@ def trace_core(
             trace_dir, cmin, cmax = dirv, cfg.clip_min, cfg.clip_max
 
         # === one intersection sweep + shade ================================
-        if cfg.has_volumes:
+        if bvh is not None:
+            walk = nearest_hit_bvh_plain(org, trace_dir, cmin, cmax, scn, bvh,
+                                         march=march if cfg.has_volumes else None,
+                                         last_sphere=last_sph, carry_volumes=cfg.has_volumes,
+                                         active=alive)
+            hit = walk.hit
+            node_tests = node_tests + walk.node_tests
+            prim_tests = prim_tests + walk.prim_tests
+        elif cfg.has_volumes:
             hit = nearest_hit(org, trace_dir, cmin, cmax, scn, march=march,
                               last_sphere=last_sph)
         else:
@@ -440,6 +459,8 @@ def trace_core(
     iters = lane_iters.sum()
     n_vol = vol_events.sum()
     lane_counts = dict(rays=rays, iters=lane_iters, vol_events=vol_events, near_steps=near_steps)
+    if bvh is not None:
+        lane_counts.update(node_tests=node_tests, prim_tests=prim_tests)
     if not cfg.want_aovs:
         # AOV slots alias the radiance (callers only read .radiance)
         return TraceSums(radiance, radiance, radiance, radiance.x, rays_total, iters, n_vol,

@@ -9,9 +9,10 @@ Phases, one line each (any failure exits non-zero):
   2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
      each instantiation's ptxas registers, stack and spills (surface,
      geodesic, and the volume ones with and without geodesics; the geodesic
-     ones with unrolled and with looped masses, LOOPM; each with the table
-     in shared or in global memory, GTAB), of the fold kernel and of the
-     two probe kernels (csrc/probes.cu),
+     ones with unrolled and with looped masses, LOOPM; the surface and
+     non-geodesic volume ones also with the BVH walk, BVH; each with the
+     table in shared or in global memory, GTAB), of the fold kernel and of
+     the two probe kernels (csrc/probes.cu),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
@@ -20,15 +21,20 @@ Phases, one line each (any failure exits non-zero):
      cloud and dense_cloud at spp 2, max_bounces=3, seed 11, on
      blackhole_cloud at spp 1 and 4, Config(max_bounces=2,
      volume_step=0.6), seed 3, and on cloud with nearest sampling, FULL and
-     NORMAL; the looped sweeps: build_prim_grid(200), (1024) (a table past
-     48 KiB) and (3072) (past shared memory: read in global memory) at spp
-     2, max_bounces=4, seed 7, cloud_field at spp 2, max_bounces=4, seed
-     11, build_light_field(200) at spp 2, max_bounces=3, seed 5,
+     NORMAL; the BVH instantiations forced on cornell, scene and cloud
+     (also with the table in global memory); the looped sweeps, which walk
+     the BVH: build_prim_grid(200), (1024) (a table past 48 KiB) and (3072)
+     (past shared memory: read in global memory) at spp 2, max_bounces=4,
+     seed 7, cloud_field at spp 2, max_bounces=4, seed 11,
+     build_light_field(200) at spp 2, max_bounces=3, seed 5,
      mass_cluster at spp 1, 4 and 16, max_bounces=2, seed 3, a 13-mass
      ring at spp 2 and 12 masses inside a medium at spp 2 (the reference's
      multi_mass_scene), FULL and NORMAL (per lane rtol 5e-4, atol 1e-5,
      equal int64 ray counts and equal per-lane rays, iterations and
-     volume events; the looped-mass cases with 0 lanes past the lane cap);
+     volume events; the looped-mass cases with 0 lanes past the lane cap;
+     every BVH case in FULL output also against the plain walk through the
+     tracer, trace_core(bvh=...): bit-equal to the plain sweep, and equal
+     per-lane node and primitive test counts to the kernel's);
      blackhole, cloud, blackhole_cloud at spp 4, mass_cluster at spp 4 and
      the medium case also with the table forced into global memory, and
      the last two with one sample per chunk; then the Renderer
@@ -59,12 +65,15 @@ Phases, one line each (any failure exits non-zero):
      blackhole_cloud row): 512x288, 32 spp, no subpixels,
      Config(max_bounces=2, volume_step=0.6), as phase 6,
   9. the prim_grid_256 main path (258 primitives, the looped primitive
-     sweep; bench.py's prim_grid_256 row): build_prim_grid(256) at
-     256x256, 16 spp, no subpixels, Config(max_bounces=4), through the
-     surface kernel, as phase 5 (the plain pass at spp 4),
+     sweep, walked as a BVH; bench.py's prim_grid_256 row):
+     build_prim_grid(256) at 256x256, 16 spp, no subpixels,
+     Config(max_bounces=4), through the surface kernel, as phase 5 (the
+     plain pass at spp 4), with the BVH's node and primitive tests per
+     segment from one instrumented call and its bound (one primitive test
+     per segment) beside the sweep's,
  10. the cloud_field main path (256 volume puffs and 2 sun lights, the
-     looped sweep with media): 256x256, 16 spp, Config(max_bounces=4),
-     through the volume kernel, as phase 6,
+     looped sweep with media, the BVH): 256x256, 16 spp,
+     Config(max_bounces=4), through the volume kernel, as phases 6 and 9,
  11. the mass_cluster main path (64 masses, the looped mass sweep): 256x256,
      16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel (one
      thread per (lane, sample)) and the fold kernel, as phase 5, with each
@@ -72,8 +81,9 @@ Phases, one line each (any failure exits non-zero):
      loop lengths and the slowest block over the mean block of both
      designs (the same paths), and the fold kernel alone against its plain
      version and torch.sum,
- 12. the many-lights path (the looped light sweep): build_light_field(200)
-     at 256x256, 16 spp, Config(max_bounces=3), through the surface kernel,
+ 12. the many-lights path (the looped light sweep; 201 primitives, the
+     BVH): build_light_field(200) at 256x256, 16 spp, Config(max_bounces=3),
+     through the surface kernel, as phase 9,
  13. the sharded pass (make_kernel_pass_sharded): (a) cornell at 256x256,
      64 spp, 2x2 subpixels, default Config on a (1,1) mesh, an NCCL world of
      one in this process: a warm-up pass, 4 chained passes with fresh seeds
@@ -169,10 +179,10 @@ def ptxas_report(log: str) -> list[str]:
             frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", name)
             p = re.search(r"(fp32_chain|bf16_dot_chain)_kernelILb(\d)E", name)
             label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)},"
-                     f"LOOPM={t.group(4)},GTAB={t.group(5)}>" if t else
+                     f"LOOPM={t.group(4)},GTAB={t.group(5)},BVH={t.group(6) or 0}>" if t else
                      f"{p.group(1)}_kernel<{('FMA', 'F32IN')[p.group(1) != 'fp32_chain']}="
                      f"{p.group(2)}>" if p else
                      "fold_kernel" if "fold_kernel" in name else name)
@@ -181,20 +191,27 @@ def ptxas_report(log: str) -> list[str]:
 
 
 def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
-                vol_events: int = 0, grid_floats: int = 0,
-                rk4_steps: int = 0) -> tuple[float, str]:
+                vol_events: int = 0, grid_floats: int = 0, rk4_steps: int = 0,
+                sweep: bool = False) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for one
     tracer launch: each input read once (lanes, camera, scene table,
     density grids), each output written once (channel sums, per-lane rays
     and iterations, volume events for the volume kernel, RK4 steps for a
     looped-mass one), and the counted FP32 operations of every traced
     segment, every density lookup and (looped masses) every RK4 step of
-    this run."""
+    this run. A segment's intersection counts one test of every primitive
+    (the sweep), except on a table with a BVH, where it counts one test of
+    the cheapest kind the scene has: the least any nearest-hit search must
+    do, whatever implements it (``sweep`` counts the sweep there too: the
+    sweep floor, printed beside it)."""
     n_out = 10 if cfg.want_aovs else 3
     n_counts = 2 + cfg.has_volumes + (cfg.geodesic and cfg.looped_masses)
     nbytes = lanes * (8 + 4 * n_out + 4 * n_counts) + 4 * (table_floats + 32 + grid_floats)
-    per_ray = (SPHERE_OPS * counts["n_sph"] + RECT_OPS * counts["n_rct"]
-               + BOX_OPS * counts["n_box"])
+    kinds = [(SPHERE_OPS, counts["n_sph"]), (RECT_OPS, counts["n_rct"]), (BOX_OPS, counts["n_box"])]
+    if "bvh0" in counts and not sweep:
+        per_ray = min((ops for ops, n in kinds if n), default=0)
+    else:
+        per_ray = sum(ops * n for ops, n in kinds)
     n_mass = counts["n_mass"]
     if cfg.geodesic:
         per_mass = LOOPM_BEGIN_PER_MASS_OPS if cfg.looped_masses else GEO_BEGIN_PER_MASS_OPS
@@ -345,19 +362,25 @@ def golden_check(dev, name: str, pixels_off: int, rtol: float, atol: float) -> f
 
 GLOBAL_TABLE = {"MAX_TABLE_BYTES": 0}  # the GTAB instantiations on a small table
 ONE_SAMPLE_CHUNKS = {"SPLIT_BUDGET_BYTES": 1}  # a looped-mass launch, one sample per chunk
+BVH = {"looped_sweep": True}  # the BVH instantiations on a small scene (a TraceConfig field)
 
 
 def phase3_cases() -> list:
     """(scene, spp, Config, seed, variants) of every kernel-vs-plain case at
     16x16: the kernel runs as the wrapper chooses, then once more under
-    each variant's settings of ``ops/trace_kernel``, all against one plain
-    trace."""
+    each variant's settings of ``ops/trace_kernel`` (and of the trace
+    configuration, for BVH), all against one plain trace. The BVH is forced
+    on cornell (rects and boxes, the walls always tested), scene.json (the
+    ill-conditioned r = 100 ground sphere) and cloud (march steps), and
+    with the table in global memory on cloud."""
     from bendy_tpu_torch import Config, GeoParams
 
-    cases = [(name, 4, Config(max_bounces=3), 7, ()) for name in SCENES]
+    cases = [(name, 4, Config(max_bounces=3), 7, (BVH,) * (name != "cornell2"))
+             for name in SCENES]
     cases += [(name, spp, Config(max_bounces=2), 3, (GLOBAL_TABLE,) * (spp == 4))
               for name in GEO_SCENES for spp in (1, 4)]
-    cases += [(name, 2, Config(max_bounces=3), 11, (GLOBAL_TABLE,) * (name == "cloud"))
+    cases += [(name, 2, Config(max_bounces=3), 11,
+               (GLOBAL_TABLE, BVH, {**GLOBAL_TABLE, **BVH}) if name == "cloud" else ())
               for name in VOL_SCENES]
     cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3,
                (GLOBAL_TABLE,) * (spp == 4)) for spp in (1, 4)]
@@ -381,9 +404,12 @@ def phase3_cases() -> list:
 
 @contextlib.contextmanager
 def trace_kernel_settings(settings: dict):
-    """``ops/trace_kernel``'s module settings as given, for one block."""
+    """``ops/trace_kernel``'s module settings as given, for one block (keys
+    that name a TraceConfig field are not module settings: see
+    :func:`variant_config`)."""
     from bendy_tpu_torch.ops import trace_kernel
 
+    settings = {k: v for k, v in settings.items() if hasattr(trace_kernel, k)}
     old = {k: getattr(trace_kernel, k) for k in settings}
     for k, v in settings.items():
         setattr(trace_kernel, k, v)
@@ -394,11 +420,61 @@ def trace_kernel_settings(settings: dict):
             setattr(trace_kernel, k, v)
 
 
+def variant_config(cfg, settings: dict):
+    """``cfg`` with the variant's TraceConfig fields (``looped_sweep``: the
+    BVH on any scene in flat space; the plain trace does not depend on it)."""
+    from dataclasses import fields, replace
+
+    names = {f.name for f in fields(cfg)}
+    return replace(cfg, **{k: v for k, v in settings.items() if k in names})
+
+
+def walk_check(tag: str, r, cfg, kern, plain, table_np, counts, seed: int, spp: int, pix, sub,
+               dev) -> None:
+    """Hold a BVH kernel's winners against the plain walk through the
+    tracer: trace_core with ``nearest_hit_bvh_plain`` in place of the sweep
+    renders the plain sweep's image bit for bit with the same per-lane
+    counts, the kernel's within rtol/atol, and the kernel's per-lane node
+    and primitive test counts equal the plain walk's (the same tree, the
+    same f32 node tests, the same order)."""
+    import torch
+
+    from bendy_tpu_torch.ops.bvh import bvh_tables
+    from bendy_tpu_torch.ops.wavefront import trace_core
+    from bendy_tpu_torch.utils.rng import render_key
+
+    W = H = 16
+    tables = bvh_tables(table_np[counts["bvh0"]:], dev)
+    t0 = time.perf_counter()
+    walk = trace_core(r.arrays, r.camera_params(r.scene.find_by_tag("camera")),
+                      render_key(seed, 0), pix, sub, W, H, spp, 1, cfg, bvh=tables)
+    walk_s = time.perf_counter() - t0
+    def channels(res):
+        return [getattr(getattr(res, f), c) for f in ("radiance", "aov_albedo", "aov_normal")
+                for c in "xyz"] + [res.aov_depth]
+
+    bit_equal = all(torch.equal(a, b) for a, b in zip(channels(walk), channels(plain))) and all(
+        torch.equal(walk.lane_counts[k], plain.lane_counts[k])
+        for k in ("rays", "iters", "vol_events"))
+    tests_off = sum(int((kern.lane_counts[k].long() != walk.lane_counts[k]).sum())
+                    for k in ("node_tests", "prim_tests"))
+    rays = int(walk.rays)
+    per = {k: int(walk.lane_counts[k].sum()) / max(rays, 1) for k in ("node_tests", "prim_tests")}
+    print(f"phase 3: {tag}: the plain walk through the tracer bit-equal to the plain sweep "
+          f"{bit_equal}; kernel vs plain walk per-lane node and primitive tests off {tests_off} "
+          f"({per['node_tests']:.2f} node and {per['prim_tests']:.2f} primitive tests per "
+          f"segment, plain walk {walk_s:.1f} s)")
+    compare_lanes(f"{tag} against the plain walk", kern, walk, cfg)
+    if not bit_equal or tests_off:
+        fail(f"the BVH walk of {tag} disagrees with the sweep or the kernel's walk")
+
+
 def kernel_vs_plain(dev, names=None) -> dict:
     """Phase 3 (the cases of ``names`` only, and no goldens, when given);
     returns the largest |diff| of each kernel against the plain version,
     keyed by its wrapper's name. Every looped-mass case also holds the
-    over-cap count (csrc/trace_surface.cu, "The cap") at 0."""
+    over-cap count (csrc/trace_surface.cu, "The cap") at 0; every BVH run
+    in FULL output is also held to the plain walk (:func:`walk_check`)."""
     import torch
 
     from dataclasses import replace
@@ -423,28 +499,34 @@ def kernel_vs_plain(dev, names=None) -> dict:
             t0 = time.perf_counter()
             plain = trace_core(r.arrays, params, render_key(seed, 0), pix, sub, W, H, spp, 1, cfg)
             plain_s = time.perf_counter() - t0
-            table_bytes = trace_kernel.scene_table(r.arrays.host_copy())[0].nbytes
             for settings in ({}, *variants):
+                cfg_k = variant_config(cfg, settings)
+                table_np, counts = trace_kernel.tracer_table(r.arrays.host_copy(), cfg_k)
+                bvh = "bvh0" in counts
                 with trace_kernel_settings(settings):
                     over_cap_lanes(dev).zero_()
-                    kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix,
-                                                                     sub)
+                    kern = make_tracer(r.arrays, W, H, spp, 1, cfg_k)(
+                        r._cam_packed, seed, 0, pix, sub, count_tests=bvh)
                     torch.cuda.synchronize()
                     over = int(over_cap_lanes(dev))
-                    gtab = trace_kernel.table_in_global(table_bytes)
+                    gtab = trace_kernel.table_in_global(table_np.nbytes, bvh)
                     chunks = -(-spp // split_samples(W * H, spp, 10 if cfg.want_aovs else 3))
                 loops = [f for f in ("looped_sweep", "looped_lights", "looped_masses")
-                         if getattr(cfg, f)]
+                         if getattr(cfg_k, f)]
                 tag = (f"{name} spp {spp} {output.value}"
                        + (" nearest" if cfg.vol_nearest else "")
                        + "".join(f" {f}" for f in loops)
-                       + f", table {table_bytes} B in {'global' if gtab else 'shared'} memory"
+                       + (f" bvh ({counts['n_node']} nodes)" if bvh else "")
+                       + f", table {table_np.nbytes} B in {'global' if gtab else 'shared'} memory"
                        + (f", {chunks} chunk(s), over-cap lanes {over}"
                           if cfg.looped_masses else "")
                        + f" (plain {plain_s:.1f} s)")
                 err = compare_lanes(tag, kern, plain, cfg)
                 if over:
                     fail(f"{over} lanes of {tag} passed the lane cap")
+                if bvh and output is Output.FULL:
+                    walk_check(tag, r, cfg_k, kern, plain, table_np, counts, seed, spp, pix, sub,
+                               dev)
                 kind = ("trace_volume" if cfg.has_volumes else
                         "trace_geodesic" if cfg.geodesic else "trace_surface")
                 worst[kind] = max(worst[kind], err)
@@ -509,14 +591,17 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     largest |diff|."""
     import torch
 
-    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, pass_lanes, scene_table
+    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, pass_lanes, tracer_table
     from bendy_tpu_torch.render import render_pass
     from bendy_tpu_torch.utils.rng import render_key
 
     r, cam, seed = run["r"], run["cam"], run["seed"]
     cfg = r.trace_config(r.config, cam)
     nn = n * n
-    table_np, counts = scene_table(r.arrays.host_copy())
+    t0 = time.perf_counter()
+    table_np, counts = tracer_table(r.arrays.host_copy(), cfg)
+    table_s = time.perf_counter() - t0
+    bvh = "bvh0" in counts
     table = torch.from_numpy(table_np).to(dev)
     pix, sub = pass_lanes(W, H, nn, 0, dev)
     lanes = (table, counts, r._cam_packed.reshape(-1), pix, sub)
@@ -540,14 +625,26 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     n_rays = int(rays.sum(dtype=torch.int64))
     n_vol = int(res[3].sum(dtype=torch.int64)) if grid is not None else 0
     n_rk4 = int(extra["near_steps"].sum(dtype=torch.int64)) if looped_masses else 0
-    bound_ms, bound_by = trace_bound(counts, table.numel(), cfg, n_rays, pix.numel(), n_vol,
-                                     0 if grid is None else grid.numel(), n_rk4)
+    bound_args = (counts, table.numel(), cfg, n_rays, pix.numel(), n_vol,
+                  0 if grid is None else grid.numel(), n_rk4)
+    bound_ms, bound_by = trace_bound(*bound_args)
+    sweep_ms, _ = trace_bound(*bound_args, sweep=True)
     march = f", march share {n_vol / n_rays:.4f} ({n_vol} volume events)" if grid is not None else ""
     rk4 = f", {n_rk4} RK4 steps ({n_rk4 / n_rays:.4f} per ray)" if looped_masses else ""
     print(f"phase {phase}: {launch.__name__} alone median {kernel_ms:.3f} ms per launch (min "
           f"{kernel_lo:.3f}, max {kernel_hi:.3f}, {REPEATS} seeds) at {W}x{H} {spp} spp, "
-          f"{n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}); "
-          f"{warp_stats(rays, iters)}{march}{rk4}; SM clock, power after it {clock}")
+          f"{n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}"
+          + (f", one primitive test per segment; sweep floor {sweep_ms:.3f} ms" if bvh else "")
+          + f"); {warp_stats(rays, iters)}{march}{rk4}; SM clock, power after it {clock}")
+    tests = None
+    if bvh:  # an instrumented call: each lane's node and primitive tests
+        lane_tests = torch.empty((2, pix.numel()), dtype=torch.int32, device=dev)
+        call(REPEATS, bvh_tests=lane_tests)
+        tests = [int(t.sum(dtype=torch.int64)) / n_rays for t in lane_tests]
+        print(f"phase {phase}: BVH of {counts['n_node']} nodes and {counts['n_key']} keys, built "
+              f"with the table in {table_s * 1e3:.1f} ms on the host; per segment "
+              f"{tests[0]:.3f} node tests and {tests[1]:.3f} primitive tests of "
+              f"{counts['n_sph'] + counts['n_rct'] + counts['n_box']} primitives")
     fold = None
     if looped_masses:
         item_counts = torch.empty((4, pix.numel(), spp), dtype=torch.int32, device=dev)
@@ -586,7 +683,8 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     return dict(kernel_ms=kernel_ms, kernel_ms_min=kernel_lo, kernel_ms_max=kernel_hi,
                 pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err, bound_ms=bound_ms,
                 bound_by=bound_by, rays=n_rays, vol_events=n_vol, rk4_steps=n_rk4,
-                pass_spp=pass_spp, fold=fold)
+                pass_spp=pass_spp, fold=fold, sweep_floor_ms=sweep_ms if bvh else None,
+                tests=tests, table_ms=table_s * 1e3)
 
 
 def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> dict:
@@ -1102,6 +1200,11 @@ def run(phases=None, phase3_names=None) -> int:
             "mrays_per_s": path["rays"] / path["dt"] / 1e6,
             "s_per_pass": path["dt"] / 4,
         })
+        if k["tests"] is not None:  # the BVH walk (the looped-sweep paths)
+            kernels[-1].update(sweep_floor_ms=k["sweep_floor_ms"],
+                               node_tests_per_segment=k["tests"][0],
+                               prim_tests_per_segment=k["tests"][1],
+                               bvh_table_build_ms=k["table_ms"])
         if k["fold"] is not None:
             f = k["fold"]
             kernels.append({
