@@ -58,6 +58,8 @@ SIGNATURES = {
                        c_int, c_void_p, c_void_p],
         c_int,
     ),
+    # flags, volumes, want_aovs, table_floats, out [3] int32 (host)
+    "bendy_item_occupancy": ([c_int, c_int, c_int, c_int, c_void_p], c_int),
     # samp, cnt, n, spp, n_out, first, max_iters, out, rays, iters, vevents,
     #   near_steps, over_cap, stream
     "bendy_fold_samples": (

@@ -37,7 +37,9 @@
 //     another discretization, so it is an instantiation of its own: LOOPM
 //     (FLAG_LOOPM, with GEO, in bendy_trace_geodesic and bendy_trace_volume),
 //     one thread per (lane, sample), whose samples a second kernel behind
-//     bendy_fold_samples adds in order (fold_kernel).
+//     bendy_fold_samples adds in order (fold_kernel). The unrolled-mass and
+//     volume instantiations without the BVH split the same way (the item
+//     instantiations, below).
 // Its plain PyTorch version is bendy_tpu_torch/ops/wavefront.py::trace_core
 // (geodesic mode: bendy_tpu_torch/geodesic.py; media:
 // bendy_tpu_torch/ops/volume.py); the wrappers and the table layout are in
@@ -57,13 +59,13 @@
 // dominates every chord step, and divergence grows: photon-ring lanes that
 // graze the critical impact parameter run to hundreds of chord steps
 // against a mean near 22 segments per sample, and hold their warp. Design:
-//   - one thread per lane; the thread runs its own loop over all its samples
-//     and exits on its own (Hopper's per-thread control flow in place of the
-//     TPU's per-block masked loop). A warp runs until its slowest lane is
-//     done; this first version accepts that divergence (wavefront sorting and
-//     persistent threads are later work). The LOOPM instantiations instead
-//     run one thread per (lane, sample) and fold the samples afterwards
-//     (below).
+//   - one thread per lane in the surface and BVH instantiations; the thread
+//     runs its own loop over all its samples and exits on its own (Hopper's
+//     per-thread control flow in place of the TPU's per-block masked loop). A
+//     warp runs until its slowest lane is done. The geodesic instantiations
+//     and the volume ones without the BVH instead run one thread per (lane,
+//     sample) (PER_ITEM: the LOOPM and the item instantiations, below) and
+//     fold the samples afterwards.
 //   - lane state stays in registers; each lane shades only its own material
 //     instead of evaluating every branch under a mask.
 //   - the scene is NOT baked: the compiled tables arrive as one flat f32
@@ -203,6 +205,31 @@
 //     lanes take the RK4 step. The fold reads each word of a lane's
 //     samples in order (n·spp·(n_out + 4) words once) and is bound by bytes.
 //
+// The item instantiations (unrolled masses and media without the BVH,
+// kernels 1d, 1b and 1c: PER_ITEM without LOOPM):
+//   - What held the lane loop back on their paths (blackhole, cloud,
+//     dense_cloud, blackhole_cloud): each thread carried a fixed quota of 32
+//     or 64 samples, with lanes up to 1.4-3.8x the mean length, in a launch
+//     2.2-3.1 waves deep, and 93-119 registers left 16-20 warps per SM to
+//     hide long dependent chains (the IEEE 1/sqrtf and divisions of every
+//     RK4 stage, the 8-corner __ldg gather of every march step).
+//   - So they run the LOOPM instantiations' split: one thread per (lane,
+//     sample) item, the same stream ids, per-item words that fold_kernel
+//     adds in order (bit-equal to one thread per lane), with no per-lane
+//     accumulators in the loop, and a register budget,
+//     __launch_bounds__(BLOCK, MIN_BLOCKS): 6 blocks of 128 per SM (80
+//     registers) for geodesics or media, 5 (96) for both, that is 24 and 20
+//     warps. ptxas spills a few words under it (20 B in FULL output, 8 B
+//     with both; 150-210 B with the AOVs); the budget was faster than none
+//     on every path, in FULL output and with the AOVs.
+//   - The 32 threads of a warp trace 32 samples of one lane, whose paths are
+//     alike under lensing. Persistent blocks that took items from a pool, a
+//     warp's fetch at a time, lost to this on the geodesic paths: the warp's
+//     threads drifted apart in their paths (PERF.md §6).
+//   - The cap as for LOOPM: a path in media without geodesics takes at most
+//     (max_bounces + 1)(max_volume_bounces + 1) + 2 iterations, under
+//     per_path = (max_bounces + 2)(max_volume_bounces + 2): it never binds.
+//
 // Media (the VOL instantiation; ops/volume.py and trace_core's march mode
 // are the order):
 //   - One device function, density_sample, serves sparse and dense grids.
@@ -223,10 +250,10 @@
 //     sweep plus 8 dependent loads and ~54 FP32 operations of the lookup,
 //     and divergence between march lanes and surface lanes of one warp
 //     (a lane that crosses a cloud takes tens of march steps where its
-//     neighbour takes one surface segment). The design keeps one thread per
-//     lane and lets each run its own loop; it shades a volume event without
-//     the surface-shading block and skips the lookup on surface events.
-//     Sorting lanes by mode is later work.
+//     neighbour takes one surface segment). Each thread runs its own loop
+//     (one per item, above); it shades a volume event without the
+//     surface-shading block and skips the lookup on surface events. Sorting
+//     threads by mode is later work.
 //   - The interior test |end - center|^2 <= r^2 sits on the sphere boundary;
 //     it keeps length_squared's order. Knife-edge scatter decisions
 //     (u0 < step * density) follow from the bit-equal density.
@@ -256,7 +283,8 @@ constexpr int FACE_FRONT = 0, FACE_BACK = 1, FACE_VOLUME = 2, FACE_VOLUME_FRONT 
 
 constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
               FLAG_GEO = 32, FLAG_LOOPM = 64, FLAG_GTAB = 128, FLAG_BVH = 256;
-constexpr int N_COUNTS = 4;  // per-item counts of a LOOPM launch: rays, iters, vevents, near_steps
+constexpr int N_COUNTS = 4;  // per-item counts: rays, iters, vevents, near_steps
+constexpr int BLOCK = 128;   // threads per block, every instantiation
 
 // the BVH node block (ops/bvh.py::build_bvh): a header, 8 floats per node,
 // then the keys; the walk's stack of uint16 node indices in shared memory,
@@ -287,7 +315,7 @@ __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y 
 __device__ __forceinline__ V3 normalize(V3 a) { return a * (1.0f / sqrtf(dot(a, a))); }
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
 
-// LOOPM: n lanes and spp samples give n·spp items, and out, rays, iters,
+// PER_ITEM: n lanes and spp samples give n·spp items, and out, rays, iters,
 // vevents and near_steps are per item ([n_out, n·spp], [n·spp])
 struct Params {
   const float* table;  // global copy; staged into shared memory unless FLAG_GTAB
@@ -311,7 +339,7 @@ struct Params {
   int G, D, H, W;
   float volume_step;
   int max_volume_bounces, nearest;
-  int32_t* near_steps;                           // LOOPM only, optional: RK4 steps per item
+  int32_t* near_steps;                           // geodesics, optional: RK4 steps per item
   int bvh0;                                      // BVH only: the node block's offset in the table
   int32_t* bvh_tests;                            // BVH only, optional: [2, n] node, prim tests
 };
@@ -1034,8 +1062,26 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
-template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH = false>
-__global__ void __launch_bounds__(128) trace_kernel(Params P) {
+// the routing (ops/trace_kernel.per_item): geodesics (LOOPM among them)
+// and media without the BVH trace one thread per (lane, sample) item; the
+// surface and BVH instantiations one thread per lane
+template <bool GEO, bool VOL, bool BVH>
+constexpr bool PER_ITEM = GEO || (VOL && !BVH);
+
+// the register budget of the item instantiations (PER_ITEM without LOOPM):
+// blocks of BLOCK threads that an SM must hold at once, so that ptxas caps
+// the registers to fit (6 blocks: 80 registers, 5: 96). Every other
+// instantiation gets 0 and keeps __launch_bounds__(BLOCK) alone: a minimum
+// of 0 blocks emits none (a minimum of 1 moves their registers).
+template <bool GEO, bool VOL, bool LOOPM, bool BVH>
+constexpr int MIN_BLOCKS = !LOOPM && PER_ITEM<GEO, VOL, BVH> ? (GEO && VOL ? 5 : 6) : 0;
+
+// The tracer: one thread per lane, or with PER_ITEM one per (lane, sample)
+// item.
+template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH>
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
+    trace_kernel(Params P) {
+  constexpr bool SPLIT = PER_ITEM<GEO, VOL, BVH>;
   extern __shared__ __align__(16) float smem_tab[];  // float4 node loads (BVH)
   const float* tab = smem_tab;
   if constexpr (GTAB) {
@@ -1053,13 +1099,13 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
     walk.stack =
         reinterpret_cast<uint16_t*>(smem_tab + (GTAB ? 0 : P.table_floats)) + threadIdx.x;
   }
-  // one thread per lane, or with LOOPM one per (lane, sample): item =
+  // one thread per lane, or with SPLIT one per (lane, sample): item =
   // lane·spp + s traces the single sample sample0 + s (the other
   // instantiations read P.spp, P.sample0 and P.n as before, so that they
   // compile as before)
   const int item = blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= (LOOPM ? P.n * P.spp : P.n)) return;  // ragged last block
-  const int lane = LOOPM ? item / P.spp : item;
+  if (item >= (SPLIT ? P.n * P.spp : P.n)) return;  // ragged last block
+  const int lane = SPLIT ? item / P.spp : item;
 
   const float* lights = tab + P.n_sph * SPH_COLS + P.n_rct * RCT_COLS + P.n_box * BOX_COLS;
   const int lstride = LIGHT_HEAD + LIGHT_FACE_COLS * P.n_face;
@@ -1096,11 +1142,11 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   bool fresh = true;  // first segment after a bounce: clip_min applies
   bool march = false;  // volume instantiation: the lane is marching a medium
   int vbounce = 0, last_sph = -1, vev = 0;
-  int n_near = 0;  // LOOPM: RK4 steps taken (near segments), for the work count
+  int n_near = 0;  // RK4 steps taken (near segments), for the work count
 
   for (; it < P.max_iters; ++it) {
     if (!alive) {
-      if (sample + 1 >= (LOOPM ? 1 : P.spp)) break;  // this lane is done
+      if (sample + 1 >= (SPLIT ? 1 : P.spp)) break;  // this thread is done
       // === finalize the dead path, regenerate a camera ray ==============
       if (path_open) {
         acc_rad = acc_rad + rad;
@@ -1113,7 +1159,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       ++sample;
       path_open = true;
       path_step = 0;
-      const uint32_t sample0 = LOOPM ? P.sample0 + (uint32_t)(item % P.spp) : P.sample0;
+      const uint32_t sample0 = SPLIT ? P.sample0 + (uint32_t)(item % P.spp) : P.sample0;
       sid = (pixv * P.spp_total + (sample0 + (uint32_t)sample)) * nn + subv;
       float uj[4];
       uniforms4(sid, CAMERA_TAG, 0u, P.key0, P.key1, uj);
@@ -1266,7 +1312,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
     HitT<VOL> h = nearest_hit<VOL, BVH>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
                                         march, last_sph, walk);
     if (GEO && is_near) ++geo_steps;
-    if constexpr (LOOPM) n_near += is_near;
+    if constexpr (SPLIT) n_near += is_near;
     if (GEO && is_near && h.face < 0) {
       // no hit inside the chord: keep bending from its end point
       org = x_next;
@@ -1399,7 +1445,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
       acc_dep = acc_dep + depth_n(aov_dep, P.clip_min, P.dep_den);
     }
   }
-  const int N = LOOPM ? P.n * P.spp : P.n;
+  const int N = SPLIT ? P.n * P.spp : P.n;
   P.out[item] = acc_rad.x;
   P.out[N + item] = acc_rad.y;
   P.out[2 * N + item] = acc_rad.z;
@@ -1415,7 +1461,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   P.rays[item] = rays;
   P.iters[item] = it;
   if constexpr (VOL) P.vevents[item] = vev;
-  if constexpr (LOOPM) {
+  if constexpr (SPLIT) {
     if (P.near_steps != nullptr) P.near_steps[item] = n_near;
   }
   if constexpr (BVH) {
@@ -1426,7 +1472,7 @@ __global__ void __launch_bounds__(128) trace_kernel(Params P) {
   }
 }
 
-// The ordered fold of a LOOPM launch: one thread per lane adds the lane's
+// The ordered fold of a per-item launch: one thread per lane adds the lane's
 // spp per-item words in sample order, acc = acc + v from 0.0f (or from the
 // running sums of the samples before this chunk when !first), the counts as
 // integers, and writes the one-thread-per-lane layouts: out [n_out, n],
@@ -1461,20 +1507,29 @@ __global__ void __launch_bounds__(128) fold_kernel(const float* samp, const int3
 }
 
 template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
+auto instance(bool want_aovs, bool gtab) {
+  return gtab ? (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, true, BVH>
+                           : trace_kernel<false, GEO, VOL, LOOPM, true, BVH>)
+              : (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, false, BVH>
+                           : trace_kernel<false, GEO, VOL, LOOPM, false, BVH>);
+}
+
+// the dynamic shared memory of a launch: the staged table (unless
+// FLAG_GTAB) and the BVH's walk stacks
+size_t dynamic_smem(const Params& P, bool bvh) {
+  return ((P.flags & FLAG_GTAB) ? 0 : (size_t)P.table_floats * sizeof(float)) +
+         (bvh ? BVH_STACK_BYTES : 0);
+}
+
+template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
-  const bool gtab = (P.flags & FLAG_GTAB) != 0;
-  const size_t smem = (gtab ? 0 : (size_t)P.table_floats * sizeof(float)) +
-                      (BVH ? BVH_STACK_BYTES : 0);
-  const int threads = BVH_THREADS;
-  const int items = LOOPM ? P.n * P.spp : P.n;
-  const int blocks = (items + threads - 1) / threads;
-  auto kernel = gtab ? (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, true, BVH>
-                                  : trace_kernel<false, GEO, VOL, LOOPM, true, BVH>)
-                     : (want_aovs ? trace_kernel<true, GEO, VOL, LOOPM, false, BVH>
-                                  : trace_kernel<false, GEO, VOL, LOOPM, false, BVH>);
+  const size_t smem = dynamic_smem(P, BVH);
+  const int items = PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n;
+  const int blocks = (items + BLOCK - 1) / BLOCK;
+  auto kernel = instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kernel<<<blocks, threads, smem, s>>>(P);
+  kernel<<<blocks, BLOCK, smem, s>>>(P);
   // a launch refused for registers or shared memory never runs, and a later
   // synchronize() does not report it: the wrapper raises on this code
   return (int)cudaGetLastError();
@@ -1532,6 +1587,11 @@ bool bvh_args_ok(int flags, int bvh0, int table_floats) {
          (bvh0 >= 0 && bvh0 % 4 == 0 && (long long)bvh0 + BVH_HEAD <= table_floats);
 }
 
+// a per-item launch (PER_ITEM) numbers its n·spp items in int32
+bool items_ok(bool per_item, int n, int spp) {
+  return !per_item || (long long)n * spp <= INT32_MAX;
+}
+
 }  // namespace
 
 #define TRACE_ARGS                                                                               \
@@ -1562,18 +1622,17 @@ int bendy_trace_surface(TRACE_ARGS, void* stream) {
 
 // Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, or
 // with FLAG_LOOPM the LOOPM one over any n_mass >= 1; the mass block after
-// the environment in `table`) on `stream`. With FLAG_LOOPM it runs one
-// thread per (lane, sample): out, rays and iters are per item, [n_out,
-// n·spp] and [n·spp] (item = lane·spp + s, at most INT_MAX items), for
-// bendy_fold_samples to fold, and a non-null `near_steps` [n·spp] int32
-// receives each item's RK4 step count; without it `near_steps` is ignored.
+// the environment in `table`) on `stream`. It runs one thread per (lane,
+// sample) (the LOOPM or the item instantiation): out, rays and iters are
+// per item, [n_out, n·spp] and [n·spp] (item = lane·spp + s, at most
+// INT_MAX items), for bendy_fold_samples to fold, and a non-null
+// `near_steps` [n·spp] int32 receives each item's RK4 step count.
 int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                          float far, int max_steps, float growth, void* near_steps,
                          void* stream) {
   const bool loopm = (flags & FLAG_LOOPM) != 0;
   if (!(flags & FLAG_GEO) || (flags & FLAG_BVH) || n_mass < 1 ||
-      (!loopm && n_mass > MAX_MASSES) ||
-      (loopm && (long long)n * spp > INT32_MAX))
+      (!loopm && n_mass > MAX_MASSES) || !items_ok(true, n, spp))
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
   P.n_mass = n_mass;
@@ -1592,18 +1651,20 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
 // Launch the volume instantiation on `stream`: the density-grid stack
 // `grid` [G,D,H,W] f32, march step and volume-bounce cap, trilinear or
 // nearest lookups, per-lane volume-event counts into `vevents` [n] int32.
-// With FLAG_GEO it is the geodesic one inside media (n_mass, FLAG_LOOPM and
-// the GeoParams as for bendy_trace_geodesic, with FLAG_LOOPM `vevents` per
-// item too); without, n_mass is ignored, and FLAG_BVH walks the node block
-// as for bendy_trace_surface.
+// With FLAG_GEO it is the geodesic one inside media (n_mass, FLAG_LOOPM,
+// and the GeoParams as for bendy_trace_geodesic); without, n_mass is
+// ignored, and FLAG_BVH walks the node block as for bendy_trace_surface,
+// one thread per lane, or else the item instantiation runs. Per item,
+// `vevents` is per item too.
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                        float far, int max_steps, float growth, void* near_steps,
                        const void* grid, int G, int D, int H, int W, float volume_step,
                        int max_volume_bounces, int nearest, void* vevents, void* stream) {
-  const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0;
+  const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0,
+             bvh = (flags & FLAG_BVH) != 0;
   if ((geo && (n_mass < 1 || (!loopm && n_mass > MAX_MASSES))) || (loopm && !geo) ||
-      (geo && (flags & FLAG_BVH)) || !bvh_args_ok(flags, bvh0, table_floats) ||
-      (loopm && (long long)n * spp > INT32_MAX) ||
+      (geo && bvh) || !bvh_args_ok(flags, bvh0, table_floats) ||
+      !items_ok(geo || !bvh, n, spp) ||
       grid == nullptr || vevents == nullptr || G < 1 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
@@ -1626,14 +1687,14 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
   P.nearest = nearest;
   const auto s = static_cast<cudaStream_t>(stream);
   if (!geo) {
-    return (flags & FLAG_BVH) ? launch<false, true, false, true>(P, want_aovs != 0, s)
-                              : launch<false, true>(P, want_aovs != 0, s);
+    return bvh ? launch<false, true, false, true>(P, want_aovs != 0, s)
+               : launch<false, true>(P, want_aovs != 0, s);
   }
   return loopm ? launch<true, true, true>(P, want_aovs != 0, s)
                : launch<true, true>(P, want_aovs != 0, s);
 }
 
-// Fold one LOOPM launch's per-item words on `stream` (fold_kernel): `samp`
+// Fold one per-item launch's words on `stream` (fold_kernel): `samp`
 // [n_out, n·spp] f32 and `cnt` [4, n·spp] int32 (rays, iters, vevents,
 // near_steps) into `out` [n_out, n], `rays`, `iters` and the optional
 // `vevents`, `near_steps` [n] int32; `first` = 0 carries on from their
@@ -1653,6 +1714,36 @@ int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_
       static_cast<int32_t*>(iters), static_cast<int32_t*>(vevents),
       static_cast<int32_t*>(near_steps), static_cast<int32_t*>(over_cap));
   return (int)cudaGetLastError();
+}
+
+// The item instantiation that a launch of bendy_trace_geodesic
+// (FLAG_GEO without `volumes`) or bendy_trace_volume (`volumes`, with or
+// without FLAG_GEO) with a table of `table_floats` (staged unless
+// FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its register budget
+// asks for (__launch_bounds__), the blocks one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of the
+// current device. Returns a CUDA error code.
+int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats, void* out) {
+  const bool geo = (flags & FLAG_GEO) != 0, aovs = want_aovs != 0, gtab = (flags & FLAG_GTAB) != 0;
+  if (out == nullptr || table_floats < 0 || !(geo || volumes)) return (int)cudaErrorInvalidValue;
+  Params P = {};
+  P.flags = flags;
+  P.table_floats = table_floats;
+  const size_t smem = dynamic_smem(P, false);
+  void (*kernel)(Params) = !volumes ? instance<true, false>(aovs, gtab)
+                           : geo    ? instance<true, true>(aovs, gtab)
+                                    : instance<false, true>(aovs, gtab);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int* o = static_cast<int*>(out);
+  o[0] = !volumes ? MIN_BLOCKS<true, false, false, false>
+         : geo    ? MIN_BLOCKS<true, true, false, false>
+                  : MIN_BLOCKS<false, true, false, false>;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], kernel, BLOCK, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&o[2], cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
 }
 
 const char* bendy_cuda_error_string(int code) {

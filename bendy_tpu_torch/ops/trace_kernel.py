@@ -5,7 +5,8 @@ for ``make_pallas_tracer`` and ``make_render_pass`` for
 ``make_pallas_render_pass``. The kernel is ``csrc/trace_surface.cu``, a
 hand-written CUDA C++ kernel for sm_90a that runs the whole regenerating
 wavefront loop of :func:`bendy_tpu_torch.ops.wavefront.trace_core`, one
-thread per lane. That function is its plain version. The kernel has
+thread per lane or per (lane, sample) (below). That function is its plain
+version. The kernel has
 compile-time instantiations behind three entry points, each with its own
 launch count: the flat surface tracer (:func:`trace_surface`), the
 geodesic one (:func:`trace_geodesic`, RK4 chord stepping over up to
@@ -15,11 +16,13 @@ instantiations) and the volume one (:func:`trace_volume`: march mode and
 the density lookup of sparse and dense grids, with or without geodesics,
 unrolled or looped). Primitives and lights are swept by run-time loops
 over the table in every instantiation, so the reference's looped
-primitive and light sweeps need no instantiation of their own. The LOOPM
-instantiations run one thread per (lane, sample) instead, so that a
-photon-ring pixel's long samples spread over threads, and a second kernel
-(:func:`fold_samples`) adds each lane's samples in sample order, bit-equal
-to one thread per lane.
+primitive and light sweeps need no instantiation of their own. Geodesics
+and media without the BVH (:func:`per_item`) run one thread per (lane,
+sample) item instead (the LOOPM and the item instantiations), so that a
+lane's long samples spread over threads and no thread carries a quota of
+samples, under a register budget that fits more warps per SM; a second
+kernel (:func:`fold_samples`) adds each lane's samples in sample order,
+bit-equal to one thread per lane.
 
 Dispatch is by the device of the lane tensors and by ``cfg.has_volumes``,
 ``cfg.geodesic`` and ``cfg.looped_masses``, with no fallback: CUDA tensors launch the matching
@@ -40,6 +43,8 @@ no pixel and is left as scheduling work.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -69,12 +74,17 @@ FLAG_BVH = 256  # nearest hits by the BVH walk (the looped-sweep scenes, ops/bvh
 # 128-thread block, in shared memory after the staged table
 BVH_STACK_BYTES = 2 * BVH_STACK * 128
 
-# a looped-mass launch runs one thread per (lane, sample) into per-item
-# buffers of n_out floats and N_COUNTS int32 counts (rays, iters, vevents,
-# near_steps); past SPLIT_BUDGET_BYTES of them the wrapper launches the
-# samples in chunks (at 1080p, 256 spp they would take 28 GB)
+# a per-item launch (:func:`per_item`) traces each (lane, sample) into
+# per-item buffers of n_out floats and N_COUNTS int32 counts (rays, iters,
+# vevents, near_steps); past SPLIT_BUDGET_BYTES of them the wrapper launches
+# the samples in chunks (at 1080p, 256 spp they would take 28 GB), each of
+# at most MAX_ITEMS items (the kernel numbers them in int32). 256 MiB cuts
+# cloud's 64 samples into 36 + 28, which ran 1 % faster on an H100 than one
+# launch of 64 (the fold of 64 samples a lane took twice as long as two of
+# 36 and 28: PERF.md §6)
 N_COUNTS = 4
 SPLIT_BUDGET_BYTES = 256 << 20
+MAX_ITEMS = 2**31 - 1
 
 
 def pack_camera_host(sensor, focal, aspect, fstop, focus, yfov,
@@ -210,6 +220,17 @@ def _flags(cfg: TraceConfig) -> int:
             | (FLAG_LOOPM if cfg.geodesic and cfg.looped_masses else 0))
 
 
+def per_item(cfg: TraceConfig, bvh: bool = False) -> bool:
+    """Whether a launch of ``cfg`` (``bvh``: its table has a node block)
+    traces each (lane, sample) item on its own into per-item buffers that
+    :func:`fold_samples` adds in sample order: geodesics (the LOOPM
+    instantiations with looped masses, the item instantiations with
+    unrolled ones) and, without the BVH, media (the item instantiations).
+    The surface and BVH instantiations keep one thread per lane (the
+    kernel's PER_ITEM, the same rule)."""
+    return cfg.geodesic or (cfg.has_volumes and not bvh)
+
+
 def table_in_global(nbytes: int, bvh: bool = False) -> bool:
     """Whether a scene table of ``nbytes`` (node block included) stays in
     global memory (the GTAB instantiations) instead of being staged in
@@ -226,20 +247,22 @@ def _check_launch(entry: str, dev: torch.device, rc: int) -> None:
         raise RuntimeError(f"{entry} launch failed on {dev}: CUDA error {rc} ({msg})")
 
 
-def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
+def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
             pix: torch.Tensor, sub: torch.Tensor, width: int, height: int, spp: int,
             spp_total: int, subsample: int, key: tuple, sample0: int,
             cfg: TraceConfig, extra: tuple = (), outs: tuple | None = None,
             max_iters: int | None = None, bvh_tests: torch.Tensor | None = None):
     """Check the arguments and launch the C entry point ``entry`` on the
     current stream; ``extra`` are the entry's arguments after
-    ``bvh_tests``, where a tensor goes in as its pointer. ``outs`` (out,
-    rays, iters) are the kernel's outputs (a looped-mass launch's per-item
-    buffers), else allocated per lane; ``max_iters`` is the loop cap
-    (default ``cfg.max_iters(spp)``). A table with a node block (``bvh0``
-    in ``counts``) launches the BVH instantiation, which writes each lane's
-    node and primitive test counts to ``bvh_tests`` ([2, B] int32) when it
-    is given. Returns (out, rays, iters)."""
+    ``bvh_tests``, where a tensor goes in as its pointer (None as NULL).
+    ``outs`` (out, rays, iters) are the kernel's outputs (a per-item
+    launch's per-item buffers), else allocated per lane; ``max_iters`` is
+    the loop cap (default ``cfg.max_iters(spp)``). A table with a node
+    block (``bvh0`` in ``counts``) launches the BVH instantiation, which
+    writes each lane's node and primitive test counts to ``bvh_tests``
+    ([2, B] int32) when it is given. Each launch adds one to
+    ``counter.launches`` (the calling wrapper's count). Returns (out, rays,
+    iters)."""
     from bendy_tpu_torch import _build
 
     dev = pix.device
@@ -285,22 +308,28 @@ def _launch(entry: str, table: torch.Tensor, counts: dict, cam_packed: torch.Ten
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _check_launch(entry, dev, rc)
+    counter.launches += 1
     return out, rays, iters
 
 
 def split_samples(lanes: int, spp: int, n_out: int) -> int:
-    """Samples per chunk of a looped-mass launch: as many as keep its
-    per-item buffers within ``SPLIT_BUDGET_BYTES``, at least one (one
-    sample's buffers are no larger than the lanes' own outputs)."""
+    """Samples per chunk of a per-item launch: as many as keep its per-item
+    buffers within ``SPLIT_BUDGET_BYTES`` and its items within
+    ``MAX_ITEMS``, at least one (one sample's buffers are no larger than
+    the lanes' own outputs). Raises where one sample of ``lanes`` lanes
+    passes ``MAX_ITEMS``."""
+    if lanes > MAX_ITEMS:
+        raise ValueError(f"{lanes} lanes: a chunk of one sample passes the kernel's "
+                         f"{MAX_ITEMS} int32 items")
     per_sample = max(lanes, 1) * 4 * (n_out + N_COUNTS)
-    return max(1, min(spp, SPLIT_BUDGET_BYTES // per_sample))
+    return max(1, min(spp, SPLIT_BUDGET_BYTES // per_sample, MAX_ITEMS // max(lanes, 1)))
 
 
 _OVER_CAP: dict = {}  # device -> [1] int32 (over_cap_lanes)
 
 
 def over_cap_lanes(device) -> torch.Tensor:
-    """[1] int32 on ``device``: the lanes of every looped-mass launch there,
+    """[1] int32 on ``device``: the lanes of every per-item launch there,
     since it was last zeroed (``.zero_()``), whose iteration sum passed the
     lane cap ``cfg.max_iters(spp)``. One thread per lane would have cut
     such a lane where the split traced every sample whole, so the two
@@ -313,24 +342,25 @@ def over_cap_lanes(device) -> torch.Tensor:
     return _OVER_CAP[dev]
 
 
-def _traced(entry: str, table, counts, cam_packed, pix, sub, width, height, spp, spp_total,
-            subsample, key, sample0, cfg: TraceConfig, extra, vevents=None, near_steps=None,
-            item_counts=None, bvh_tests=None):
-    """Launch ``entry``: one thread per lane, or with looped masses one per
-    (lane, sample) into per-item buffers, each chunk of samples followed by
-    its ordered fold (:func:`fold_samples`) into the per-lane outputs.
-    ``extra(near_steps, vevents)`` gives the entry's arguments after
-    ``bvh_tests``. ``item_counts``, optional [N_COUNTS, B, spp] int32,
-    receives a looped-mass launch's per-item counts (row 2, vevents, only
-    with volumes). ``bvh_tests`` as for :func:`_launch`. Returns (out,
-    rays, iters)."""
-    if not (cfg.geodesic and cfg.looped_masses):
-        return _launch(entry, table, counts, cam_packed, pix, sub, width, height, spp, spp_total,
-                       subsample, key, sample0, cfg, extra=extra(near_steps, vevents),
+def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, height, spp,
+            spp_total, subsample, key, sample0, cfg: TraceConfig, extra, vevents=None,
+            near_steps=None, item_counts=None, bvh_tests=None):
+    """Launch ``entry``: one thread per lane, or for :func:`per_item` per
+    (lane, sample) item into per-item buffers, each chunk of samples
+    followed by its ordered fold (:func:`fold_samples`) into the per-lane
+    outputs. ``extra(near_steps, vevents)`` gives the entry's arguments
+    after ``bvh_tests``. ``item_counts``, optional
+    [N_COUNTS, B, spp] int32, receives a per-item launch's per-item counts
+    (row 2, vevents, only with volumes; row 3, RK4 steps, only with
+    geodesics). ``bvh_tests`` and ``counter`` as for :func:`_launch`.
+    Returns (out, rays, iters)."""
+    if not per_item(cfg, "bvh0" in counts):
+        return _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, spp,
+                       spp_total, subsample, key, sample0, cfg, extra=extra(near_steps, vevents),
                        bvh_tests=bvh_tests)
     dev, B = pix.device, pix.shape[0]
     if spp < 1:
-        raise ValueError(f"a looped-mass launch traces at least one sample, got spp {spp}")
+        raise ValueError(f"a per-item launch traces at least one sample, got spp {spp}")
     n_out = N_OUT if cfg.want_aovs else 3
     out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
     rays = torch.empty(B, dtype=torch.int32, device=dev)
@@ -347,7 +377,7 @@ def _traced(entry: str, table, counts, cam_packed, pix, sub, width, height, spp,
         s = min(sc, spp - c0)
         f = samp[:n_out * B * s].view(n_out, B * s)
         c = cnt[:N_COUNTS * B * s].view(N_COUNTS, B * s)
-        _launch(entry, table, counts, cam_packed, pix, sub, width, height, s, spp_total,
+        _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, s, spp_total,
                 subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]),
                 outs=(f, c[0], c[1]), max_iters=cap)
         fold_samples(f, c, s, out, rays, iters, vevents, near_steps, first=c0 == 0,
@@ -355,6 +385,21 @@ def _traced(entry: str, table, counts, cam_packed, pix, sub, width, height, spp,
         if item_counts is not None:
             item_counts[:, :, c0:c0 + s] = c.view(N_COUNTS, B, s)
     return out, rays, iters
+
+
+def item_occupancy(cfg: TraceConfig, table_floats: int) -> tuple[int, int, int]:
+    """(blocks per SM its register budget asks for, blocks one SM holds,
+    SMs) of the item instantiation that a launch of ``cfg`` (geodesics or
+    media, no looped masses) with a table of ``table_floats`` runs on the
+    current card (the last two give the warps per SM)."""
+    from bendy_tpu_torch import _build
+
+    out = (ctypes.c_int * 3)()
+    flags = _flags(cfg) | (FLAG_GTAB if table_in_global(table_floats * 4) else 0)
+    rc = _build.library().bendy_item_occupancy(flags, int(cfg.has_volumes), int(cfg.want_aovs),
+                                               table_floats, ctypes.addressof(out))
+    _check_launch("bendy_item_occupancy", torch.device("cuda"), rc)
+    return tuple(out)
 
 
 def fold_samples_plain(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
@@ -450,11 +495,9 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     if cfg.geodesic or cfg.has_volumes:
         raise ValueError("a geodesic configuration launches trace_geodesic, one with "
                          "volumes trace_volume")
-    res = _launch("bendy_trace_surface", table, counts, cam_packed, pix, sub, width,
-                  height, spp, spp_total, subsample, key, sample0, cfg, bvh_tests=bvh_tests)
-    if pix.shape[0]:
-        trace_surface.launches += 1
-    return res
+    return _launch("bendy_trace_surface", trace_surface, table, counts, cam_packed, pix, sub,
+                   width, height, spp, spp_total, subsample, key, sample0, cfg,
+                   bvh_tests=bvh_tests)
 
 
 trace_surface.launches = 0
@@ -467,29 +510,27 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                    near_steps: torch.Tensor | None = None,
                    item_counts: torch.Tensor | None = None):
     """Launch the geodesic instantiation of ``csrc/trace_surface.cu`` (RK4
-    chord stepping; unrolled masses, or the LOOPM one with
-    ``cfg.looped_masses``) on the current stream.
+    chord stepping; the item instantiation over unrolled masses, or the
+    LOOPM one with ``cfg.looped_masses``) on the current stream.
 
     Same outputs as :func:`trace_surface`; the ``GeoParams`` go in as
-    launch arguments. With ``cfg.looped_masses`` the kernel runs one thread
-    per (lane, sample) and the fold kernel adds each lane's samples in
-    order (:func:`fold_samples`, chunks of :func:`split_samples`), with the
-    same sums as one thread per lane; ``near_steps`` (an optional [B] int32
-    output) receives each lane's count of RK4 steps and ``item_counts``
-    those of :func:`_traced`. Adds one to ``trace_geodesic.launches`` per
-    call. Raises unless ``cfg.geodesic`` without volumes and 1 <= n_mass
-    (at most ``MAX_MASSES`` unless ``cfg.looped_masses``).
+    launch arguments. The kernel traces each (lane, sample) on its own and
+    the fold kernel adds each lane's samples in order (:func:`fold_samples`,
+    chunks of :func:`split_samples`), with the same sums as one thread per
+    lane; ``near_steps`` (an optional [B] int32 output) receives each
+    lane's count of RK4 steps and ``item_counts`` those of :func:`_traced`.
+    Adds one to ``trace_geodesic.launches`` per kernel launch (one per
+    chunk of samples). Raises unless
+    ``cfg.geodesic`` without volumes and 1 <= n_mass (at most
+    ``MAX_MASSES`` unless ``cfg.looped_masses``).
     """
     if cfg.has_volumes:
         raise ValueError("a configuration with volumes launches trace_volume")
     geo = _geo_args(counts, cfg)
-    res = _traced("bendy_trace_geodesic", table, counts, cam_packed, pix, sub, width, height,
-                  spp, spp_total, subsample, key, sample0, cfg,
-                  lambda near, vev: (*geo, near),
-                  near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts)
-    if pix.shape[0]:
-        trace_geodesic.launches += 1
-    return res
+    return _traced("bendy_trace_geodesic", trace_geodesic, table, counts, cam_packed, pix, sub,
+                   width, height, spp, spp_total, subsample, key, sample0, cfg,
+                   lambda near, vev: (*geo, near),
+                   near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts)
 
 
 trace_geodesic.launches = 0
@@ -509,12 +550,13 @@ def _geo_args(counts: dict, cfg: TraceConfig) -> tuple:
 
 
 def _near_steps(near_steps: torch.Tensor | None, pix: torch.Tensor, cfg: TraceConfig):
-    """The optional per-lane RK4-step output of a looped-mass launch."""
+    """The optional per-lane RK4-step output of a geodesic launch (every
+    geodesic launch runs per item: :func:`per_item`)."""
     if near_steps is None:
         return None
-    if (not cfg.looped_masses or near_steps.shape != pix.shape
+    if (not cfg.geodesic or near_steps.shape != pix.shape
             or near_steps.dtype != torch.int32 or near_steps.device != pix.device):
-        raise ValueError("near_steps: a [B] int32 tensor beside the lanes, for looped_masses")
+        raise ValueError("near_steps: a [B] int32 tensor beside the lanes, for a geodesic launch")
     return near_steps
 
 
@@ -531,11 +573,13 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     ``cfg.geodesic``) on the current stream.
 
     Returns (out, rays, iters) as :func:`trace_surface`, then vol_events
-    [B] int32, each lane's count of volume events (density lookups);
-    looped masses, ``near_steps`` and ``item_counts`` as for
-    :func:`trace_geodesic`, the BVH and ``bvh_tests`` as for
-    :func:`trace_surface`. Adds one to ``trace_volume.launches`` per
-    call. Raises unless
+    [B] int32, each lane's count of volume events (density lookups). It
+    runs per item as :func:`trace_geodesic` does (the item instantiation,
+    or the LOOPM one with looped masses), ``near_steps`` and
+    ``item_counts`` as there; with the BVH (a table with a node block) one
+    thread per lane, ``bvh_tests`` as for :func:`trace_surface`. Adds one to
+    ``trace_volume.launches`` per kernel launch (one per chunk of samples).
+    Raises unless
     ``cfg.has_volumes``, on a grid the kernel does not take, and as
     :func:`trace_geodesic` on a geodesic configuration it does not take.
     """
@@ -549,14 +593,12 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     vevents = torch.empty(pix.shape[0], dtype=torch.int32, device=pix.device)
     G, D, H, W = grid.shape
     out, rays, iters = _traced(
-        "bendy_trace_volume", table, counts, cam_packed, pix, sub, width, height, spp,
-        spp_total, subsample, key, sample0, cfg,
+        "bendy_trace_volume", trace_volume, table, counts, cam_packed, pix, sub, width, height,
+        spp, spp_total, subsample, key, sample0, cfg,
         lambda near, vev: (*geo, near, grid, G, D, H, W, cfg.volume_step,
                            cfg.max_volume_bounces, int(cfg.vol_nearest), vev),
         vevents=vevents, near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts,
         bvh_tests=bvh_tests)
-    if pix.shape[0]:
-        trace_volume.launches += 1
     return out, rays, iters, vevents
 
 
@@ -568,7 +610,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     """Build the tracer for one compiled scene.
 
     Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B],
-    sample0=0, count_tests=False) -> TraceSums``: on CUDA lane tensors the
+    sample0=0, count_tests=False, count_steps=False) -> TraceSums``: on
+    CUDA lane tensors the
     kernel (:func:`trace_volume` for a configuration with volumes, else
     :func:`trace_geodesic` for a geodesic one, else :func:`trace_surface`),
     on CPU ones the plain :func:`trace_core`. Each lane traces the samples
@@ -576,7 +619,10 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     the sharded pass splits samples over ranks with globally unique RNG
     streams. Ray, iteration and volume-event counts are int64 sums of
     per-lane counts, with the same meaning on both routes, and
-    ``lane_counts`` holds the per-lane counts themselves. The looped-sweep
+    ``lane_counts`` holds the per-lane counts themselves (``near_steps``,
+    each lane's RK4 steps, on the kernel route only when ``count_steps``
+    asks for them with geodesics; the CPU route always counts them). The
+    looped-sweep
     scenes (``cfg.looped_sweep``) without geodesics walk a BVH built here
     once (:func:`tracer_table`); ``count_tests`` then adds each lane's node
     and primitive tests to ``lane_counts`` (``node_tests``,
@@ -590,11 +636,13 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     grids: dict = {}
 
     def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0,
-            count_tests: bool = False) -> TraceSums:
+            count_tests: bool = False, count_steps: bool = False) -> TraceSums:
         key = render_key(seed, pass_idx)
         dev = pix.device
         if count_tests and ("bvh0" not in counts or dev.type != "cuda"):
             raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
+        if count_steps and not cfg.geodesic:
+            raise ValueError("count_steps: only a geodesic trace takes RK4 steps")
         if dev.type == "cpu":
             return trace_core(scn, unpack_camera(cam_packed), key, pix, sub, width,
                               height, spp, subsample, cfg, spp_total=spp_total,
@@ -609,6 +657,9 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         if count_tests:
             tests = torch.empty((2, pix.shape[0]), dtype=torch.int32, device=dev)
             kw["bvh_tests"] = tests
+        near = None
+        if count_steps:
+            near = kw["near_steps"] = torch.empty(pix.shape[0], dtype=torch.int32, device=dev)
         lanes = (tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
                  sub.to(torch.int32))
         if cfg.has_volumes:
@@ -622,6 +673,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         lane_counts = dict(rays=rays, iters=iters, vol_events=vol)
         if tests is not None:
             lane_counts.update(node_tests=tests[0], prim_tests=tests[1])
+        if near is not None:
+            lane_counts["near_steps"] = near
         sums = (rays.sum(dtype=torch.int64), iters.sum(dtype=torch.int64),
                 vol.sum(dtype=torch.int64))
         rad = V3(out[0], out[1], out[2])

@@ -1,0 +1,106 @@
+"""Time chip_smoke.py's main paths in several checkouts on one card.
+
+    python3 -m bendy_tpu_torch.tools.checkout_ab --phases 5,6,7,8 \\
+        [--output normal] [--set SPLIT_BUDGET_BYTES=1073741824] \\
+        [--out smoke_out/ab] DIR [DIR ...]
+
+Each DIR is the root of a checkout that holds ``chip_smoke.py`` (the
+parent unpacked with ``git archive`` into a git-ignored directory, this
+tree as ``.``). All are built first, at once; then each DIR, in the order
+given (a DIR named twice runs twice: parent, A, B, B, A, parent), runs in
+a process of its own from its own root: chip_smoke's phase-2 ptxas lines,
+then ``main_path`` (in FULL output only: its film check reads radiance)
+and ``kernel_alone_and_passes`` of each phase asked for, with the scene's
+``Output`` from ``--output`` and module settings of ``ops/trace_kernel``
+from ``--set``. Each run's output goes to
+``OUT/<index>_<dir>.txt``; the kernel-alone lines are printed. Needs one
+card; a run that fails stops the rest.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+RUN = """
+import os, sys, torch
+import chip_smoke as c
+from bendy_tpu_torch import Config, Output, _build
+from bendy_tpu_torch.ops import trace_kernel
+phases, output, settings = {phases!r}, {output!r}, {settings!r}
+dev = torch.device("cuda", 0)
+_build.build()
+print("phase 2: ptxas: " + " | ".join(c.ptxas_report(_build.build_log())))
+for k, v in settings.items():
+    setattr(trace_kernel, k, v)
+for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, _) in c.MAIN_PATHS:
+    if phase in phases:
+        launch = getattr(trace_kernel, wrapper)
+        config = Config(**kw, output=Output(output))
+        if output == "full":
+            path = c.main_path(phase, name, config, W, H, spp, n, dev, launch)
+        else:  # main_path's film check reads radiance: the kernel alone only
+            r, cam = c.renderer(name, config, W, H, dev)
+            r.camera_params(cam)
+            path = dict(r=r, cam=cam, seed=int.from_bytes(os.urandom(4), "little"))
+        c.kernel_alone_and_passes(phase, path, W, H, spp, n, pass_spp, rows, launch, dev)
+"""
+BUILD = "from bendy_tpu_torch import _build; print(_build.build())"
+TIMEOUT_S = 900
+
+
+def setting(text: str) -> tuple[str, int]:
+    key, _, value = text.partition("=")
+    return key, int(value)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("dirs", nargs="+", type=Path)
+    ap.add_argument("--phases", required=True,
+                    type=lambda t: {int(p) for p in t.split(",")})
+    ap.add_argument("--output", default="full")
+    ap.add_argument("--set", dest="settings", action="append", type=setting, default=[])
+    ap.add_argument("--out", type=Path, default=Path("smoke_out/ab"))
+    args = ap.parse_args(argv)
+    args.out.mkdir(parents=True, exist_ok=True)
+    dirs = [d.resolve() for d in args.dirs]
+    builds = {d: subprocess.Popen([sys.executable, "-c", BUILD], cwd=d, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+              for d in dict.fromkeys(dirs)}
+    try:
+        for d, proc in builds.items():
+            log = proc.communicate(timeout=TIMEOUT_S)[0]
+            print(f"built {d}: {log.strip().splitlines()[-1] if log.strip() else ''}", flush=True)
+            if proc.returncode:
+                print(log)
+                return 1
+    finally:
+        for proc in builds.values():
+            if proc.poll() is None:
+                proc.kill()
+    code = RUN.format(phases=sorted(args.phases), output=args.output,
+                      settings=dict(args.settings))
+    for i, (d, name) in enumerate(zip(dirs, args.dirs), 1):
+        t0 = time.perf_counter()
+        label = name.name or "this"
+        proc = subprocess.run([sys.executable, "-c", code], cwd=d, capture_output=True, text=True,
+                              timeout=TIMEOUT_S)
+        text = proc.stdout + proc.stderr
+        (args.out / f"{i}_{label}.txt").write_text(text)
+        print(f"run {i} {label} ({time.perf_counter() - t0:.0f} s, exit {proc.returncode}):",
+              flush=True)
+        for ln in text.splitlines():
+            if "alone median" in ln or "FAIL" in ln:
+                print(f"  {ln}", flush=True)
+        if proc.returncode:
+            print(text[-4000:])
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

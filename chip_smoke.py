@@ -9,10 +9,13 @@ Phases, one line each (any failure exits non-zero):
   2. builds the CUDA kernels from bendy_tpu_torch/csrc with nvcc and prints
      each instantiation's ptxas registers, stack and spills (surface,
      geodesic, and the volume ones with and without geodesics; the geodesic
-     ones with unrolled and with looped masses, LOOPM; the surface and
-     non-geodesic volume ones also with the BVH walk, BVH; each with the
-     table in shared or in global memory, GTAB), of the fold kernel and of
-     the two probe kernels (csrc/probes.cu),
+     ones with unrolled masses, the item instantiations, and with looped
+     masses, LOOPM; the volume ones without geodesics as item
+     instantiations and with the BVH walk, BVH, as the surface ones too;
+     each with the table in shared or in global memory, GTAB), of the fold
+     kernel and of the two probe kernels (csrc/probes.cu); then each item
+     instantiation's register budget (minBlocks) and the blocks of 128 an
+     SM holds,
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
@@ -30,14 +33,16 @@ Phases, one line each (any failure exits non-zero):
      mass_cluster at spp 1, 4 and 16, max_bounces=2, seed 3, a 13-mass
      ring at spp 2 and 12 masses inside a medium at spp 2 (the reference's
      multi_mass_scene), FULL and NORMAL (per lane rtol 5e-4, atol 1e-5,
-     equal int64 ray counts and equal per-lane rays, iterations and
-     volume events; the looped-mass cases with 0 lanes past the lane cap;
+     equal int64 ray counts and equal per-lane rays, iterations, volume
+     events and (geodesics) RK4 steps; every case that runs per (lane,
+     sample), geodesics and media without the BVH, with 0 lanes past the
+     lane cap;
      every BVH case in FULL output also against the plain walk through the
      tracer, trace_core(bvh=...): bit-equal to the plain sweep, and equal
      per-lane node and primitive test counts to the kernel's);
      blackhole, cloud, blackhole_cloud at spp 4, mass_cluster at spp 4 and
-     the medium case also with the table forced into global memory, and
-     the last two with one sample per chunk; then the Renderer
+     the medium case also with the table forced into global memory and
+     with one sample per chunk; then the Renderer
      against the cornell CPU golden at the same tolerance, and against the
      volume golden within the budget tests/test_torch_volume.py holds,
   4. the cornell main path: Renderer(cornell) at 256x256, 64 spp, 2x2
@@ -51,14 +56,15 @@ Phases, one line each (any failure exits non-zero):
   5. the blackhole main path (bench.py's blackhole_geodesic row):
      Renderer(blackhole, Config(max_bounces=2)) at 512x512, 32 spp, no
      subpixels, into a DeviceFilm — one warm-up pass, then 4 chained timed
-     passes (the geodesic kernel's launch count); the geodesic kernel alone
-     (as in phase 4), its per-lane loop-length spread and rays per warp
-     issue slot; then one kernel pass and one plain pass at spp 4,
-     compared per pixel and by ray count,
+     passes (the geodesic kernel's and the fold kernel's launch counts);
+     the geodesic kernel alone (as in phase 4; its RK4 steps counted for the
+     bound), its per-item and per-lane loop lengths, rays per warp issue
+     slot and slowest block over the mean block, the blocks per SM, and
+     the fold kernel alone; then one kernel pass and one plain pass at spp
+     4, compared per pixel and by ray count,
   6. the cloud main path (sparse 16^3 grid): Renderer(cloud) at 256x256,
-     64 spp, 2x2 subpixels, default Config, as phase 4, through the volume
-     kernel; the kernel alone with its loop-length spread, rays per warp
-     issue slot and march share (volume events over rays); one kernel pass
+     64 spp, 2x2 subpixels, default Config, as phase 5, through the volume
+     kernel and the march share (volume events over rays); one kernel pass
      and one plain pass at spp 4, compared,
   7. the dense_cloud main path (dense 32^3 grid), as phase 6,
   8. the blackhole_cloud main path (geodesics inside media, bench.py's
@@ -67,7 +73,7 @@ Phases, one line each (any failure exits non-zero):
   9. the prim_grid_256 main path (258 primitives, the looped primitive
      sweep, walked as a BVH; bench.py's prim_grid_256 row):
      build_prim_grid(256) at 256x256, 16 spp, no subpixels,
-     Config(max_bounces=4), through the surface kernel, as phase 5 (the
+     Config(max_bounces=4), through the surface kernel, as phase 4 (the
      plain pass at spp 4), with the BVH's node and primitive tests per
      segment from one instrumented call and its bound (one primitive test
      per segment) beside the sweep's,
@@ -134,17 +140,19 @@ PEAK_F32_S = 67e12
 # FP32 operations per traced segment, counted from csrc/trace_surface.cu
 # (a divide or a sqrt counts as one): the intersection test of each
 # primitive kind, and per mass the capture/far/h² sweep that every
-# geodesic segment runs. The shading, and the RK4 stages of the unrolled
-# masses (only on segments near a mass), are not counted, so the bound is
-# a floor.
+# geodesic segment runs. The shading is not counted, so the bound is a
+# floor.
 SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
 GEO_BEGIN_OPS, GEO_BEGIN_PER_MASS_OPS = 5, 21
-# the looped mass sweep (LOOPM): its begin sweep has no h² (17 per mass),
-# and each RK4 step (counted per lane by the kernel) is 4 stages of the
-# looped acceleration (5 for |d|², 33 per mass: rel 3, r² 5, rel·d 5, h² 4,
-# inv_r 3, inv_r⁵ 4, s 3, the sum 6) and 115 for the stage states, the two
-# sums, the step size and the chord
+# each RK4 step (a chord near a mass, counted per item by the kernel) is 4
+# stages of the acceleration and 115 for the stage states, the two sums,
+# the step size and the chord. The looped mass sweep (LOOPM): its begin
+# sweep has no h² (17 per mass); its stage 5 for |d|² and 33 per mass (rel
+# 3, r² 5, rel·d 5, h² 4, inv_r 3, inv_r⁵ 4, s 3, the sum 6). The unrolled
+# masses' frozen-h² stage (acc_frozen): no |d|², 24 per mass (rel 3, r² 5,
+# inv_r 3, inv_r⁵ 4, s 3, the sum 6)
 LOOPM_BEGIN_PER_MASS_OPS, RK4_STEP_OPS, ACC_STAGE_OPS, ACC_PER_MASS_OPS = 17, 115, 5, 33
+ACC_FROZEN_PER_MASS_OPS = 24
 # FP32 operations of one volume event's density lookup, counted from
 # csrc/trace_surface.cu: grid_axis 7 per axis (clamp 2, scale, floor,
 # fraction, two weights), the nested lerp 21, the box coordinate 10, the
@@ -167,6 +175,15 @@ def sm_clock() -> str:
     return f"{c['clocks.sm']}, {c['power.draw']}"
 
 
+def trace_label(aovs: int, geo: int, vol: int, loopm: int, gtab: int, bvh: int) -> str:
+    """A tracer instantiation's name: its flags, and ITEM for the item
+    instantiations (one thread per (lane, sample) without LOOPM: geodesics,
+    and media without the BVH; the kernel's PER_ITEM)."""
+    item = " ITEM" if not loopm and (geo or (vol and not bvh)) else ""
+    return (f"trace_kernel<AOVS={aovs},GEO={geo},VOL={vol},LOOPM={loopm},GTAB={gtab},"
+            f"BVH={bvh}>{item}")
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per kernel instantiation: registers, stack frame, spills."""
     lines, name, frame = [], None, ""
@@ -179,15 +196,34 @@ def ptxas_report(log: str) -> list[str]:
             frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", name)
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
             p = re.search(r"(fp32_chain|bf16_dot_chain)_kernelILb(\d)E", name)
-            label = (f"trace_kernel<AOVS={t.group(1)},GEO={t.group(2)},VOL={t.group(3)},"
-                     f"LOOPM={t.group(4)},GTAB={t.group(5)},BVH={t.group(6) or 0}>" if t else
+            label = (trace_label(*(int(g) for g in t.groups())) if t else
                      f"{p.group(1)}_kernel<{('FMA', 'F32IN')[p.group(1) != 'fp32_chain']}="
                      f"{p.group(2)}>" if p else
                      "fold_kernel" if "fold_kernel" in name else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
+
+
+def item_budgets() -> str:
+    """Phase 2: each item instantiation's register budget (the blocks per
+    SM its __launch_bounds__ asks for) and the blocks one SM holds, with a
+    4 KiB table in shared memory and with the table in global memory
+    (GTAB)."""
+    from bendy_tpu_torch.ops.trace_kernel import MAX_TABLE_BYTES, item_occupancy
+    from bendy_tpu_torch.ops.wavefront import TraceConfig
+
+    parts = []
+    for geo, vol in ((True, False), (False, True), (True, True)):
+        for aovs in (False, True):
+            for gtab, floats in ((0, 1024), (1, MAX_TABLE_BYTES // 4 + 1)):
+                cfg = TraceConfig(geodesic=geo, has_volumes=vol, want_aovs=aovs)
+                min_blocks, per_sm, sms = item_occupancy(cfg, floats)
+                parts.append(f"{trace_label(int(aovs), int(geo), int(vol), 0, gtab, 0)}: minBlocks "
+                             f"{min_blocks}, {per_sm} blocks of 128 per SM ({4 * per_sm} warps) "
+                             f"x {sms} SMs")
+    return " | ".join(parts)
 
 
 def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
@@ -196,16 +232,15 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
     """(least ms the card could take, "bytes" or "operations") for one
     tracer launch: each input read once (lanes, camera, scene table,
     density grids), each output written once (channel sums, per-lane rays
-    and iterations, volume events for the volume kernel, RK4 steps for a
-    looped-mass one), and the counted FP32 operations of every traced
-    segment, every density lookup and (looped masses) every RK4 step of
-    this run. A segment's intersection counts one test of every primitive
+    and iterations, volume events with media, RK4 steps with geodesics),
+    and the counted FP32 operations of every traced segment, every density
+    lookup and (geodesics) every RK4 step of this run. A segment's intersection counts one test of every primitive
     (the sweep), except on a table with a BVH, where it counts one test of
     the cheapest kind the scene has: the least any nearest-hit search must
     do, whatever implements it (``sweep`` counts the sweep there too: the
     sweep floor, printed beside it)."""
     n_out = 10 if cfg.want_aovs else 3
-    n_counts = 2 + cfg.has_volumes + (cfg.geodesic and cfg.looped_masses)
+    n_counts = 2 + cfg.has_volumes + cfg.geodesic
     nbytes = lanes * (8 + 4 * n_out + 4 * n_counts) + 4 * (table_floats + 32 + grid_floats)
     kinds = [(SPHERE_OPS, counts["n_sph"]), (RECT_OPS, counts["n_rct"]), (BOX_OPS, counts["n_box"])]
     if "bvh0" in counts and not sweep:
@@ -216,7 +251,9 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
     if cfg.geodesic:
         per_mass = LOOPM_BEGIN_PER_MASS_OPS if cfg.looped_masses else GEO_BEGIN_PER_MASS_OPS
         per_ray += GEO_BEGIN_OPS + per_mass * n_mass
-    rk4_ops = rk4_steps * (RK4_STEP_OPS + 4 * (ACC_STAGE_OPS + ACC_PER_MASS_OPS * n_mass))
+    stage, per_mass = ((ACC_STAGE_OPS, ACC_PER_MASS_OPS) if cfg.looped_masses
+                       else (0, ACC_FROZEN_PER_MASS_OPS))
+    rk4_ops = rk4_steps * (RK4_STEP_OPS + 4 * (stage + per_mass * n_mass))
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = (rays * per_ray + vol_events * DENSITY_OPS + rk4_ops) / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -312,7 +349,8 @@ def renderer(name: str, config, width: int, height: int, dev):
 def compare_lanes(tag: str, kern, plain, cfg) -> float:
     """Fail unless the kernel's TraceSums equal the plain version's per lane
     (rtol/atol) with equal int64 ray counts and equal per-lane rays,
-    iterations and volume events; returns the largest |diff|."""
+    iterations, volume events and (geodesics) RK4 steps; returns the
+    largest |diff|."""
     import torch
 
     fields = [("radiance", "xyz")]
@@ -327,11 +365,15 @@ def compare_lanes(tag: str, kern, plain, cfg) -> float:
     rays_k, rays_p = int(kern.rays), int(plain.rays)
     iters_k, iters_p = int(kern.iters), int(plain.iters)
     vol_k, vol_p = int(kern.vol_events), int(plain.vol_events)
+    keys = [k for k in ("rays", "iters", "vol_events", "near_steps") if k in kern.lane_counts]
     counts_off = sum(int((kern.lane_counts[k].long() != plain.lane_counts[k]).sum())
-                     for k in ("rays", "iters", "vol_events"))
+                     for k in keys)
+    chords = (f", RK4 steps kernel {int(kern.lane_counts['near_steps'].sum())} plain "
+              f"{int(plain.lane_counts['near_steps'].sum())}" if "near_steps" in keys else "")
     print(f"phase 3: {tag}: lanes off {bad}, max |diff| {err:.3e}, rays kernel {rays_k} "
           f"plain {rays_p}, lane iterations kernel {iters_k} plain {iters_p}, volume events "
-          f"kernel {vol_k} plain {vol_p}, per-lane counts off {counts_off}")
+          f"kernel {vol_k} plain {vol_p}{chords}, per-lane counts off {counts_off} "
+          f"({', '.join(keys)})")
     if (bad or counts_off or rays_k != rays_p or iters_k != iters_p or vol_k != vol_p
             or kern.rays.dtype != torch.int64):
         fail(f"kernel disagrees with plain on {tag}")
@@ -361,7 +403,7 @@ def golden_check(dev, name: str, pixels_off: int, rtol: float, atol: float) -> f
 
 
 GLOBAL_TABLE = {"MAX_TABLE_BYTES": 0}  # the GTAB instantiations on a small table
-ONE_SAMPLE_CHUNKS = {"SPLIT_BUDGET_BYTES": 1}  # a looped-mass launch, one sample per chunk
+ONE_SAMPLE_CHUNKS = {"SPLIT_BUDGET_BYTES": 1}  # a per-item launch, one sample per chunk
 BVH = {"looped_sweep": True}  # the BVH instantiations on a small scene (a TraceConfig field)
 
 
@@ -377,13 +419,15 @@ def phase3_cases() -> list:
 
     cases = [(name, 4, Config(max_bounces=3), 7, (BVH,) * (name != "cornell2"))
              for name in SCENES]
-    cases += [(name, spp, Config(max_bounces=2), 3, (GLOBAL_TABLE,) * (spp == 4))
+    cases += [(name, spp, Config(max_bounces=2), 3,
+               ((GLOBAL_TABLE,) + (ONE_SAMPLE_CHUNKS,) * (name == "blackhole")) * (spp == 4))
               for name in GEO_SCENES for spp in (1, 4)]
     cases += [(name, 2, Config(max_bounces=3), 11,
-               (GLOBAL_TABLE, BVH, {**GLOBAL_TABLE, **BVH}) if name == "cloud" else ())
+               (GLOBAL_TABLE, BVH, {**GLOBAL_TABLE, **BVH}, ONE_SAMPLE_CHUNKS)
+               if name == "cloud" else ())
               for name in VOL_SCENES]
     cases += [("blackhole_cloud", spp, Config(max_bounces=2, volume_step=0.6), 3,
-               (GLOBAL_TABLE,) * (spp == 4)) for spp in (1, 4)]
+               (GLOBAL_TABLE, ONE_SAMPLE_CHUNKS) * (spp == 4)) for spp in (1, 4)]
     cases += [("cloud", 2, Config(max_bounces=3, vol_sampling="nearest"), 11, ())]
     # the looped sweeps: primitives (with tables past 48 KiB and past shared
     # memory), primitives with media, lights, masses (split over samples,
@@ -481,7 +525,8 @@ def kernel_vs_plain(dev, names=None) -> dict:
 
     from bendy_tpu_torch import Output
     from bendy_tpu_torch.ops import trace_kernel
-    from bendy_tpu_torch.ops.trace_kernel import make_tracer, over_cap_lanes, split_samples
+    from bendy_tpu_torch.ops.trace_kernel import (make_tracer, over_cap_lanes, per_item,
+                                                  split_samples)
     from bendy_tpu_torch.ops.wavefront import trace_core
     from bendy_tpu_torch.utils.rng import render_key
 
@@ -506,7 +551,8 @@ def kernel_vs_plain(dev, names=None) -> dict:
                 with trace_kernel_settings(settings):
                     over_cap_lanes(dev).zero_()
                     kern = make_tracer(r.arrays, W, H, spp, 1, cfg_k)(
-                        r._cam_packed, seed, 0, pix, sub, count_tests=bvh)
+                        r._cam_packed, seed, 0, pix, sub, count_tests=bvh,
+                        count_steps=cfg_k.geodesic)
                     torch.cuda.synchronize()
                     over = int(over_cap_lanes(dev))
                     gtab = trace_kernel.table_in_global(table_np.nbytes, bvh)
@@ -519,7 +565,7 @@ def kernel_vs_plain(dev, names=None) -> dict:
                        + (f" bvh ({counts['n_node']} nodes)" if bvh else "")
                        + f", table {table_np.nbytes} B in {'global' if gtab else 'shared'} memory"
                        + (f", {chunks} chunk(s), over-cap lanes {over}"
-                          if cfg.looped_masses else "")
+                          if per_item(cfg_k, bvh) else "")
                        + f" (plain {plain_s:.1f} s)")
                 err = compare_lanes(tag, kern, plain, cfg)
                 if over:
@@ -541,8 +587,10 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
               launch) -> dict:
     """Drive one main path: a warm-up pass, then 4 chained passes into a
     DeviceFilm with every launch count set to 0 just before them; fails
-    unless ``launch`` (the path's kernel wrapper) ran once per pass, and on
-    a looped-mass path the fold kernel too."""
+    unless ``launch`` (the path's kernel wrapper) launched its kernel once
+    per pass, or on a per-item path once per chunk of samples
+    (:func:`sample_chunks`), each launch followed by one of the fold
+    kernel."""
     import numpy as np
 
     from bendy_tpu_torch import DeviceFilm, RenderConfig, Subsample
@@ -550,6 +598,7 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
 
     r, cam = renderer(name, config, W, H, dev)
     cfg = r.trace_config(r.config, cam)
+    chunks = sample_chunks(cfg, W * H * n * n, spp)
     rc = RenderConfig(samples=spp, subsample=Subsample(n))
     seed = int.from_bytes(os.urandom(4), "little")
     film = DeviceFilm(W, H, device=dev)
@@ -569,29 +618,52 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
           f"{dt / 4:.4f} s/pass, {rays} rays ({rays // 4} per pass), "
           f"{rays / dt / 1e6:.1f} Mrays/s, {launch.__name__} launches {launches}, "
           f"fold_samples launches {folds}")
-    if launches != 4:
-        fail(f"main path launched {launch.__name__} {launches} times, expected 4")
-    if cfg.geodesic and cfg.looped_masses and folds < 4:
-        fail(f"the looped-mass main path launched fold_samples {folds} times, expected 4")
+    if launches != 4 * chunks:
+        fail(f"main path launched {launch.__name__} {launches} times, expected 4 x {chunks}")
+    if folds != (launches if is_per_item(cfg) else 0):
+        fail(f"main path launched fold_samples {folds} times, expected one per tracer launch")
     if not (np.isfinite(mean).all() and mean.shape == (H, W, 3) and mean.mean() > 0):
         fail(f"{name} main-path film is not finite and non-zero")
-    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, launches=launches, folds=folds)
+    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, launches=launches, folds=folds,
+                chunks=chunks)
+
+
+def is_per_item(cfg) -> bool:
+    """Whether the tracer runs ``cfg`` per (lane, sample) item, then folds."""
+    from bendy_tpu_torch.ops.bvh import uses_bvh
+    from bendy_tpu_torch.ops.trace_kernel import per_item
+
+    return per_item(cfg, uses_bvh(cfg))
+
+
+def sample_chunks(cfg, lanes: int, spp: int) -> int:
+    """Tracer launches in one call of ``lanes`` lanes at ``spp``: one, or on
+    a per-item path one per chunk of samples (``split_samples``)."""
+    from bendy_tpu_torch.ops.trace_kernel import split_samples
+
+    if not is_per_item(cfg):
+        return 1
+    return -(-spp // split_samples(lanes, spp, 10 if cfg.want_aovs else 3))
 
 
 def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: int,
                             pass_spp: int, plain_rows: int, launch, dev) -> dict:
     """Time the kernel alone at the main-path shape (the median and spread
-    of REPEATS calls, each between its own CUDA events with a fresh seed,
-    after at least 0.5 s of warm-up calls; the SM clock and power read
-    after them), then one kernel pass (timed the same way) and one plain
-    pass at ``pass_spp`` over the first ``plain_rows`` rows, compared per
-    pixel and by ray count. A looped-mass path also prints its per-item
-    and per-lane loop lengths and block tails, and times the fold kernel
-    alone (:func:`fold_alone`). Returns the timings, the bound and the
-    largest |diff|."""
+    of REPEATS calls of the wrapper, each between its own CUDA events with
+    a fresh seed, after at least 0.5 s of warm-up calls; the SM clock and
+    power read after them; per launch, the call's time over its launches,
+    on a per-item path each with its fold), then one kernel pass (timed
+    the same way) and one plain pass at ``pass_spp`` over the first
+    ``plain_rows`` rows, compared per pixel and by ray count. It prints the
+    per-lane loop lengths and block tail; a per-item path
+    (:func:`is_per_item`) also its per-item ones, the blocks per SM (the
+    item instantiations) and the fold kernel alone (:func:`fold_alone`).
+    Returns the timings and the bound per launch and the largest
+    |diff|."""
     import torch
 
-    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, pass_lanes, tracer_table
+    from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_render_pass, pass_lanes,
+                                                  tracer_table)
     from bendy_tpu_torch.render import render_pass
     from bendy_tpu_torch.utils.rng import render_key
 
@@ -608,34 +680,43 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     grid = r.arrays.vol_grid.contiguous() if cfg.has_volumes else None
     if grid is not None:
         lanes += (grid,)
-    looped_masses = cfg.geodesic and cfg.looped_masses
-    extra = {}
-    if looped_masses:  # each lane's RK4 steps, for the bound
-        extra["near_steps"] = torch.empty(pix.numel(), dtype=torch.int32, device=dev)
+    items = is_per_item(cfg)
+    chunks = sample_chunks(cfg, pix.numel(), spp)
 
     keys = [render_key(seed + i, 0) for i in range(REPEATS + 1)]  # host work, not timed
 
     def call(i, **more):
         return launch(*lanes, width=W, height=H, spp=spp, spp_total=spp, subsample=n,
-                      key=keys[i], sample0=0, cfg=cfg, **extra, **more)
+                      key=keys[i], sample0=0, cfg=cfg, **more)
 
-    res, kernel_ms, kernel_lo, kernel_hi = cuda_ms_median(call, REPEATS)
+    res, call_ms, call_lo, call_hi = cuda_ms_median(call, REPEATS)
     clock = sm_clock()
     rays, iters = res[1], res[2]
+    item_counts = None
+    if items:  # an instrumented call: each item's counts (RK4 steps in row 3)
+        item_counts = torch.empty((4, pix.numel(), spp), dtype=torch.int32, device=dev)
+        res = call(REPEATS, item_counts=item_counts)
+        rays, iters = res[1], res[2]
     n_rays = int(rays.sum(dtype=torch.int64))
     n_vol = int(res[3].sum(dtype=torch.int64)) if grid is not None else 0
-    n_rk4 = int(extra["near_steps"].sum(dtype=torch.int64)) if looped_masses else 0
+    n_rk4 = int(item_counts[3].sum(dtype=torch.int64)) if cfg.geodesic else 0
     bound_args = (counts, table.numel(), cfg, n_rays, pix.numel(), n_vol,
                   0 if grid is None else grid.numel(), n_rk4)
     bound_ms, bound_by = trace_bound(*bound_args)
     sweep_ms, _ = trace_bound(*bound_args, sweep=True)
+    kernel_ms, kernel_lo, kernel_hi = (t / chunks for t in (call_ms, call_lo, call_hi))
     march = f", march share {n_vol / n_rays:.4f} ({n_vol} volume events)" if grid is not None else ""
-    rk4 = f", {n_rk4} RK4 steps ({n_rk4 / n_rays:.4f} per ray)" if looped_masses else ""
-    print(f"phase {phase}: {launch.__name__} alone median {kernel_ms:.3f} ms per launch (min "
-          f"{kernel_lo:.3f}, max {kernel_hi:.3f}, {REPEATS} seeds) at {W}x{H} {spp} spp, "
+    rk4 = f", {n_rk4} RK4 steps ({n_rk4 / n_rays:.4f} per ray)" if cfg.geodesic else ""
+    per = ("per launch" if chunks == 1 else
+           f"per call of {chunks} launches ({kernel_ms:.3f} ms per launch)")
+    print(f"phase {phase}: {launch.__name__} alone median {call_ms:.3f} ms {per} (min "
+          f"{call_lo:.3f}, max {call_hi:.3f}, {REPEATS} seeds"
+          + (", each launch with its fold" if items else "") + f") at {W}x{H} {spp} spp, "
           f"{n_rays} rays (bound {bound_ms:.3f} ms by {bound_by}"
           + (f", one primitive test per segment; sweep floor {sweep_ms:.3f} ms" if bvh else "")
-          + f"); {warp_stats(rays, iters)}{march}{rk4}; SM clock, power after it {clock}")
+          + f"); {warp_stats(rays, iters)}, slowest block over the mean block "
+          f"{block_tail(iters):.3f}{march}{rk4}; SM clock, power after it {clock}")
+    bound_ms /= chunks
     tests = None
     if bvh:  # an instrumented call: each lane's node and primitive tests
         lane_tests = torch.empty((2, pix.numel()), dtype=torch.int32, device=dev)
@@ -646,16 +727,19 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
               f"{tests[0]:.3f} node tests and {tests[1]:.3f} primitive tests of "
               f"{counts['n_sph'] + counts['n_rct'] + counts['n_box']} primitives")
     fold = None
-    if looped_masses:
-        item_counts = torch.empty((4, pix.numel(), spp), dtype=torch.int32, device=dev)
-        call(REPEATS, item_counts=item_counts)
+    if items:
         item_rays, item_iters = item_counts[0].reshape(-1), item_counts[1].reshape(-1)
         lane_iters = item_counts[1].sum(dim=1, dtype=torch.int32)
+        budget = ""
+        if not cfg.looped_masses:
+            min_blocks, per_sm, sms = item_occupancy(cfg, table.numel())
+            budget = (f"; {-(-item_iters.numel() // 128)} blocks of 128, {per_sm} per SM "
+                      f"({4 * per_sm} warps) x {sms} SMs, minBlocks {min_blocks}")
         print(f"phase {phase}: one thread per (lane, sample): "
               f"{warp_stats(item_rays, item_iters, 'item')}, slowest block over the mean block "
               f"{block_tail(item_iters):.3f}; one thread per lane (the parent design, the same "
               f"paths): {warp_stats(item_counts[0].sum(dim=1), lane_iters)}, slowest block over "
-              f"the mean block {block_tail(lane_iters):.3f}")
+              f"the mean block {block_tail(lane_iters):.3f}{budget}")
         fold = fold_alone(phase, pix.numel(), spp, 10 if cfg.want_aovs else 3, cfg.max_iters(spp),
                           dev)
     kern_pass = make_render_pass(r.arrays, W, H, plain_rows, pass_spp, n, cfg, "full")
@@ -681,53 +765,78 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
         print(f"phase {phase}: the plain pass took over {PLAIN_BUDGET_S:.0f} s: narrow "
               "its row band")
     return dict(kernel_ms=kernel_ms, kernel_ms_min=kernel_lo, kernel_ms_max=kernel_hi,
-                pass_ms=pass_ms, plain_ms=plain_ms, max_err=max_err, bound_ms=bound_ms,
+                call_ms=call_ms, chunks=chunks, pass_ms=pass_ms, plain_ms=plain_ms,
+                max_err=max_err, bound_ms=bound_ms,
                 bound_by=bound_by, rays=n_rays, vol_events=n_vol, rk4_steps=n_rk4,
                 pass_spp=pass_spp, fold=fold, sweep_floor_ms=sweep_ms if bvh else None,
                 tests=tests, table_ms=table_s * 1e3)
 
 
 def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> dict:
-    """The fold kernel alone at a main path's shape: ``lanes`` x ``spp``
-    items of seeded random words (the fold's work does not depend on
-    them), held bit for bit to its plain version (``fold_samples_plain``);
-    the median and spread of REPEATS launches, the plain version's time,
-    and one PyTorch sum over the samples (``torch.sum``, which does not
-    promise the order) as the library yardstick. The bound is bytes: every
-    item word read once, every lane word written once."""
+    """The fold kernel alone at a main path's shape, in the chunks of
+    samples the wrapper folds (``split_samples``: the first chunk from 0,
+    each later one carrying the sums on): ``lanes`` x the chunk's samples
+    of seeded random words (the fold's work does not depend on them), each
+    chunk held bit for bit to its plain version (``fold_samples_plain``) on
+    the running sums, then timed: the median and spread of REPEATS
+    launches, the plain version's time and one PyTorch sum over the
+    chunk's samples (``torch.sum``, which does not promise the order) as
+    the library yardstick. Times and the bound are per launch, the mean
+    over the chunks. The bound is bytes: every item word read once, every
+    lane word written once (and read once more by a later chunk)."""
     import torch
 
-    from bendy_tpu_torch.ops.trace_kernel import N_COUNTS, fold_samples, fold_samples_plain
+    from bendy_tpu_torch.ops.trace_kernel import (N_COUNTS, fold_samples, fold_samples_plain,
+                                                  split_samples)
 
     g = torch.Generator(device=dev).manual_seed(17)
-    items = lanes * spp
-    samp = torch.randn((n_out, items), generator=g, device=dev) * 10.0 ** torch.randint(
-        -6, 6, (n_out, items), generator=g, device=dev)
-    cnt = torch.randint(0, 300, (N_COUNTS, items), generator=g, device=dev, dtype=torch.int32)
 
     def outputs():
         return (torch.empty((n_out, lanes), device=dev),
                 *torch.empty((2, lanes), dtype=torch.int32, device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
 
-    got, want = outputs(), outputs()
-    fold_samples(samp, cnt, spp, *got[:3], max_iters=cap, over_cap=got[3])
-    _, plain_ms = cuda_ms(lambda: fold_samples_plain(samp, cnt, spp, *want[:3], max_iters=cap,
-                                                     over_cap=want[3]))
-    equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
-    err = float((got[0] - want[0]).abs().max())
-    _, ms, lo, hi = cuda_ms_median(lambda i: fold_samples(samp, cnt, spp, *got[:3]), REPEATS)
-    _, library_ms = cuda_ms(lambda: samp.view(n_out, lanes, spp).sum(dim=2), 10, 1)
-    nbytes = 4 * (n_out + 2) * (items + lanes)
-    bound_ms = nbytes / PEAK_BYTES_S * 1e3
-    print(f"phase {phase}: fold_samples alone median {ms:.4f} ms (min {lo:.4f}, max {hi:.4f}) at "
-          f"{lanes} lanes x {spp} samples, {n_out} sums and 2 counts (bound {bound_ms:.4f} ms by "
+    got, want, spare = outputs(), outputs(), outputs()
+
+    def chunk(c0: int, s: int) -> dict:
+        items = lanes * s
+        samp = torch.randn((n_out, items), generator=g, device=dev) * 10.0 ** torch.randint(
+            -6, 6, (n_out, items), generator=g, device=dev)
+        cnt = torch.randint(0, 300, (N_COUNTS, items), generator=g, device=dev,
+                            dtype=torch.int32)
+        kw = dict(first=c0 == 0, max_iters=cap if c0 + s == spp else -1)
+        fold_samples(samp, cnt, s, *got[:3], over_cap=got[3], **kw)
+        _, plain_ms = cuda_ms(lambda: fold_samples_plain(samp, cnt, s, *want[:3],
+                                                         over_cap=want[3], **kw))
+        equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(got, want))
+        _, ms, lo, hi = cuda_ms_median(
+            lambda i: fold_samples(samp, cnt, s, *spare[:3], first=kw["first"]), REPEATS)
+        _, library_ms = cuda_ms(lambda: samp.view(n_out, lanes, s).sum(dim=2), 10, 1)
+        nbytes = 4 * (n_out + 2) * (items + lanes * (1 if c0 == 0 else 2))
+        return dict(s=s, equal=equal, err=float((got[0] - want[0]).abs().max()), ms=ms, lo=lo,
+                    hi=hi, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=nbytes / PEAK_BYTES_S * 1e3)
+
+    sc = split_samples(lanes, spp, n_out)
+    runs = [chunk(c0, min(sc, spp - c0)) for c0 in range(0, spp, sc)]
+
+    def mean(k):
+        return sum(r[k] for r in runs) / len(runs)
+
+    equal, err = all(r["equal"] for r in runs), max(r["err"] for r in runs)
+    ms, lo, hi = mean("ms"), min(r["lo"] for r in runs), max(r["hi"] for r in runs)
+    print(f"phase {phase}: fold_samples alone median {ms:.4f} ms per launch (min {lo:.4f}, max "
+          f"{hi:.4f}) at {lanes} lanes x {spp} samples in {len(runs)} launch(es) of "
+          f"{'+'.join(str(r['s']) for r in runs)} samples ({sum(r['ms'] for r in runs):.4f} ms "
+          f"in all), {n_out} sums and 2 counts (bound {mean('bound_ms'):.4f} ms per launch by "
           f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), plain "
-          f"{plain_ms:.3f} ms, torch.sum over the samples {library_ms:.4f} ms")
+          f"{mean('plain_ms'):.3f} ms, torch.sum over the samples {mean('library_ms'):.4f} ms "
+          f"per launch")
     if not equal:
         fail("fold_samples disagrees with its plain version")
-    return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms, max_err=err, bound_ms=bound_ms,
-                library_ms=library_ms)
+    return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=mean("plain_ms"), max_err=err,
+                bound_ms=mean("bound_ms"), library_ms=mean("library_ms"), launches=len(runs))
 
 
 # (phase, scene, Config kwargs, width, height, spp, subsample, wrapper name,
@@ -1162,6 +1271,7 @@ def run(phases=None, phase3_names=None) -> int:
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
           + " | ".join(ptxas_report(_build.build_log())))
+    print(f"phase 2: the item instantiations' register budgets: {item_budgets()}")
 
     err16 = {}
     if phases is None or 3 in phases:
@@ -1188,8 +1298,9 @@ def run(phases=None, phase3_names=None) -> int:
             "bound_by": k["bound_by"],
             "library_ms": None,
             "path": label,
-            "ms_min": k["kernel_ms_min"],  # ms is the median of REPEATS seeds
+            "ms_min": k["kernel_ms_min"],  # ms is the median of REPEATS seeds, per launch
             "ms_max": k["kernel_ms_max"],
+            "launches_per_pass": k["chunks"],  # per item: one per chunk, each with its fold
             "pass_ms": k["pass_ms"],
             "pass_spp": k["pass_spp"],  # pass_ms, plain_ms and max_abs_err
             "plain_rows": rows,

@@ -225,7 +225,10 @@ def test_looped_masses_trace_core_matches_xla_per_lane(case):
 
 def test_looped_mass_launch_arguments():
     """The wrappers take any mass count with looped_masses (the LOOPM
-    flag), 1 to 8 without, and the per-lane RK4-step output only with it."""
+    flag), 1 to 8 without, and the per-lane RK4-step output with
+    geodesics (every geodesic launch traces per item and counts its RK4
+    steps: the LOOPM instantiations and, with unrolled masses, the item
+    instantiations), not in flat space."""
     cfg = TraceConfig(geodesic=True, looped_masses=True)
     assert trace_kernel._geo_args({"n_mass": 64}, cfg)[0] == 64
     assert trace_kernel._flags(cfg) & trace_kernel.FLAG_LOOPM
@@ -235,9 +238,11 @@ def test_looped_mass_launch_arguments():
     with pytest.raises(ValueError, match="unrolled"):
         trace_kernel._geo_args({"n_mass": 0}, cfg)
     pix = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="near_steps"):
-        trace_kernel._near_steps(torch.zeros(4, dtype=torch.int32), pix,
-                                 TraceConfig(geodesic=True))
+    near = torch.zeros(4, dtype=torch.int32)
+    for flat in (TraceConfig(), TraceConfig(has_volumes=True)):
+        with pytest.raises(ValueError, match="near_steps"):
+            trace_kernel._near_steps(near, pix, flat)
+    assert trace_kernel._near_steps(near, pix, TraceConfig(geodesic=True)) is near
     assert trace_kernel._near_steps(None, pix, cfg) is None
 
 

@@ -1,15 +1,19 @@
-"""The looped-mass tracer split over samples (kernel 1e-iii), on the CPU.
+"""The tracer split over samples (kernels 1b, 1d, 1e-iii), on the CPU.
 
-The LOOPM instantiations of ``csrc/trace_surface.cu`` trace each (lane,
-sample) on a thread of its own, and ``ops/trace_kernel.fold_samples`` adds
-a lane's samples in sample order from 0, as one thread per lane adds its
-finished paths, so the split is bit-equal to the lane loop. Here:
+The LOOPM instantiations of ``csrc/trace_surface.cu`` (looped masses) and
+the item instantiations (unrolled masses, and media without the BVH)
+trace each (lane, sample) on a thread of its own, and
+``ops/trace_kernel.fold_samples`` adds a lane's samples in sample order
+from 0, as one thread per lane adds its finished paths, so the split is
+bit-equal to the lane loop. Here:
 
 - (a) the split's plain form, ``trace_core`` at spp 1 for each sample,
   folded by ``fold_samples``, equals ``trace_core`` at the full spp bit
   for bit, per lane: radiance, AOVs, depth, rays, iterations, volume
   events and RK4 steps (mass_cluster at 8x8, spp 4, FULL and NORMAL; the
-  13-mass ring; the 12-mass ring inside a medium);
+  13-mass ring; the 12-mass ring inside a medium; blackhole in FULL and
+  NORMAL, binary_blackhole, cloud, dense_cloud and blackhole_cloud, the
+  paths of the item instantiations);
 - (b) the same split route on the 13-mass ring against ``bendy_tpu``'s XLA
   ``trace``: 0 lanes off and equal rays, as tests/test_torch_looped_masses.py
   holds the lane loop;
@@ -18,10 +22,16 @@ finished paths, so the split is bit-equal to the lane loop. Here:
 - (d) no path of (a)'s cases takes more than ``cfg.max_iters(1)``
   iterations, so no sample is cut where the lane loop would not cut it;
 - (e) the table-size rule: above 227 KiB the table stays in global memory,
-  and ``_launch`` no longer refuses it.
+  and ``_launch`` no longer refuses it;
+- (f) the routing rule: which configurations trace per item and which
+  keep one thread per lane;
+- (g) the item limit: a chunk holds at most 2³¹ - 1 items.
 
 chip_smoke.py holds the kernels themselves to ``trace_core`` on a card.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,8 +48,8 @@ from bendy_tpu.utils.rng import render_key as ref_key
 import bendy_tpu_torch as bt
 from bendy_tpu_torch import Config, GeoParams, Output, Renderer, dumps_scene
 from bendy_tpu_torch.ops import trace_kernel
-from bendy_tpu_torch.ops.trace_kernel import N_COUNTS, fold_samples, over_cap_lanes
-from bendy_tpu_torch.ops.wavefront import trace_core
+from bendy_tpu_torch.ops.trace_kernel import N_COUNTS, fold_samples, over_cap_lanes, per_item
+from bendy_tpu_torch.ops.wavefront import TraceConfig, trace_core
 from bendy_tpu_torch.utils.rng import render_key
 
 COUNTS = ("rays", "iters", "vol_events", "near_steps")
@@ -71,19 +81,20 @@ def ring(n_masses: int, medium: bool = False):
 
 
 def _scene(name: str):
-    if name == "mass_cluster":
-        return bt.load_scene("scenes/mass_cluster.json.gz")
-    return ring(int(name.split("_")[1]), medium=name.endswith("medium"))
+    if name.startswith("ring_"):
+        return ring(int(name.split("_")[1]), medium=name.endswith("medium"))
+    return bt.load_scene(f"scenes/{name}.json.gz")
 
 
 def setup(name: str, W: int, H: int, output: Output, **kw):
-    """(Renderer on the CPU, camera id, TraceConfig) of a looped-mass scene."""
+    """(Renderer on the CPU, camera id, TraceConfig) of a scene the kernel
+    traces per item."""
     scene = _scene(name)
     cam = scene.find_by_tag("camera")
     scene.get_object(cam).inner.aspect_ratio = W / H
     r = Renderer(scene, Config(output=output, **kw), device="cpu")
     cfg = r.trace_config(r.config, cam)
-    assert cfg.looped_masses
+    assert per_item(cfg)
     return r, cam, cfg
 
 
@@ -128,6 +139,13 @@ CASES = [
     ("ring_13", 8, 8, 3, dict(max_bounces=2, geo=GeoParams(max_steps=96)), 3, Output.NORMAL),
     ("ring_12_medium", 8, 8, 2, dict(max_bounces=2, max_volume_bounces=8,
                                      geo=GeoParams(max_steps=64)), 21, Output.NORMAL),
+    # the item instantiations: unrolled masses, media, both
+    ("blackhole", 8, 8, 4, dict(max_bounces=2), 3, Output.FULL),
+    ("blackhole", 8, 8, 4, dict(max_bounces=2), 3, Output.NORMAL),
+    ("binary_blackhole", 8, 8, 3, dict(max_bounces=2), 3, Output.NORMAL),
+    ("cloud", 8, 8, 4, dict(max_bounces=3), 11, Output.NORMAL),
+    ("dense_cloud", 8, 8, 2, dict(max_bounces=3), 11, Output.NORMAL),
+    ("blackhole_cloud", 8, 8, 4, dict(max_bounces=2, volume_step=0.6), 3, Output.NORMAL),
 ]
 IDS = [f"{c[0]}-{c[6].value}" for c in CASES]
 
@@ -150,8 +168,10 @@ def test_split_equals_lane_loop_bit_for_bit(case):
     longest = max(int(p[1][1].max()) for p in per)
     assert longest <= cfg.max_iters(1), (longest, cfg.max_iters(1))
     assert float(out[0].sum()) > 0.0 and int(cnt[0].sum()) > 0
-    if name != "ring_12_medium":
+    if cfg.geodesic and name != "ring_12_medium":
         assert int(cnt[3].sum()) > 0  # the RK4 steps were taken and counted
+    if cfg.has_volumes and name != "ring_12_medium":
+        assert int(cnt[2].sum()) > 0  # the volume events too
 
 
 def test_split_matches_xla_on_the_ring():
@@ -235,8 +255,9 @@ def test_table_size_rule():
     pix = torch.zeros(4, dtype=torch.int32)
     counts = dict(n_sph=0, n_rct=0, n_box=0, n_light=0, n_face=0, n_mass=0)
     with pytest.raises(ValueError, match="launches on CUDA tensors"):
-        trace_kernel._launch("bendy_trace_surface", table, counts, torch.zeros(32), pix, pix,
-                             2, 2, 1, 1, 1, (0, 0), 0, trace_kernel.TraceConfig())
+        trace_kernel._launch("bendy_trace_surface", trace_kernel.trace_surface, table, counts,
+                             torch.zeros(32), pix, pix, 2, 2, 1, 1, 1, (0, 0), 0,
+                             trace_kernel.TraceConfig())
 
 
 def test_split_chunks_and_item_budget():
@@ -252,3 +273,53 @@ def test_split_chunks_and_item_budget():
     whole, _ = split_route(r, cam, cfg, 4, 4, 3, 9)
     chunked, _ = split_route(r, cam, cfg, 4, 4, 3, 9, chunk=1)
     assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
+
+
+def test_routing_rule():
+    """(f): looped masses (the LOOPM instantiations) and, without the BVH,
+    geodesics and media (the item instantiations) trace per (lane, sample)
+    item and fold; the surface and BVH instantiations keep one thread per
+    lane. The rule over every (GEO, VOL, LOOPM, BVH) the kernel has."""
+    route = {}
+    for geo in (False, True):
+        for vol in (False, True):
+            for loopm in (False, True):
+                for bvh in (False, True):
+                    if (loopm and not geo) or (bvh and geo):
+                        continue  # no such instantiation
+                    cfg = TraceConfig(geodesic=geo, has_volumes=vol, looped_masses=loopm)
+                    route[geo, vol, loopm, bvh] = per_item(cfg, bvh)
+    assert route == {
+        (False, False, False, False): False,  # surface (1a)
+        (False, False, False, True): False,   # surface, BVH (1e-i)
+        (False, True, False, False): True,    # media (1b, 1c)
+        (False, True, False, True): False,    # media, BVH (1e-i)
+        (True, False, False, False): True,    # unrolled masses (1d)
+        (True, False, True, False): True,     # looped masses (1e-iii)
+        (True, True, False, False): True,     # unrolled masses in media (1b + 1d)
+        (True, True, True, False): True,      # looped masses in media
+    }
+    # looped masses select LOOPM by their flag; the kernel derives the rest
+    # from its template flags by the same rule (PER_ITEM in the source)
+    assert trace_kernel._flags(TraceConfig(geodesic=True, looped_masses=True)) & \
+        trace_kernel.FLAG_LOOPM
+    src = (Path(trace_kernel.__file__).parents[1] / "csrc" / "trace_surface.cu").read_text()
+    rule = re.search(r"constexpr bool PER_ITEM = (.+);", src).group(1)
+    rule = rule.replace("||", " or ").replace("&&", " and ").replace("!", " not ")
+    for (geo, vol, _, bvh), want in route.items():
+        assert eval(rule, {"GEO": geo, "VOL": vol, "BVH": bvh}) == want, (geo, vol, bvh)
+
+
+def test_item_limit(monkeypatch):
+    """(g): a chunk holds at most MAX_ITEMS = 2³¹ - 1 items (the kernel's
+    int32 item ids), whatever the byte budget allows; more lanes than that
+    raise, as no chunk of one sample fits."""
+    assert trace_kernel.MAX_ITEMS == 2**31 - 1
+    monkeypatch.setattr(trace_kernel, "SPLIT_BUDGET_BYTES", 1 << 62)
+    lanes = 1920 * 1080
+    s = trace_kernel.split_samples(lanes, 4096, 3)
+    assert s == (2**31 - 1) // lanes == 1035 and lanes * s < 2**31
+    assert trace_kernel.split_samples(2**30, 4, 3) == 1
+    assert trace_kernel.split_samples(2**31 - 1, 4, 3) == 1
+    with pytest.raises(ValueError, match="int32 items"):
+        trace_kernel.split_samples(2**31, 1, 3)
