@@ -62,10 +62,15 @@
 //   - one thread per lane in the surface and BVH instantiations; the thread
 //     runs its own loop over all its samples and exits on its own (Hopper's
 //     per-thread control flow in place of the TPU's per-block masked loop). A
-//     warp runs until its slowest lane is done. The geodesic instantiations
-//     and the volume ones without the BVH instead run one thread per (lane,
-//     sample) (PER_ITEM: the LOOPM and the item instantiations, below) and
-//     fold the samples afterwards.
+//     warp runs until its slowest lane is done. On the surface paths the
+//     lane loop beat splitting a lane's samples over threads, K samples a
+//     thread into per-item words and the fold, at every K from 1 to 16:
+//     what a split saves of the tail of a launch 2.6-3.1 waves deep (cornell
+//     at 256x256x4 lanes) it loses in warp slots, 0.41-0.79 rays per slot
+//     against 0.88, and in the words it writes (PERF.md §6). The geodesic
+//     instantiations and the volume ones without the BVH instead run one
+//     thread per (lane, sample) (PER_ITEM: the LOOPM and the item
+//     instantiations, below) and fold the samples afterwards.
 //   - lane state stays in registers; each lane shades only its own material
 //     instead of evaluating every branch under a mask.
 //   - the scene is NOT baked: the compiled tables arrive as one flat f32
@@ -1472,37 +1477,129 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
   }
 }
 
-// The ordered fold of a per-item launch: one thread per lane adds the lane's
-// spp per-item words in sample order, acc = acc + v from 0.0f (or from the
-// running sums of the samples before this chunk when !first), the counts as
-// integers, and writes the one-thread-per-lane layouts: out [n_out, n],
-// rays, iters and the optional vevents and near_steps [n]. With
-// max_iters >= 0 (the call's last chunk) it adds to *over_cap each lane
-// whose iteration sum passes the lane cap. Bound by bytes: each word is
-// read once and each lane's words written once.
-__global__ void __launch_bounds__(128) fold_kernel(const float* samp, const int32_t* cnt, int n,
-                                                   int spp, int n_out, bool first,
-                                                   int max_iters, float* out, int32_t* rays,
-                                                   int32_t* iters, int32_t* vevents,
-                                                   int32_t* near_steps, int32_t* over_cap) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const size_t items = (size_t)n * spp, base = (size_t)lane * spp;
-  for (int k = 0; k < n_out; ++k) {
-    const float* v = samp + k * items + base;
-    float acc = first ? 0.0f : out[(size_t)k * n + lane];
-    for (int s = 0; s < spp; ++s) acc = acc + v[s];
-    out[(size_t)k * n + lane] = acc;
-  }
-  int32_t* const dst[N_COUNTS] = {rays, iters, vevents, near_steps};
+// The ordered fold of a per-item launch: each lane's spp per-item words
+// added in sample order, acc = acc + v from 0.0f (or from the running sums
+// of the samples before this chunk when !first), the counts as integers,
+// into the one-thread-per-lane layouts: out [n_out, n], rays, iters and the
+// optional vevents and near_steps [n]. With max_iters >= 0 (the call's last
+// chunk) it adds to *over_cap each lane whose iteration sum passes the lane
+// cap. Bound by bytes: each word is read once and each lane's words written
+// once.
+//
+// A thread per lane that reads its own words v[s] reads at a stride of spp
+// words: a warp's load touches 32 sectors for 4 bytes of each, and only L1
+// reuse at small spp hid it (on an H100 80GB HBM3 at 700 W, one fold of
+// 64 samples of 262,144 lanes took 0.338 ms, two of 36 + 28 0.087 ms
+// each: PERF.md §6). Here a block of FOLD_LANES threads
+// folds FOLD_LANES consecutive lanes, whose words in one row are one
+// contiguous run (item = lane·spp + s): a stage copies the run of a row's
+// tile of up to FOLD_TILE samples into shared memory (cp.async, consecutive
+// threads on consecutive words), the next stage's copy in flight while the
+// threads add this one's, each its own lane's words in sample order from a
+// tile row padded to an odd stride (a warp reading sample s of 32 lanes hits
+// 32 banks).
+constexpr int FOLD_LANES = 128, FOLD_TILE = 64;
+
+__device__ __forceinline__ void copy_async4(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the fold's tile row stride: the tile's samples, odd
+__host__ __device__ __forceinline__ int fold_stride(int spp) {
+  return (spp < FOLD_TILE ? spp : FOLD_TILE) | 1;
+}
+
+__global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, const int32_t* cnt,
+                                                          int n, int spp, int n_out, bool first,
+                                                          int max_iters, float* out,
+                                                          int32_t* rays, int32_t* iters,
+                                                          int32_t* vevents, int32_t* near_steps,
+                                                          int32_t* over_cap) {
+  extern __shared__ uint32_t fold_tiles[];  // [2][FOLD_LANES · stride]
+  const int t = threadIdx.x, lane0 = blockIdx.x * FOLD_LANES, lane = lane0 + t;
+  const int lanes = min(FOLD_LANES, n - lane0), stride = fold_stride(spp);
+  const int tiles = (spp + FOLD_TILE - 1) / FOLD_TILE;
+  const size_t items = (size_t)n * spp;
+  // the rows: n_out sums, then each count whose output is given
+  auto dst = [&](int w) {
+    return w == 0 ? rays : w == 1 ? iters : w == 2 ? vevents : near_steps;
+  };
+  uint32_t rows = (1u << n_out) - 1u;
 #pragma unroll
-  for (int w = 0; w < N_COUNTS; ++w) {
-    if (dst[w] == nullptr) continue;
-    const int32_t* c = cnt + w * items + base;
-    int32_t acc = first ? 0 : dst[w][lane];
-    for (int s = 0; s < spp; ++s) acc += c[s];
-    dst[w][lane] = acc;
-    if (w == 1 && max_iters >= 0 && acc > max_iters) atomicAdd(over_cap, 1);
+  for (int w = 0; w < N_COUNTS; ++w)
+    if (dst(w) != nullptr) rows |= 1u << (n_out + w);
+  // stage (row r, tile j) into buffer b: element e = l·ts + i is lane
+  // lane0 + l's sample j·FOLD_TILE + i, consecutive e on consecutive words
+  // within a lane's run (the whole block's run when one tile holds spp)
+  auto stage = [&](int r, int j, int b) {
+    const int s0 = j * FOLD_TILE, ts = min(FOLD_TILE, spp - s0);
+    const uint32_t* src = (r < n_out ? reinterpret_cast<const uint32_t*>(samp) + (size_t)r * items
+                                     : reinterpret_cast<const uint32_t*>(cnt) +
+                                           (size_t)(r - n_out) * items) +
+                          (size_t)lane0 * spp + s0;
+    uint32_t* tile = fold_tiles + b * FOLD_LANES * stride;
+    const int dl = FOLD_LANES / ts, di = FOLD_LANES % ts;
+    int l = t / ts, i = t % ts;
+    for (int e = t; e < lanes * ts; e += FOLD_LANES) {
+      copy_async4(tile + l * stride + i, src + (size_t)l * spp + i);
+      l += dl;
+      i += di;
+      if (i >= ts) {
+        i -= ts;
+        ++l;
+      }
+    }
+    copy_commit();
+  };
+  int r = 0, j = 0;  // the stage being added: row r (rows' lowest bit), tile j
+  stage(r, j, 0);
+  float fsum = 0.0f;
+  int32_t isum = 0;
+  for (int q = 0;; ++q) {
+    int nr = r, nj = j + 1;  // the next stage, copied while this one is added
+    if (nj == tiles) {
+      const uint32_t rest = rows & ~((2u << r) - 1u);
+      nr = rest ? __ffs(rest) - 1 : -1;
+      nj = 0;
+    }
+    if (nr >= 0) {
+      stage(nr, nj, (q + 1) & 1);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();
+    if (lane < n) {
+      const uint32_t* v = fold_tiles + (q & 1) * FOLD_LANES * stride + t * stride;
+      const int ts = min(FOLD_TILE, spp - j * FOLD_TILE);
+      const bool last = j == tiles - 1;
+      if (r < n_out) {
+        float acc = j > 0 ? fsum : first ? 0.0f : out[(size_t)r * n + lane];
+        for (int i = 0; i < ts; ++i) acc = acc + __uint_as_float(v[i]);
+        fsum = acc;
+        if (last) out[(size_t)r * n + lane] = acc;
+      } else {
+        const int w = r - n_out;
+        int32_t acc = j > 0 ? isum : first ? 0 : dst(w)[lane];
+        for (int i = 0; i < ts; ++i) acc += (int32_t)v[i];
+        isum = acc;
+        if (last) {
+          dst(w)[lane] = acc;
+          if (w == 1 && max_iters >= 0 && acc > max_iters) atomicAdd(over_cap, 1);
+        }
+      }
+    }
+    __syncthreads();  // buffer q & 1 is free for stage q + 2
+    if (nr < 0) break;
+    r = nr;
+    j = nj;
   }
 }
 
@@ -1707,8 +1804,11 @@ int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_
       (max_iters >= 0 && over_cap == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int threads = 128;
-  fold_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = sizeof(uint32_t) * 2 * FOLD_LANES * fold_stride(spp);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  fold_kernel<<<(n + FOLD_LANES - 1) / FOLD_LANES, FOLD_LANES, smem,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(samp), static_cast<const int32_t*>(cnt), n, spp, n_out,
       first != 0, max_iters, static_cast<float*>(out), static_cast<int32_t*>(rays),
       static_cast<int32_t*>(iters), static_cast<int32_t*>(vevents),
@@ -1716,29 +1816,33 @@ int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_
   return (int)cudaGetLastError();
 }
 
-// The item instantiation that a launch of bendy_trace_geodesic
-// (FLAG_GEO without `volumes`) or bendy_trace_volume (`volumes`, with or
-// without FLAG_GEO) with a table of `table_floats` (staged unless
+// The instantiation without LOOPM or the BVH that a launch of
+// bendy_trace_surface (neither FLAG_GEO nor `volumes`: the surface one, one
+// thread per lane), bendy_trace_geodesic (FLAG_GEO without `volumes`) or
+// bendy_trace_volume (`volumes`, with or without FLAG_GEO; these two the
+// item instantiations) with a table of `table_floats` (staged unless
 // FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its register budget
-// asks for (__launch_bounds__), the blocks one SM holds
+// asks for (__launch_bounds__; 0: none), the blocks one SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of the
 // current device. Returns a CUDA error code.
 int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats, void* out) {
   const bool geo = (flags & FLAG_GEO) != 0, aovs = want_aovs != 0, gtab = (flags & FLAG_GTAB) != 0;
-  if (out == nullptr || table_floats < 0 || !(geo || volumes)) return (int)cudaErrorInvalidValue;
+  if (out == nullptr || table_floats < 0) return (int)cudaErrorInvalidValue;
   Params P = {};
   P.flags = flags;
   P.table_floats = table_floats;
   const size_t smem = dynamic_smem(P, false);
-  void (*kernel)(Params) = !volumes ? instance<true, false>(aovs, gtab)
-                           : geo    ? instance<true, true>(aovs, gtab)
-                                    : instance<false, true>(aovs, gtab);
+  void (*kernel)(Params) = volumes ? (geo ? instance<true, true>(aovs, gtab)
+                                          : instance<false, true>(aovs, gtab))
+                                   : (geo ? instance<true, false>(aovs, gtab)
+                                          : instance<false, false>(aovs, gtab));
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int* o = static_cast<int*>(out);
-  o[0] = !volumes ? MIN_BLOCKS<true, false, false, false>
-         : geo    ? MIN_BLOCKS<true, true, false, false>
-                  : MIN_BLOCKS<false, true, false, false>;
+  o[0] = volumes ? (geo ? MIN_BLOCKS<true, true, false, false>
+                        : MIN_BLOCKS<false, true, false, false>)
+                 : (geo ? MIN_BLOCKS<true, false, false, false>
+                        : MIN_BLOCKS<false, false, false, false>);
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], kernel, BLOCK, smem);

@@ -78,12 +78,14 @@ BVH_STACK_BYTES = 2 * BVH_STACK * 128
 # per-item buffers of n_out floats and N_COUNTS int32 counts (rays, iters,
 # vevents, near_steps); past SPLIT_BUDGET_BYTES of them the wrapper launches
 # the samples in chunks (at 1080p, 256 spp they would take 28 GB), each of
-# at most MAX_ITEMS items (the kernel numbers them in int32). 256 MiB cuts
-# cloud's 64 samples into 36 + 28, which ran 1 % faster on an H100 than one
-# launch of 64 (the fold of 64 samples a lane took twice as long as two of
-# 36 and 28: PERF.md §6)
+# at most MAX_ITEMS items (the kernel numbers them in int32). 1 GiB takes
+# cloud's and dense_cloud's 64 samples a lane in one launch and one fold a
+# pass: on an H100 80GB HBM3 at 700 W the tracer with its folds ran 2.5 %
+# and 0.8 % faster than at 256 MiB (36 + 28 samples), now that the fold of
+# 64 samples (0.124 ms) costs less than the two of 36 and 28 (0.137 ms)
+# (PERF.md §6)
 N_COUNTS = 4
-SPLIT_BUDGET_BYTES = 256 << 20
+SPLIT_BUDGET_BYTES = 1 << 30
 MAX_ITEMS = 2**31 - 1
 
 
@@ -388,10 +390,12 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
 
 
 def item_occupancy(cfg: TraceConfig, table_floats: int) -> tuple[int, int, int]:
-    """(blocks per SM its register budget asks for, blocks one SM holds,
-    SMs) of the item instantiation that a launch of ``cfg`` (geodesics or
-    media, no looped masses) with a table of ``table_floats`` runs on the
-    current card (the last two give the warps per SM)."""
+    """(blocks per SM its register budget asks for, 0 for none, blocks one
+    SM holds, SMs) of the instantiation without looped masses or the BVH
+    that a launch of ``cfg`` with a table of ``table_floats`` runs on the
+    current card: the item instantiation of geodesics or media, or the
+    surface one, one thread per lane (the last two give the warps per
+    SM)."""
     from bendy_tpu_torch import _build
 
     out = (ctypes.c_int * 3)()

@@ -1,7 +1,7 @@
 """Time chip_smoke.py's main paths in several checkouts on one card.
 
     python3 -m bendy_tpu_torch.tools.checkout_ab --phases 5,6,7,8 \\
-        [--output normal] [--set SPLIT_BUDGET_BYTES=1073741824] \\
+        [--output normal] [--scene scene] [--set SPLIT_BUDGET_BYTES=1073741824] \\
         [--out smoke_out/ab] DIR [DIR ...]
 
 Each DIR is the root of a checkout that holds ``chip_smoke.py`` (the
@@ -10,8 +10,10 @@ tree as ``.``). All are built first, at once; then each DIR, in the order
 given (a DIR named twice runs twice: parent, A, B, B, A, parent), runs in
 a process of its own from its own root: chip_smoke's phase-2 ptxas lines,
 then ``main_path`` (in FULL output only: its film check reads radiance)
-and ``kernel_alone_and_passes`` of each phase asked for, with the scene's
-``Output`` from ``--output`` and module settings of ``ops/trace_kernel``
+and ``kernel_alone_and_passes`` of each phase asked for (its kernel and
+plain passes at no more than 4 spp), with the scene's ``Output`` from
+``--output``, the phase's scene replaced by ``--scene`` (scenes/NAME.json.gz
+at the phase's size and Config) and module settings of ``ops/trace_kernel``
 from ``--set``. Each run's output goes to
 ``OUT/<index>_<dir>.txt``; the kernel-alone lines are printed. Needs one
 card; a run that fails stops the rest.
@@ -30,7 +32,7 @@ import os, sys, torch
 import chip_smoke as c
 from bendy_tpu_torch import Config, Output, _build
 from bendy_tpu_torch.ops import trace_kernel
-phases, output, settings = {phases!r}, {output!r}, {settings!r}
+phases, output, settings, scene = {phases!r}, {output!r}, {settings!r}, {scene!r}
 dev = torch.device("cuda", 0)
 _build.build()
 print("phase 2: ptxas: " + " | ".join(c.ptxas_report(_build.build_log())))
@@ -38,6 +40,7 @@ for k, v in settings.items():
     setattr(trace_kernel, k, v)
 for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, _) in c.MAIN_PATHS:
     if phase in phases:
+        name = scene or name
         launch = getattr(trace_kernel, wrapper)
         config = Config(**kw, output=Output(output))
         if output == "full":
@@ -46,7 +49,7 @@ for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, _) in c.MAIN_PATHS:
             r, cam = c.renderer(name, config, W, H, dev)
             r.camera_params(cam)
             path = dict(r=r, cam=cam, seed=int.from_bytes(os.urandom(4), "little"))
-        c.kernel_alone_and_passes(phase, path, W, H, spp, n, pass_spp, rows, launch, dev)
+        c.kernel_alone_and_passes(phase, path, W, H, spp, n, min(pass_spp, 4), rows, launch, dev)
 """
 BUILD = "from bendy_tpu_torch import _build; print(_build.build())"
 TIMEOUT_S = 900
@@ -63,6 +66,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", required=True,
                     type=lambda t: {int(p) for p in t.split(",")})
     ap.add_argument("--output", default="full")
+    ap.add_argument("--scene", default=None)
     ap.add_argument("--set", dest="settings", action="append", type=setting, default=[])
     ap.add_argument("--out", type=Path, default=Path("smoke_out/ab"))
     args = ap.parse_args(argv)
@@ -83,7 +87,7 @@ def main(argv=None) -> int:
             if proc.poll() is None:
                 proc.kill()
     code = RUN.format(phases=sorted(args.phases), output=args.output,
-                      settings=dict(args.settings))
+                      settings=dict(args.settings), scene=args.scene)
     for i, (d, name) in enumerate(zip(dirs, args.dirs), 1):
         t0 = time.perf_counter()
         label = name.name or "this"

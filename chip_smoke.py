@@ -15,10 +15,11 @@ Phases, one line each (any failure exits non-zero):
      each with the table in shared or in global memory, GTAB), of the fold
      kernel and of the two probe kernels (csrc/probes.cu); then each item
      instantiation's register budget (minBlocks) and the blocks of 128 an
-     SM holds,
+     SM holds, and the surface instantiation's (no budget),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
-     max_bounces=3, seed 7, in FULL and NORMAL output; the geodesic kernel
+     max_bounces=3, seed 7, in FULL and NORMAL output, with the table in
+     shared and in global memory; the geodesic kernel
      against it on blackhole and binary_blackhole at 16x16, spp 1 and 4,
      max_bounces=2, seed 3, FULL and NORMAL; the volume kernel on volume,
      cloud and dense_cloud at spp 2, max_bounces=3, seed 11, on
@@ -50,7 +51,9 @@ Phases, one line each (any failure exits non-zero):
      4 chained timed passes (Mrays/s, seconds per pass, the surface kernel's
      launch count); then the kernel alone and one kernel pass (lanes,
      launch, subpixel sum), each the median and spread of 7 calls with
-     fresh seeds between their own CUDA events after 0.5 s of warm-up, and
+     fresh seeds between their own CUDA events after 0.5 s of warm-up; the
+     lane loop's blocks, waves and warps per SM, rays per warp issue slot
+     and block tail, and the ptxas line of every surface instantiation; and
      one plain pass at the same geometry and seed; the two passes are
      compared per pixel and by ray count,
   5. the blackhole main path (bench.py's blackhole_geodesic row):
@@ -93,7 +96,8 @@ Phases, one line each (any failure exits non-zero):
  13. the sharded pass (make_kernel_pass_sharded): (a) cornell at 256x256,
      64 spp, 2x2 subpixels, default Config on a (1,1) mesh, an NCCL world of
      one in this process: a warm-up pass, 4 chained passes with fresh seeds
-     (Mrays/s, s per pass, launch counts), the film bit-equal to the
+     (Mrays/s, s per pass, launch counts: the tracer once a pass, no
+     fold), the film bit-equal to the
      Renderer's pass at the same seed, the pass alone and the plain sharded
      pass at spp 4; (b) 2x2 meshes of 4 spawned gloo ranks sharing this
      card, on cornell at full size and on blackhole_cloud and mass_cluster
@@ -140,9 +144,18 @@ PEAK_F32_S = 67e12
 # FP32 operations per traced segment, counted from csrc/trace_surface.cu
 # (a divide or a sqrt counts as one): the intersection test of each
 # primitive kind, and per mass the capture/far/h² sweep that every
-# geodesic segment runs. The shading is not counted, so the bound is a
-# floor.
+# geodesic segment runs.
 SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
+# FP32 operations of the cheapest scattering material's shading, metallic,
+# counted from csrc/trace_surface.cu: the four uniforms' scaling 4,
+# unit_hemisphere 61 (sin_cos_tau 27, the radius 4, frame 13, the sum 17,
+# sharing the radius's 1 - u2), reflect 12, the fuzz 6, normalize 10, the
+# throughput 3. Each segment that scatters off a surface pays at least this
+# much; at least rays - volume events - RK4 chords - samples segments do (a
+# path's last traced segment does not scatter, and neither may a march step
+# or a chord). The rest of the shading (emission, the AOVs, the
+# regeneration) is not counted, so the bound is a floor.
+SCATTER_OPS = 96
 GEO_BEGIN_OPS, GEO_BEGIN_PER_MASS_OPS = 5, 21
 # each RK4 step (a chord near a mass, counted per item by the kernel) is 4
 # stages of the acceleration and 115 for the stage states, the two sums,
@@ -210,12 +223,13 @@ def item_budgets() -> str:
     """Phase 2: each item instantiation's register budget (the blocks per
     SM its __launch_bounds__ asks for) and the blocks one SM holds, with a
     4 KiB table in shared memory and with the table in global memory
-    (GTAB)."""
+    (GTAB); the same of the surface instantiation (no budget: minBlocks
+    0)."""
     from bendy_tpu_torch.ops.trace_kernel import MAX_TABLE_BYTES, item_occupancy
     from bendy_tpu_torch.ops.wavefront import TraceConfig
 
     parts = []
-    for geo, vol in ((True, False), (False, True), (True, True)):
+    for geo, vol in ((False, False), (True, False), (False, True), (True, True)):
         for aovs in (False, True):
             for gtab, floats in ((0, 1024), (1, MAX_TABLE_BYTES // 4 + 1)):
                 cfg = TraceConfig(geodesic=geo, has_volumes=vol, want_aovs=aovs)
@@ -226,15 +240,17 @@ def item_budgets() -> str:
     return " | ".join(parts)
 
 
-def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
+def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int, samples: int,
                 vol_events: int = 0, grid_floats: int = 0, rk4_steps: int = 0,
                 sweep: bool = False) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for one
-    tracer launch: each input read once (lanes, camera, scene table,
-    density grids), each output written once (channel sums, per-lane rays
-    and iterations, volume events with media, RK4 steps with geodesics),
-    and the counted FP32 operations of every traced segment, every density
-    lookup and (geodesics) every RK4 step of this run. A segment's intersection counts one test of every primitive
+    tracer launch of ``samples`` paths (lanes x spp): each input read once
+    (lanes, camera, scene table, density grids), each output written once
+    (channel sums, per-lane rays and iterations, volume events with media,
+    RK4 steps with geodesics), and the counted FP32 operations of every
+    traced segment, every density lookup, (geodesics) every RK4 step and
+    the least shading of the segments that must scatter (``SCATTER_OPS``)
+    of this run. A segment's intersection counts one test of every primitive
     (the sweep), except on a table with a BVH, where it counts one test of
     the cheapest kind the scene has: the least any nearest-hit search must
     do, whatever implements it (``sweep`` counts the sweep there too: the
@@ -255,7 +271,9 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int,
                        else (0, ACC_FROZEN_PER_MASS_OPS))
     rk4_ops = rk4_steps * (RK4_STEP_OPS + 4 * (stage + per_mass * n_mass))
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = (rays * per_ray + vol_events * DENSITY_OPS + rk4_ops) / PEAK_F32_S * 1e3
+    scatters = max(rays - vol_events - rk4_steps - samples, 0)
+    t_ops = (rays * per_ray + vol_events * DENSITY_OPS + rk4_ops + scatters * SCATTER_OPS
+             ) / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -414,10 +432,11 @@ def phase3_cases() -> list:
     configuration, for BVH), all against one plain trace. The BVH is forced
     on cornell (rects and boxes, the walls always tested), scene.json (the
     ill-conditioned r = 100 ground sphere) and cloud (march steps), and
-    with the table in global memory on cloud."""
+    with the table in global memory on cloud and on the three surface
+    scenes."""
     from bendy_tpu_torch import Config, GeoParams
 
-    cases = [(name, 4, Config(max_bounces=3), 7, (BVH,) * (name != "cornell2"))
+    cases = [(name, 4, Config(max_bounces=3), 7, (GLOBAL_TABLE,) + (BVH,) * (name != "cornell2"))
              for name in SCENES]
     cases += [(name, spp, Config(max_bounces=2), 3,
                ((GLOBAL_TABLE,) + (ONE_SAMPLE_CHUNKS,) * (name == "blackhole")) * (spp == 4))
@@ -662,6 +681,7 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     |diff|."""
     import torch
 
+    from bendy_tpu_torch import _build
     from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_render_pass, pass_lanes,
                                                   tracer_table)
     from bendy_tpu_torch.render import render_pass
@@ -700,7 +720,7 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     n_rays = int(rays.sum(dtype=torch.int64))
     n_vol = int(res[3].sum(dtype=torch.int64)) if grid is not None else 0
     n_rk4 = int(item_counts[3].sum(dtype=torch.int64)) if cfg.geodesic else 0
-    bound_args = (counts, table.numel(), cfg, n_rays, pix.numel(), n_vol,
+    bound_args = (counts, table.numel(), cfg, n_rays, pix.numel(), pix.numel() * spp, n_vol,
                   0 if grid is None else grid.numel(), n_rk4)
     bound_ms, bound_by = trace_bound(*bound_args)
     sweep_ms, _ = trace_bound(*bound_args, sweep=True)
@@ -717,6 +737,13 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
           + f"); {warp_stats(rays, iters)}, slowest block over the mean block "
           f"{block_tail(iters):.3f}{march}{rk4}; SM clock, power after it {clock}")
     bound_ms /= chunks
+    if not items and not bvh:  # the surface lane loop: its waves, warps per SM, ptxas lines
+        min_blocks, per_sm, sms = item_occupancy(cfg, table.numel())
+        blocks = -(-pix.numel() // 128)
+        print(f"phase {phase}: one thread per lane: {blocks} blocks of 128, {per_sm} per SM "
+              f"({4 * per_sm} warps) x {sms} SMs, {blocks / (per_sm * sms):.2f} waves, minBlocks "
+              f"{min_blocks}; ptxas of the surface instantiations: " + " | ".join(
+                  ln for ln in ptxas_report(_build.build_log()) if "GEO=0,VOL=0" in ln))
     tests = None
     if bvh:  # an instrumented call: each lane's node and primitive tests
         lane_tests = torch.empty((2, pix.numel()), dtype=torch.int32, device=dev)
@@ -779,10 +806,11 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
     of seeded random words (the fold's work does not depend on them), each
     chunk held bit for bit to its plain version (``fold_samples_plain``) on
     the running sums, then timed: the median and spread of REPEATS
-    launches, the plain version's time and one PyTorch sum over the
-    chunk's samples (``torch.sum``, which does not promise the order) as
-    the library yardstick. Times and the bound are per launch, the mean
-    over the chunks. The bound is bytes: every item word read once, every
+    launches, the plain version's time and, as the library yardstick, the
+    PyTorch sums over the chunk's samples of the words the fold reads, the
+    sums' rows and the two counts' (``torch.sum``, which does not promise
+    the order), timed as the fold is. Times and the bound are per launch,
+    the mean over the chunks. The bound is bytes: every item word read once, every
     lane word written once (and read once more by a later chunk)."""
     import torch
 
@@ -812,7 +840,9 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
                     for a, b in zip(got, want))
         _, ms, lo, hi = cuda_ms_median(
             lambda i: fold_samples(samp, cnt, s, *spare[:3], first=kw["first"]), REPEATS)
-        _, library_ms = cuda_ms(lambda: samp.view(n_out, lanes, s).sum(dim=2), 10, 1)
+        _, library_ms, _, _ = cuda_ms_median(
+            lambda i: (samp.view(n_out, lanes, s).sum(dim=2),
+                       cnt[:2].view(2, lanes, s).sum(dim=2, dtype=torch.int32)), REPEATS)
         nbytes = 4 * (n_out + 2) * (items + lanes * (1 if c0 == 0 else 2))
         return dict(s=s, equal=equal, err=float((got[0] - want[0]).abs().max()), ms=ms, lo=lo,
                     hi=hi, plain_ms=plain_ms, library_ms=library_ms,
@@ -832,7 +862,9 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
           f"in all), {n_out} sums and 2 counts (bound {mean('bound_ms'):.4f} ms per launch by "
           f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), plain "
           f"{mean('plain_ms'):.3f} ms, torch.sum over the samples {mean('library_ms'):.4f} ms "
-          f"per launch")
+          f"per launch; by chunk: " + ", ".join(
+              f"{r['s']} samples {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, torch.sum "
+              f"{r['library_ms']:.4f})" for r in runs))
     if not equal:
         fail("fold_samples disagrees with its plain version")
     return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=mean("plain_ms"), max_err=err,
@@ -900,7 +932,8 @@ def sharded_pass(dev) -> dict:
     import torch.distributed as dist
 
     from bendy_tpu_torch import Config, DeviceFilm, RenderConfig, Subsample
-    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, scene_table, trace_surface
+    from bendy_tpu_torch.ops.trace_kernel import (fold_samples, make_render_pass, scene_table,
+                                                  trace_surface)
     from bendy_tpu_torch.parallel import (initialize, make_kernel_pass_sharded, make_mesh,
                                           render_pass_sharded, render_scene_pass, spawn)
     from bendy_tpu_torch.parallel.multihost import free_port
@@ -928,13 +961,14 @@ def sharded_pass(dev) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches, surface_launches = make_kernel_pass_sharded.launches, trace_surface.launches
+        folds = fold_samples.launches
         rays = int(torch.stack(ray_parts).sum())
         print(f"phase 13: (a) {backend} world of 1, (1,1) mesh, cornell {W}x{H} {spp} spp "
               f"{n}x{n}: 4 passes in {dt:.4f} s, {dt / 4:.4f} s/pass, {rays} rays, "
               f"{rays / dt / 1e6:.1f} Mrays/s, make_kernel_pass_sharded launches {launches}, "
-              f"trace_surface launches {surface_launches}")
-        if launches != 4 or surface_launches != 4:
-            fail("the sharded main path did not launch its kernel once per pass")
+              f"trace_surface launches {surface_launches}, fold_samples launches {folds}")
+        if launches != 4 or surface_launches != 4 or folds != 0:
+            fail("the sharded main path did not launch its kernel once per pass, without a fold")
         if not bool(torch.isfinite(total).all()) or float(total.mean()) <= 0:
             fail("the sharded cornell film is not finite and non-zero")
         seed = base + 1
@@ -951,7 +985,8 @@ def sharded_pass(dev) -> dict:
                                               warm_s=0.5)
         clock = sm_clock()
         table_np, counts = scene_table(r.arrays.host_copy())
-        bound_ms, bound_by = trace_bound(counts, table_np.size, cfg, int(k_rays), W * H * n * n)
+        bound_ms, bound_by = trace_bound(counts, table_np.size, cfg, int(k_rays), W * H * n * n,
+                                         W * H * n * n * spp)
         pass_spp = 4
         fn4 = make_kernel_pass_sharded(r.arrays, mesh, W, H, pass_spp, n, cfg, "full")
         k4, k4_rays = fn4(r._cam_packed, seed, 0)

@@ -13,7 +13,9 @@ bit-equal to the lane loop. Here:
   events and RK4 steps (mass_cluster at 8x8, spp 4, FULL and NORMAL; the
   13-mass ring; the 12-mass ring inside a medium; blackhole in FULL and
   NORMAL, binary_blackhole, cloud, dense_cloud and blackhole_cloud, the
-  paths of the item instantiations);
+  paths of the item instantiations; and cornell, cornell2 and scene in
+  FULL and NORMAL, the surface paths, which the kernel traces one thread
+  per lane: a split of their samples folds to the same sums);
 - (b) the same split route on the 13-mass ring against ``bendy_tpu``'s XLA
   ``trace``: 0 lanes off and equal rays, as tests/test_torch_looped_masses.py
   holds the lane loop;
@@ -86,15 +88,18 @@ def _scene(name: str):
     return bt.load_scene(f"scenes/{name}.json.gz")
 
 
+SURFACES = ("cornell", "cornell2", "scene")  # one thread per lane in the kernel
+
+
 def setup(name: str, W: int, H: int, output: Output, **kw):
     """(Renderer on the CPU, camera id, TraceConfig) of a scene the kernel
-    traces per item."""
+    traces per item, or of a surface scene (one thread per lane)."""
     scene = _scene(name)
     cam = scene.find_by_tag("camera")
     scene.get_object(cam).inner.aspect_ratio = W / H
     r = Renderer(scene, Config(output=output, **kw), device="cpu")
     cfg = r.trace_config(r.config, cam)
-    assert per_item(cfg)
+    assert per_item(cfg) == (name not in SURFACES)
     return r, cam, cfg
 
 
@@ -146,6 +151,13 @@ CASES = [
     ("cloud", 8, 8, 4, dict(max_bounces=3), 11, Output.NORMAL),
     ("dense_cloud", 8, 8, 2, dict(max_bounces=3), 11, Output.NORMAL),
     ("blackhole_cloud", 8, 8, 4, dict(max_bounces=2, volume_step=0.6), 3, Output.NORMAL),
+    # the surface paths (kernel 1a)
+    ("cornell", 8, 8, 4, dict(max_bounces=3), 7, Output.FULL),
+    ("cornell", 8, 8, 4, dict(max_bounces=3), 7, Output.NORMAL),
+    ("cornell2", 8, 8, 4, dict(max_bounces=3), 7, Output.FULL),
+    ("cornell2", 8, 8, 4, dict(max_bounces=3), 7, Output.NORMAL),
+    ("scene", 8, 8, 4, dict(max_bounces=3), 7, Output.FULL),
+    ("scene", 8, 8, 4, dict(max_bounces=3), 7, Output.NORMAL),
 ]
 IDS = [f"{c[0]}-{c[6].value}" for c in CASES]
 
