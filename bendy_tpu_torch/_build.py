@@ -70,8 +70,9 @@ SIGNATURES = {
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),
     # csrc/probes.cu: x, out, n, iters, fma, stream
     "bendy_fp32_chain": ([c_void_p, c_void_p, c_int, c_int, c_int, c_void_p], c_int),
-    # tab (f32), onehot (bf16), partial, n, iters, stream
-    "bendy_bf16_dot_chain": ([c_void_p, c_void_p, c_void_p, c_int, c_int, c_void_p], c_int),
+    # tab (f32), onehot (bf16), partial, n, iters, bn, ks, stream
+    "bendy_bf16_dot_chain": (
+        [c_void_p, c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_void_p], c_int),
 }
 
 

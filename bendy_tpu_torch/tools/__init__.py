@@ -17,7 +17,10 @@ Both measure on the card and raise without one.
 
 from __future__ import annotations
 
+import contextlib
+import statistics
 import subprocess
+import threading
 import time
 
 
@@ -85,3 +88,34 @@ def card() -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return dict(zip(q.split(","), (v.strip() for v in line.split(","))))
+
+
+@contextlib.contextmanager
+def card_during():
+    """Yields a dict that, when the block ends, holds the medians of the SM
+    clock (``clocks.sm``, MHz) and power draw (``power.draw``, W) that
+    nvidia-smi read while the block ran, and ``samples``, their count. A
+    thread of this process queries nvidia-smi back to back from the block's
+    start to its end and is joined on exit."""
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            line = subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, check=True, timeout=60,
+            ).stdout
+            samples.append([float(v) for v in line.split(",")])
+
+    out = {}
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+        out["samples"] = len(samples)
+        for i, key in enumerate(("clocks.sm", "power.draw")):
+            out[key] = statistics.median(s[i] for s in samples) if samples else None

@@ -1,8 +1,10 @@
-"""Time chip_smoke.py's main paths in several checkouts on one card.
+"""Time chip_smoke.py's main paths, or a tool, in several checkouts on one card.
 
     python3 -m bendy_tpu_torch.tools.checkout_ab --phases 5,6,7,8 \\
         [--output normal] [--scene scene] [--set SPLIT_BUDGET_BYTES=1073741824] \\
         [--out smoke_out/ab] DIR [DIR ...]
+    python3 -m bendy_tpu_torch.tools.checkout_ab \\
+        --module bendy_tpu_torch.tools.mxu_shape_probe --args="--ns 1024,2048" DIR [DIR ...]
 
 Each DIR is the root of a checkout that holds ``chip_smoke.py`` (the
 parent unpacked with ``git archive`` into a git-ignored directory, this
@@ -14,14 +16,18 @@ and ``kernel_alone_and_passes`` of each phase asked for (its kernel and
 plain passes at no more than 4 spp), with the scene's ``Output`` from
 ``--output``, the phase's scene replaced by ``--scene`` (scenes/NAME.json.gz
 at the phase's size and Config) and module settings of ``ops/trace_kernel``
-from ``--set``. Each run's output goes to
-``OUT/<index>_<dir>.txt``; the kernel-alone lines are printed. Needs one
-card; a run that fails stops the rest.
+from ``--set``. With ``--module`` each run is ``python3 -m MODULE ARGS``
+instead, and each entry of the JSON line it prints last that has an
+``ms`` is printed (its ms, share of peak, SM clock and ``library_ms``).
+Each run's output goes to ``OUT/<index>_<dir>.txt``; the kernel-alone
+lines are printed. Needs one card; a run that fails stops the rest.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import shlex
 import subprocess
 import sys
 import time
@@ -63,8 +69,10 @@ def setting(text: str) -> tuple[str, int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="+", type=Path)
-    ap.add_argument("--phases", required=True,
-                    type=lambda t: {int(p) for p in t.split(",")})
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--phases", type=lambda t: {int(p) for p in t.split(",")})
+    what.add_argument("--module", help="run python3 -m MODULE ARGS in each DIR instead")
+    ap.add_argument("--args", default="", help="the module's arguments, one string")
     ap.add_argument("--output", default="full")
     ap.add_argument("--scene", default=None)
     ap.add_argument("--set", dest="settings", action="append", type=setting, default=[])
@@ -86,13 +94,15 @@ def main(argv=None) -> int:
         for proc in builds.values():
             if proc.poll() is None:
                 proc.kill()
-    code = RUN.format(phases=sorted(args.phases), output=args.output,
-                      settings=dict(args.settings), scene=args.scene)
+    if args.module:
+        cmd = [sys.executable, "-m", args.module, *shlex.split(args.args)]
+    else:
+        cmd = [sys.executable, "-c", RUN.format(phases=sorted(args.phases), output=args.output,
+                                                settings=dict(args.settings), scene=args.scene)]
     for i, (d, name) in enumerate(zip(dirs, args.dirs), 1):
         t0 = time.perf_counter()
         label = name.name or "this"
-        proc = subprocess.run([sys.executable, "-c", code], cwd=d, capture_output=True, text=True,
-                              timeout=TIMEOUT_S)
+        proc = subprocess.run(cmd, cwd=d, capture_output=True, text=True, timeout=TIMEOUT_S)
         text = proc.stdout + proc.stderr
         (args.out / f"{i}_{label}.txt").write_text(text)
         print(f"run {i} {label} ({time.perf_counter() - t0:.0f} s, exit {proc.returncode}):",
@@ -100,6 +110,12 @@ def main(argv=None) -> int:
         for ln in text.splitlines():
             if "alone median" in ln or "FAIL" in ln:
                 print(f"  {ln}", flush=True)
+        if args.module and proc.returncode == 0:
+            for key, m in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+                if isinstance(m, dict) and "ms" in m:
+                    print(f"  {key}: {m['ms']:.3f} ms at {m.get('iters')} iters, share "
+                          f"{m.get('share_of_peak')}, SM clock {m.get('sm_clock')}, library "
+                          f"{m.get('library_ms')} ms", flush=True)
         if proc.returncode:
             print(text[-4000:])
             return proc.returncode

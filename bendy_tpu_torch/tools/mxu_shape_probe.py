@@ -9,10 +9,12 @@ fetch chunk (the reference's production chunk is 2048). The f32-input
 control rounds ``tab + pert`` and ``onehot`` to bf16, as DEFAULT precision
 rounds a dot's inputs.
 
-The kernel is ``csrc/probes.cu`` (``bf16_dot_chain_kernel``: mma.sync
-m16n8k16 on the tensor cores); :func:`bf16_dot_chain_plain` is its plain
-version, and :func:`library_dot_chain` the yardstick: the same sum through
-cuBLAS, ``chunk`` perturbed copies of ``tab`` side by side against
+The kernel is ``csrc/probes.cu`` (``bf16_dot_chain_kernel``: wgmma
+m64nBNk16 on the tensor cores, A rebuilt in registers every iteration
+against a B slice held in shared memory; :func:`dot_plan` picks its tile
+from ``n``); :func:`bf16_dot_chain_plain` is its plain version, and
+:func:`library_dot_chain` the yardstick: the same sum through cuBLAS,
+``chunk`` perturbed copies of ``tab`` side by side against
 ``chunk`` stacked copies of ``onehot``, one ``torch.mm`` of depth
 ``chunk*512`` per chunk of iterations. :func:`measure` times it captured in
 a CUDA graph (no host launch cost) at each of ``LIBRARY_CHUNKS`` and keeps
@@ -26,13 +28,19 @@ from __future__ import annotations
 import json
 import statistics
 import sys
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 M, K = 128, 512  # the brick-table fetch shape (125 -> 128 padded, NB = 512)
-SPLIT = 8  # the kernel's split of K (csrc/probes.cu SPLIT)
-N_ALIGN = 64  # n must be a multiple of the kernel's 64-column tile
+N_ALIGN = 64  # n must be a multiple of the kernel's narrowest column tile
+# the kernel's instantiated tiles (csrc/probes.cu bendy_bf16_dot_chain): 256
+# output columns a block with a depth slice of 64, 32 or 16 (deepest first),
+# and 64 x 64 for the multiples of 64 that 256 does not divide
+DOT_WIDE, DOT_KSS = 256, (64, 32, 16)
+DOT_NARROW = (64, 64)
+SMS = 132  # H100 SXM streaming multiprocessors
 PEAK_BF16_S = 989e12  # H100 SXM datasheet dense bf16 tensor FLOP/s
 LIBRARY_CHUNKS = (64, 256, 1024)  # iterations per library product, the ones measure() tries
 LIBRARY_FORM = "torch.mm(bf16, bf16, out_dtype=torch.float32) per chunk, in a CUDA graph"
@@ -69,6 +77,55 @@ def bf16_dot_chain_plain(tab: torch.Tensor, onehot: torch.Tensor, iters: int) ->
     return acc
 
 
+@dataclass(frozen=True)
+class DotPlan:
+    """The kernel's tile for one n: a block of two warpgroups owns ``bn``
+    output columns of all 128 rows and a ``ks``-deep slice of K."""
+
+    n: int
+    bn: int
+    ks: int
+
+    @property
+    def tiles(self) -> int:  # column tiles
+        return self.n // self.bn
+
+    @property
+    def split(self) -> int:  # slices of K, one f32 partial each
+        return K // self.ks
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.split
+
+    @property
+    def fill(self) -> float:
+        """Blocks over the SM slots of the waves they take, one block an SM
+        (as a 256-column block's registers allow)."""
+        return self.blocks / (-(-self.blocks // SMS) * SMS)
+
+
+def dot_plan(n: int) -> DotPlan:
+    """Where 256 divides ``n``, the 256-column tile with the depth slice
+    whose grid fills the SMs best in whole waves (the deeper on a tie: fewer
+    partials, more products a fragment build); else 64 x 64."""
+    if n <= 0 or n % N_ALIGN:
+        raise ValueError(f"n must be a positive multiple of {N_ALIGN}, got {n}")
+    if n % DOT_WIDE:
+        return DotPlan(n, *DOT_NARROW)
+    return max((DotPlan(n, DOT_WIDE, ks) for ks in DOT_KSS),
+               key=lambda p: (round(p.fill, 9), p.ks))
+
+
+def sum_partials(partial: torch.Tensor) -> torch.Tensor:
+    """partial[0] + partial[1] + ... in index order: the same f32 sums on
+    every run."""
+    out = partial[0]
+    for s in range(1, partial.shape[0]):
+        out = out + partial[s]
+    return out
+
+
 def _check(tab: torch.Tensor, onehot: torch.Tensor) -> int:
     n = onehot.shape[1] if onehot.dim() == 2 else -1
     if tab.shape != (M, K) or onehot.shape != (K, n) or n <= 0 or n % N_ALIGN:
@@ -84,11 +141,12 @@ def _check(tab: torch.Tensor, onehot: torch.Tensor) -> int:
 
 def bf16_dot_chain(tab: torch.Tensor, onehot: torch.Tensor, iters: int) -> torch.Tensor:
     """The chain, [128, n] f32. On CUDA tensors one launch of the kernel on
-    the current stream, which takes ``tab`` in f32 (a bf16 tab widened,
-    exactly) and ``onehot`` in bf16 (the f32 control's rounded, as DEFAULT
-    precision rounds it), plus a sum of its 8 split-K partials in a fixed
-    order (adds one to ``bf16_dot_chain.launches``; a build or launch
-    failure raises); on CPU tensors the plain version."""
+    the current stream at :func:`dot_plan`'s tile, which takes ``tab`` in
+    f32 (a bf16 tab widened, exactly) and ``onehot`` in bf16 (the f32
+    control's rounded, as DEFAULT precision rounds it), plus
+    :func:`sum_partials` of its split-K partials (adds one to
+    ``bf16_dot_chain.launches``; a build or launch failure raises); on CPU
+    tensors the plain version."""
     n = _check(tab, onehot)
     if tab.device.type == "cpu":
         return bf16_dot_chain_plain(tab, onehot, iters)
@@ -98,19 +156,18 @@ def bf16_dot_chain(tab: torch.Tensor, onehot: torch.Tensor, iters: int) -> torch
         raise ValueError("iters must fit int32")
     from bendy_tpu_torch import _build
 
+    plan = dot_plan(n)
     tab32, oh16 = tab.float(), onehot.to(torch.bfloat16)  # no copy where already so
-    partial = torch.empty((SPLIT, M, n), dtype=torch.float32, device=tab.device)
+    partial = torch.empty((plan.split, M, n), dtype=torch.float32, device=tab.device)
     lib = _build.library()
     rc = lib.bendy_bf16_dot_chain(tab32.data_ptr(), oh16.data_ptr(), partial.data_ptr(), n,
-                                  iters, torch.cuda.current_stream(tab.device).cuda_stream)
+                                  iters, plan.bn, plan.ks,
+                                  torch.cuda.current_stream(tab.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bendy_bf16_dot_chain launch failed: CUDA error {rc} "
                            f"({lib.bendy_cuda_error_string(rc).decode()})")
     bf16_dot_chain.launches += 1
-    out = partial[0]
-    for s in range(1, SPLIT):
-        out = out + partial[s]
-    return out
+    return sum_partials(partial)
 
 
 bf16_dot_chain.launches = 0
@@ -172,28 +229,36 @@ def measure(n: int, iters: int = 20_000, repeats: int = 5, dtype_name: str = "bf
             device="cuda", library: bool = True) -> dict:
     """Median FLOP/s of the kernel over ``repeats`` launches of at least
     ``MIN_MS`` each (``iters`` raised until a launch takes that long), its
-    share of the bf16 peak, and (``library``) the cuBLAS yardstick's time
-    for the same work on the same inputs: the median of 3 graph replays at
-    each of ``LIBRARY_CHUNKS``, the fastest chunk's kept as ``library_ms``."""
-    from bendy_tpu_torch.tools import card, cuda_ms
+    share of the bf16 peak, the medians of the SM clock and power draw that
+    nvidia-smi read during those launches (and once after them), its tile
+    (:func:`dot_plan`'s), and (``library``) the cuBLAS yardstick's time for
+    the same work on the same inputs: the median of 3 graph replays at each
+    of ``LIBRARY_CHUNKS``, the fastest chunk's kept as ``library_ms``."""
+    from bendy_tpu_torch.tools import card, card_during, cuda_ms
     from bendy_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("measure runs on the card")
+    plan = dot_plan(n)
     tab, oh = probe_inputs(n, dtype_name, dev)
     _, ms = cuda_ms(lambda: bf16_dot_chain(tab, oh, iters), 1, 1, warm_s=0.5)
     while ms < MIN_MS:
         iters = int(iters * max(2.0, 1.2 * MIN_MS / max(ms, 1e-3)))
         _, ms = cuda_ms(lambda: bf16_dot_chain(tab, oh, iters), 1)
-    times = [cuda_ms(lambda: bf16_dot_chain(tab, oh, iters), 1)[1]
-             for _ in range(repeats)]
+    with card_during() as during:
+        times = [cuda_ms(lambda: bf16_dot_chain(tab, oh, iters), 1)[1]
+                 for _ in range(repeats)]
     clock = card()
     rates = [flops(n, iters) / (t * 1e-3) for t in times]
     med = statistics.median(rates)
     out = dict(n=n, dtype=dtype_name, iters=iters, ms=statistics.median(times), ms_all=times,
                flops_per_s=med, flops_per_s_best=max(rates), share_of_peak=med / PEAK_BF16_S,
-               sm_clock=clock["clocks.sm"], power_draw=clock["power.draw"])
+               sm_clock=(f"{during['clocks.sm']:.0f} MHz" if during["samples"] else None),
+               power_draw=(f"{during['power.draw']:.2f} W" if during["samples"] else None),
+               clock_samples=during["samples"], sm_clock_after=clock["clocks.sm"],
+               power_draw_after=clock["power.draw"], bn=plan.bn, ks=plan.ks,
+               blocks=plan.blocks)
     if library:
         by_chunk = {}
         for chunk in LIBRARY_CHUNKS:

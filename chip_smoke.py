@@ -13,9 +13,11 @@ Phases, one line each (any failure exits non-zero):
      masses, LOOPM; the volume ones without geodesics as item
      instantiations and with the BVH walk, BVH, as the surface ones too;
      each with the table in shared or in global memory, GTAB), of the fold
-     kernel and of the two probe kernels (csrc/probes.cu); then each item
-     instantiation's register budget (minBlocks) and the blocks of 128 an
-     SM holds, and the surface instantiation's (no budget),
+     kernel and of the probe kernels (csrc/probes.cu: the FP32 chains and
+     each tile of the wgmma dot chain, and ptxas's warnings on wgmma, if
+     any); then each item instantiation's register budget (minBlocks) and
+     the blocks of 128 an SM holds, and the surface instantiation's (no
+     budget),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output, with the table in
@@ -107,15 +109,19 @@ Phases, one line each (any failure exits non-zero):
      2x2, 16 spp per pass with --checkpoint in a subprocess, the film
      bit-equal to the same passes through the Renderer here; then --mesh 1x1,
  15. the probes: the FP32 chains (fma, nofma; FFMA/FADD counted in the
-     SASS) and the bf16 dot chain (n 1024-8192 and the f32 control), each
-     against its plain version at a small iteration count, then measured
+     SASS) and the bf16 dot chain (wgmma; HGMMA, F2FP, FADD, LDS and LDG of
+     its loop counted in the SASS), each against its plain version at a
+     small iteration count (the dot chain at each of the four tiles its plan
+     takes, n 64-8192, the f32 control and random inputs, equal), then measured
      through tools/vpu_peak.measure and tools/mxu_shape_probe.measure (the
-     dot chain beside its cuBLAS yardstick).
+     dot chain at n 1024-8192 beside its cuBLAS yardstick, with the SM
+     clock and power draw read during its launches).
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes a few minutes, most of it the plain passes.
 
     python3 -c "import chip_smoke as c; c.run(phases=(2, 3))"   # a subset
+    python3 -c "import chip_smoke as c; c.run(phases=(2, 15))"  # the probes alone
 """
 
 import contextlib
@@ -210,13 +216,20 @@ def ptxas_report(log: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
-            p = re.search(r"(fp32_chain|bf16_dot_chain)_kernelILb(\d)E", name)
+            p = re.search(r"fp32_chain_kernelILb(\d)E", name)
+            d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
             label = (trace_label(*(int(g) for g in t.groups())) if t else
-                     f"{p.group(1)}_kernel<{('FMA', 'F32IN')[p.group(1) != 'fp32_chain']}="
-                     f"{p.group(2)}>" if p else
+                     f"fp32_chain_kernel<FMA={p.group(1)}>" if p else
+                     f"bf16_dot_chain_kernel<BN={d.group(1)},KS={d.group(2)}>" if d else
                      "fold_kernel" if "fold_kernel" in name else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
+
+
+def wgmma_warnings(log: str) -> list[str]:
+    """ptxas's warnings about wgmma (a pipeline it serialized), each once."""
+    return sorted({ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()
+                   and ("warning" in ln.lower() or "performance" in ln.lower())})
 
 
 def item_budgets() -> str:
@@ -1139,9 +1152,34 @@ def cli_on_card(dev) -> None:
         fail(f"the CLI --mesh 1x1 failed:\n{proc.stdout}\n{proc.stderr}")
 
 
+SASS_DOT_OPS = ("HGMMA", "F2FP", "FADD", "LDS", "LDG")
+
+
+def sass_loop(lines: list[str]) -> list[str]:
+    """The innermost loop of a function's SASS that holds an HGMMA: the
+    lines from a backward branch's target to the branch (targets as
+    ``.L_x_N`` labels or as addresses), or [] where there is none."""
+    at = {}
+    for i, ln in enumerate(lines):
+        m = re.match(r"\s*(\.L_x_\d+):", ln) or re.match(r"\s*/\*([0-9a-f]{4,})\*/", ln)
+        if m:
+            at.setdefault(m.group(1).lstrip("0") or "0", i)
+    spans = []
+    for i, ln in enumerate(lines):
+        m = re.search(r"\bBRA\b.*?(?:\(?(\.L_x_\d+)\)?|0x([0-9a-f]+))", ln)
+        if m:
+            start = at.get(m.group(1) or (m.group(2).lstrip("0") or "0"))
+            if start is not None and start < i:
+                spans.append(lines[start:i + 1])
+    spans = [sp for sp in spans if any("HGMMA" in ln for ln in sp)]
+    return min(spans, key=len) if spans else []
+
+
 def sass_counts() -> dict:
-    """FFMA / FADD counts in the SASS of the two FP32-chain instantiations
-    (cuobjdump), or {} where the toolkit has no cuobjdump."""
+    """FFMA / FADD counts in the SASS of the two FP32-chain instantiations,
+    and for each dot-chain instantiation the HGMMA, F2FP, FADD, LDS and LDG
+    of its loop and the HGMMA of the whole function (cuobjdump), or {}
+    where the toolkit has no cuobjdump."""
     import shutil
 
     from bendy_tpu_torch import _build
@@ -1157,6 +1195,14 @@ def sass_counts() -> dict:
         for tag, label in (("fp32_chain_kernelILb1E", "fma"), ("fp32_chain_kernelILb0E", "nofma")):
             if tag in name:
                 out[label] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("FFMA", "FADD")}
+        d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
+        if d:
+            loop = sass_loop(chunk.splitlines())
+            counts = {op: sum(bool(re.search(rf"\b{op}\b", ln)) for ln in loop)
+                      for op in SASS_DOT_OPS}
+            counts.update(loop_lines=len(loop),
+                          function_HGMMA=len(re.findall(r"\bHGMMA\b", chunk)))
+            out[f"dot BN={d.group(1)} KS={d.group(2)}"] = counts
     return out
 
 
@@ -1171,10 +1217,17 @@ def probes(dev) -> list:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain dot in full f32
     counts = sass_counts()
-    print(f"phase 15: SASS of the FP32 chains: {counts or 'cuobjdump not available'}")
+    print(f"phase 15: SASS of the FP32 chains: "
+          f"{ {k: v for k, v in counts.items() if k in ('fma', 'nofma')} or 'not read'}")
+    print(f"phase 15: SASS of the dot chain's loop (2 iterations, unrolled; {SASS_DOT_OPS}): "
+          f"{ {k: v for k, v in counts.items() if k.startswith('dot')} or 'not read'}")
     if counts and (counts.get("fma", {}).get("FFMA", 0) < 32
                    or counts.get("nofma", {}).get("FADD", 0) < 64):
         fail("the FP32 chain's loop does not hold the FFMA / FADD it should")
+    if counts and not all(v["function_HGMMA"] for k, v in counts.items() if k.startswith("dot")):
+        fail("a dot-chain instantiation holds no HGMMA")
+    if counts and not any(k.startswith("dot") for k in counts):
+        fail("no dot-chain instantiation in the SASS")
     plain_iters = 16
     x = vpu.probe_input(vpu.ROWS, dev)
     check = {}
@@ -1192,10 +1245,16 @@ def probes(dev) -> list:
             fail(f"fp32_chain {kind} disagrees with its plain version")
     rng = np.random.default_rng(3)
     dot_err = 0.0
-    for n, dtype_name, random in ((1024, "bf16", False), (2048, "bf16", False),
+    # the measured widths and odd multiples of 64, so each of the four tiles the plan
+    # can take (256 x 16 / 32 / 64 at n 1024, 2048, 4096 and 8192; 64 x 64 at 64, 128,
+    # 320, 1088), the f32 control, random inputs
+    for n, dtype_name, random in ((64, "bf16", False), (128, "bf16", False),
+                                  (320, "bf16", False), (1024, "bf16", False),
+                                  (1088, "bf16", False), (2048, "bf16", False),
                                   (4096, "bf16", False), (8192, "bf16", False),
                                   (2048, "f32", False), (1024, "bf16", True),
-                                  (1024, "f32", True)):
+                                  (1024, "f32", True), (1088, "bf16", True),
+                                  (128, "f32", True), (2048, "bf16", True)):
         tab, oh = mxu.probe_inputs(n, dtype_name, dev)
         if random:  # small values whose bf16 rounding the perturbation moves; one-hot columns
             tab = torch.from_numpy(rng.integers(1, 64, (mxu.M, mxu.K)).astype(np.float32)
@@ -1213,8 +1272,10 @@ def probes(dev) -> list:
                 bool(torch.equal(replay(), want))
             equal = equal and lib_equal
             lib = f", cuBLAS yardstick (eager and graph) equal {lib_equal}"
-        print(f"phase 15: bf16_dot_chain n {n} {dtype_name}{' random' if random else ''} vs "
-              f"plain at 4 iters: equal {equal}{lib}")
+        plan = mxu.dot_plan(n)
+        print(f"phase 15: bf16_dot_chain n {n} {dtype_name}{' random' if random else ''} "
+              f"(tile {plan.bn} x {plan.ks}, {plan.blocks} blocks) vs plain at 4 iters: "
+              f"equal {equal}{lib}")
         if not equal:
             fail(f"bf16_dot_chain or its yardstick disagrees with the plain version at n {n} "
                  f"{dtype_name}")
@@ -1242,9 +1303,12 @@ def probes(dev) -> list:
         lib = (f"; cuBLAS {m['library_ms']:.3f} ms ({m['library_flops_per_s']:.4e} FLOP/s, "
                f"{mxu.LIBRARY_FORM}, {m['library_chunk']} iterations per product; ms by "
                f"chunk {m['library_ms_by_chunk']})" if "library_ms" in m else "")
-        print(f"phase 15: bf16_dot_chain n {m['n']} {m['dtype']}: {m['flops_per_s']:.4e} FLOP/s "
-              f"({m['share_of_peak']:.4f} of {mxu.PEAK_BF16_S:.3g}), {m['ms']:.2f} ms per launch "
-              f"of {m['iters']} iters{lib}; SM clock {m['sm_clock']}, power {m['power_draw']}")
+        print(f"phase 15: bf16_dot_chain n {m['n']} {m['dtype']} (tile {m['bn']} x {m['ks']}, "
+              f"{m['blocks']} blocks): {m['flops_per_s']:.4e} FLOP/s ({m['share_of_peak']:.4f} "
+              f"of {mxu.PEAK_BF16_S:.3g}), {m['ms']:.3f} ms per launch of {m['iters']} "
+              f"iters{lib}; during the launches SM clock {m['sm_clock']}, power "
+              f"{m['power_draw']} ({m['clock_samples']} samples), after them "
+              f"{m['sm_clock_after']}, {m['power_draw_after']}")
     print(f"phase 15: launches fp32_chain {fp32_launches}, bf16_dot_chain {dot_launches}")
     if fp32_launches < 10 or dot_launches < 25:
         fail("the probes' entry points did not launch their kernels")
@@ -1268,7 +1332,8 @@ def probes(dev) -> list:
          "fma_ops_per_s": fma["ops_per_s"], "nofma_ops_per_s": nofma["ops_per_s"],
          "nofma_ms": nofma["ms"], "fusion_ratio": fma["ops_per_s"] / nofma["ops_per_s"],
          "fma_share_of_peak": fma["share_of_peak"],
-         "nofma_share_of_peak": nofma["share_of_peak"], "sass": counts},
+         "nofma_share_of_peak": nofma["share_of_peak"],
+         "sass": {k: v for k, v in counts.items() if k in ("fma", "nofma")}},
         {"name": "bf16_dot_chain", "route": "cuda", "source": "bendy_tpu_torch/csrc/probes.cu",
          "replaces": "tools/mxu_shape_probe.py:110", "launches": dot_launches,
          "max_abs_err": dot_err, "ms": d["ms"], "plain_ms": dot_plain_ms, "bound_ms": db,
@@ -1279,7 +1344,11 @@ def probes(dev) -> list:
          "share_of_peak": {str(k): m["share_of_peak"] for k, m in dots.items()},
          "library_ms_by_n": {str(k): m.get("library_ms") for k, m in dots.items()},
          "ms_by_n": {str(k): m["ms"] for k, m in dots.items()},
-         "iters_by_n": {str(k): m["iters"] for k, m in dots.items()}},
+         "iters_by_n": {str(k): m["iters"] for k, m in dots.items()},
+         "sm_clock_by_n": {str(k): m["sm_clock"] for k, m in dots.items()},
+         "power_draw_by_n": {str(k): m["power_draw"] for k, m in dots.items()},
+         "tile_by_n": {str(k): [m["bn"], m["ks"]] for k, m in dots.items()},
+         "sass": {k: v for k, v in counts.items() if k.startswith("dot")}},
     ]
 
 
@@ -1306,6 +1375,7 @@ def run(phases=None, phase3_names=None) -> int:
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
           + " | ".join(ptxas_report(_build.build_log())))
+    print(f"phase 2: ptxas on wgmma: {wgmma_warnings(_build.build_log()) or 'no warning'}")
     print(f"phase 2: the item instantiations' register budgets: {item_budgets()}")
 
     err16 = {}
