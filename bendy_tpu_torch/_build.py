@@ -7,7 +7,8 @@ by a hash of the sources and flags, so a checkout builds everything it
 needs from its own sources and an edit builds anew. The flags keep IEEE
 division and sqrt and no multiply-add contraction: never
 ``--use_fast_math`` (see ``csrc/trace_surface.cu``); the FP32-chain probe
-(``csrc/probes.cu``) fuses with ``__fmaf_rn`` where it means to.
+(``csrc/probes.cu``) fuses with ``__fmaf_rn`` where it means to, and the
+pass's accumulate kernel (``csrc/accumulate.cu``) only adds.
 """
 
 from __future__ import annotations
@@ -67,6 +68,12 @@ SIGNATURES = {
          c_void_p, c_void_p, c_void_p, c_void_p],
         c_int,
     ),
+    # csrc/accumulate.cu: out, n_out, lanes, row0, step, rays, pixels, nn, film, add,
+    #   ray_total, stream
+    "bendy_accumulate": (
+        [c_void_p, c_int, c_int, c_int, c_int, c_void_p, c_int, c_int, c_void_p, c_int,
+         c_void_p, c_void_p],
+        c_int),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),
     # csrc/probes.cu: x, out, n, iters, fma, stream
     "bendy_fp32_chain": ([c_void_p, c_void_p, c_int, c_int, c_int, c_void_p], c_int),

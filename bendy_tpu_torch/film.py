@@ -45,6 +45,11 @@ class Film:
         if isinstance(sums, torch.Tensor):
             sums = sums.detach().cpu().numpy()
         self.sum = self.sum + np.asarray(sums, np.float32)
+        self.count_pass(samples)
+
+    def count_pass(self, samples: int) -> None:
+        """Count one pass of ``samples`` spp whose sums were already added
+        into ``sum`` in place (the renderer's accumulate kernel)."""
         self.samples += samples
         self.passes += 1
 
@@ -89,9 +94,11 @@ class DeviceFilm(Film):
     """Film whose running sum is a tensor on ``device``.
 
     ``add_pass`` adds the pass sums in place on the device, with no
-    transfer and no sync. ``synchronize`` waits for all queued passes (the
-    honest timing point); ``mean``/``preview``/``save_*`` fetch once. The
-    host API (counters, checkpoint format, preview) is that of :class:`Film`.
+    transfer and no sync; a renderer on the same device adds each pass into
+    ``sum`` itself (``Renderer.render``) and calls ``count_pass``.
+    ``synchronize`` waits for all queued passes (the honest timing point);
+    ``mean``/``preview``/``save_*`` fetch once. The host API (counters,
+    checkpoint format, preview) is that of :class:`Film`.
     """
 
     def __init__(self, width: int, height: int, color_space: str = "srgb",
@@ -116,8 +123,7 @@ class DeviceFilm(Film):
 
     def add_pass(self, sums, samples: int) -> None:
         self.sum += torch.as_tensor(sums).to(self.device)  # in place, async
-        self.samples += samples
-        self.passes += 1
+        self.count_pass(samples)
 
     def synchronize(self) -> "DeviceFilm":
         if self.device.type == "cuda":

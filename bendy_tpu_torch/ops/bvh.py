@@ -192,6 +192,37 @@ def _sah_split(lo: np.ndarray, hi: np.ndarray) -> int:
     return int(np.argmin(left * i + right * (n - i))) + 1
 
 
+def _members(sph: np.ndarray, rct: np.ndarray, box: np.ndarray):
+    """(lo, hi, κ, radius, always-tested keys, tree members' keys) of the
+    three primitive blocks: primitives whose box is huge, ill-conditioned
+    or not finite are always tested, the rest go in the tree."""
+    lo, hi, kappa, ok, radius = prim_boxes(sph, rct, box)
+    keys_all = np.arange(len(lo))
+    diag = np.where(ok, np.linalg.norm(hi - lo, axis=1), np.inf)
+    if ok.any():
+        scene_diag = float(np.linalg.norm(hi[ok].max(axis=0) - lo[ok].min(axis=0)))
+    else:
+        scene_diag = 0.0
+    in_tree = ok & (diag <= ALWAYS_FRAC * scene_diag) & (kappa <= KAPPA_MAX)
+    return lo, hi, kappa, radius, keys_all[~in_tree], keys_all[in_tree]
+
+
+def tree_fits(n_members: int) -> bool:
+    """Whether a tree over ``n_members`` primitives fits the kernel's walk:
+    a tree of depth ``BVH_STACK`` has at most 2^(BVH_STACK-1) leaves of
+    ``LEAF_MAX``, and the median rebuild of :func:`build_bvh` stays within
+    that depth (and within ``MAX_NODES`` nodes) for every count up to it."""
+    return n_members <= LEAF_MAX << (BVH_STACK - 1)
+
+
+def bvh_fits(sph: np.ndarray, rct: np.ndarray, box: np.ndarray) -> bool:
+    """Whether :func:`build_bvh` gives these blocks a tree the kernel's
+    uint16 walk holds (:func:`tree_fits` of their tree members). A larger
+    table keeps the sweep, as the reference's ``nearest_hit_looped`` loops
+    over any number of rows; nothing is built to find out."""
+    return tree_fits(len(_members(sph, rct, box)[5]))
+
+
 def build_bvh(sph: np.ndarray, rct: np.ndarray, box: np.ndarray) -> np.ndarray:
     """The three primitive blocks of ``scene_table`` -> the flat f32 node
     block (layout in the module docstring).
@@ -201,20 +232,13 @@ def build_bvh(sph: np.ndarray, rct: np.ndarray, box: np.ndarray) -> np.ndarray:
     their centroids' bounds and split where the surface area heuristic is
     least (at the median in nodes of at most ``SAH_MIN``), down to
     ``LEAF_MAX`` per leaf. A tree deeper than the kernel's stack is built
-    again with median splits only (depth about log2(n / LEAF_MAX)); raises
-    if that does not fit the stack or the node indices either."""
-    lo, hi, kappa, ok, radius = prim_boxes(sph, rct, box)
+    again with median splits only (depth about log2(n / LEAF_MAX)); raises,
+    before building, where no tree fits the stack (:func:`tree_fits`)."""
+    lo, hi, kappa, radius, always, members = _members(sph, rct, box)
     n_sph = np.asarray(sph).size // SPH_COLS
-    n = len(lo)
-    keys_all = np.arange(n)
-    diag = np.where(ok, np.linalg.norm(hi - lo, axis=1), np.inf)
-    if ok.any():
-        scene_diag = float(np.linalg.norm(hi[ok].max(axis=0) - lo[ok].min(axis=0)))
-    else:
-        scene_diag = 0.0
-    in_tree = ok & (diag <= ALWAYS_FRAC * scene_diag) & (kappa <= KAPPA_MAX)
-    always = keys_all[~in_tree]
-    members = keys_all[in_tree]
+    if not tree_fits(len(members)):
+        raise ValueError(f"BVH of {len(members)} primitives: the kernel takes depth <= "
+                         f"{BVH_STACK}, which holds at most {LEAF_MAX << (BVH_STACK - 1)}")
 
     nodes: list = []
     leaf_keys: list = []
@@ -545,8 +569,9 @@ def nearest_hit_bvh_plain(org: V3, dir: V3, cmin, cmax, scn: SceneArrays, bvh: B
 
 
 def uses_bvh(cfg) -> bool:
-    """Whether the CUDA tracer walks the BVH for ``cfg``: the looped-sweep
+    """Whether the CUDA tracer walks a BVH for ``cfg``: the looped-sweep
     scenes (``render.LOOP_SWEEP_THRESHOLD``) without geodesics, whose
-    chords keep the sweep."""
+    chords keep the sweep, and then only a table whose tree fits the walk
+    (:func:`bvh_fits`; ``ops/trace_kernel.tracer_table``)."""
     return bool(cfg.looped_sweep and not cfg.geodesic)
 

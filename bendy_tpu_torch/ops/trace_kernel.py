@@ -22,7 +22,9 @@ sample) item instead (the LOOPM and the item instantiations), so that a
 lane's long samples spread over threads and no thread carries a quota of
 samples, under a register budget that fits more warps per SM; a second
 kernel (:func:`fold_samples`) adds each lane's samples in sample order,
-bit-equal to one thread per lane.
+bit-equal to one thread per lane. A render pass (:func:`make_render_pass`)
+then runs one more kernel, :func:`accumulate` (``csrc/accumulate.cu``),
+which sums each pixel's subpixels into the film and counts the rays.
 
 Dispatch is by the device of the lane tensors and by ``cfg.has_volumes``,
 ``cfg.geodesic`` and ``cfg.looped_masses``, with no fallback: CUDA tensors launch the matching
@@ -45,13 +47,14 @@ no pixel and is left as scheduling work.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from bendy_tpu_torch.geodesic import GeoParams
 from bendy_tpu_torch.ops.bvh import (BOX_COLS, BVH_STACK, RCT_COLS, SPH_COLS, build_bvh,
-                                     bvh_counts, uses_bvh)
+                                     bvh_counts, bvh_fits, uses_bvh)
 from bendy_tpu_torch.ops.camera import CameraParams
 from bendy_tpu_torch.ops.wavefront import TraceConfig, TraceSums, check_trace_args, trace_core
 from bendy_tpu_torch.scene.compiler import MAT_EMISSIVE, MAT_FLAT, SceneArrays
@@ -200,13 +203,18 @@ def tracer_table(host: SceneArrays, cfg: TraceConfig) -> tuple[np.ndarray, dict]
     configuration that walks the BVH (:func:`bendy_tpu_torch.ops.bvh.uses_bvh`)
     its node block appended after the mass block at a float4 boundary, so
     every earlier offset stays; the counts then also hold the block's offset
-    ``bvh0`` and its ``n_node`` and ``n_key``."""
+    ``bvh0`` and its ``n_node`` and ``n_key``. A table whose tree the
+    kernel's uint16 walk cannot hold (``bvh_fits``) gets no node block: its
+    launches run the sweep."""
     table, counts = scene_table(host)
     if not uses_bvh(cfg):
         return table, counts
     o1 = counts["n_sph"] * SPH_COLS
     o2 = o1 + counts["n_rct"] * RCT_COLS
-    block = build_bvh(table[:o1], table[o1:o2], table[o2:o2 + counts["n_box"] * BOX_COLS])
+    blocks = (table[:o1], table[o1:o2], table[o2:o2 + counts["n_box"] * BOX_COLS])
+    if not bvh_fits(*blocks):
+        return table, counts
+    block = build_bvh(*blocks)
     bvh0 = -(-table.size // 4) * 4
     table = np.concatenate([table, np.zeros(bvh0 - table.size, np.float32), block])
     return table, dict(counts, bvh0=bvh0, **bvh_counts(block))
@@ -627,53 +635,72 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     each lane's RK4 steps, on the kernel route only when ``count_steps``
     asks for them with geodesics; the CPU route always counts them). The
     looped-sweep
-    scenes (``cfg.looped_sweep``) without geodesics walk a BVH built here
-    once (:func:`tracer_table`); ``count_tests`` then adds each lane's node
-    and primitive tests to ``lane_counts`` (``node_tests``,
-    ``prim_tests``). The CPU route sweeps every primitive, the image the
-    walk is held to.
+    scenes (``cfg.looped_sweep``) without geodesics walk a BVH built once,
+    at the first call on a card (:func:`tracer_table`); ``count_tests``
+    then adds each lane's node and primitive tests to ``lane_counts``
+    (``node_tests``, ``prim_tests``). The CPU route sweeps every primitive,
+    the image the walk is held to, and builds no table.
+
+    ``fn.words(cam_packed, seed, pass_idx, pix, sub, sample0=0)`` traces
+    the same lanes and returns only the per-lane words a render pass
+    accumulates (:func:`accumulate`): the channel sums [3 or 10, B] f32 and
+    each lane's traced rays [B] (int32 from the kernel, int64 from the
+    plain version), with none of the reductions of ``TraceSums``.
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
-    table_np, counts = tracer_table(scn.host_copy(), cfg)
+    host_table = functools.cache(lambda: tracer_table(scn.host_copy(), cfg))
     tables: dict = {}
     grids: dict = {}
 
-    def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0,
-            count_tests: bool = False, count_steps: bool = False) -> TraceSums:
-        key = render_key(seed, pass_idx)
+    def launch(cam_packed, seed, pass_idx, pix, sub, sample0, count_tests=False,
+               count_steps=False):
+        """The kernel route: (out, rays, iters, vol_events or None, bvh
+        tests or None, RK4 steps or None), per lane."""
         dev = pix.device
-        if count_tests and ("bvh0" not in counts or dev.type != "cuda"):
-            raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
-        if count_steps and not cfg.geodesic:
-            raise ValueError("count_steps: only a geodesic trace takes RK4 steps")
-        if dev.type == "cpu":
-            return trace_core(scn, unpack_camera(cam_packed), key, pix, sub, width,
-                              height, spp, subsample, cfg, spp_total=spp_total,
-                              sample0=sample0)
-        if dev.type != "cuda":
-            raise ValueError(f"no tracer for device {dev}")
         if dev not in tables:
-            tables[dev] = torch.from_numpy(table_np).to(dev)
+            table_np, counts = host_table()
+            tables[dev] = (torch.from_numpy(table_np).to(dev), counts)
+        table, counts = tables[dev]
+        if count_tests and "bvh0" not in counts:
+            raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
         kw = dict(width=width, height=height, spp=spp, spp_total=spp_total,
-                  subsample=subsample, key=key, sample0=sample0, cfg=cfg)
-        tests = None
+                  subsample=subsample, key=render_key(seed, pass_idx), sample0=sample0,
+                  cfg=cfg)
+        tests = near = None
         if count_tests:
-            tests = torch.empty((2, pix.shape[0]), dtype=torch.int32, device=dev)
-            kw["bvh_tests"] = tests
-        near = None
+            tests = kw["bvh_tests"] = torch.empty((2, pix.shape[0]), dtype=torch.int32,
+                                                  device=dev)
         if count_steps:
             near = kw["near_steps"] = torch.empty(pix.shape[0], dtype=torch.int32, device=dev)
-        lanes = (tables[dev], counts, cam_packed.reshape(-1), pix.to(torch.int32),
+        lanes = (table, counts, cam_packed.reshape(-1), pix.to(torch.int32),
                  sub.to(torch.int32))
         if cfg.has_volumes:
             if dev not in grids:
                 grids[dev] = scn.vol_grid.to(dev).contiguous()
-            out, rays, iters, vol = trace_volume(*lanes, grids[dev], **kw)
-        else:
-            launch = trace_geodesic if cfg.geodesic else trace_surface
-            out, rays, iters = launch(*lanes, **kw)
-            vol = torch.zeros_like(rays)
+            return (*trace_volume(*lanes, grids[dev], **kw), tests, near)
+        launch_fn = trace_geodesic if cfg.geodesic else trace_surface
+        return (*launch_fn(*lanes, **kw), None, tests, near)
+
+    def plain(cam_packed, seed, pass_idx, pix, sub, sample0):
+        return trace_core(scn, unpack_camera(cam_packed), render_key(seed, pass_idx), pix, sub,
+                          width, height, spp, subsample, cfg, spp_total=spp_total,
+                          sample0=sample0)
+
+    def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0,
+            count_tests: bool = False, count_steps: bool = False) -> TraceSums:
+        dev = pix.device
+        if count_tests and dev.type != "cuda":
+            raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
+        if count_steps and not cfg.geodesic:
+            raise ValueError("count_steps: only a geodesic trace takes RK4 steps")
+        if dev.type == "cpu":
+            return plain(cam_packed, seed, pass_idx, pix, sub, sample0)
+        if dev.type != "cuda":
+            raise ValueError(f"no tracer for device {dev}")
+        out, rays, iters, vol, tests, near = launch(cam_packed, seed, pass_idx, pix, sub, sample0,
+                                                    count_tests, count_steps)
+        vol = torch.zeros_like(rays) if vol is None else vol
         lane_counts = dict(rays=rays, iters=iters, vol_events=vol)
         if tests is not None:
             lane_counts.update(node_tests=tests[0], prim_tests=tests[1])
@@ -687,6 +714,20 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
                          out[9], *sums, lane_counts=lane_counts)
 
+    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0):
+        dev = pix.device
+        if dev.type == "cpu":
+            res = plain(cam_packed, seed, pass_idx, pix, sub, sample0)
+            chans = [*res.radiance]
+            if cfg.want_aovs:
+                chans += [*res.aov_albedo, *res.aov_normal, res.aov_depth]
+            return torch.stack(chans), res.lane_counts["rays"]
+        if dev.type != "cuda":
+            raise ValueError(f"no tracer for device {dev}")
+        out, rays, *_ = launch(cam_packed, seed, pass_idx, pix, sub, sample0)
+        return out, rays
+
+    run.words = words
     return run
 
 
@@ -699,7 +740,9 @@ def pass_lanes(width: int, rows: int, nn: int, y_offset: int, device):
 
 
 def pixel_sums(res: TraceSums, output: str, rows: int, width: int, nn: int) -> torch.Tensor:
-    """Per-lane sums of the requested channel -> per-pixel sums [rows,W,3]."""
+    """Per-lane sums of the requested channel -> per-pixel sums [rows,W,3]
+    (``torch.sum`` over the subpixels, in no promised order): the plain
+    passes' route and the yardstick of :func:`accumulate`."""
     if output == "full":
         ch = res.radiance
     elif output == "albedo":
@@ -714,18 +757,115 @@ def pixel_sums(res: TraceSums, output: str, rows: int, width: int, nn: int) -> t
     return torch.stack([c.reshape(rows, width, nn).sum(dim=2) for c in ch], dim=-1)
 
 
+# each output's rows of the tracer's channel sums: the first and the step
+# to the next film channel (depth, one row, fills all three)
+CHANNEL_ROWS = {"full": (0, 1), "albedo": (3, 1), "normal": (6, 1), "depth": (9, 0)}
+
+
+def _channel_rows(output: str, n_out: int) -> tuple[int, int]:
+    if output not in CHANNEL_ROWS:
+        raise ValueError(f"unknown output {output!r}")
+    row0, step = CHANNEL_ROWS[output]
+    if row0 + 2 * step >= n_out:
+        raise ValueError(f"output {output!r} reads row {row0 + 2 * step} of channel sums with "
+                         f"{n_out} rows")
+    return row0, step
+
+
+def accumulate_plain(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int,
+                     dst: torch.Tensor, *, add: bool, ray_total: torch.Tensor) -> None:
+    """Plain version of :func:`accumulate`, with its subpixel order."""
+    row0, step = _channel_rows(output, out.shape[0])
+    words = out[[row0, row0 + step, row0 + 2 * step]].view(3, -1, nn)
+    acc = words[:, :, 0]
+    for s in range(1, nn):
+        acc = acc + words[:, :, s]
+    acc = acc.t().reshape(dst.shape)
+    if add:
+        dst += acc
+    else:
+        dst.copy_(acc)
+    ray_total += rays.sum(dtype=torch.int64)
+
+
+def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst: torch.Tensor,
+               *, add: bool, ray_total: torch.Tensor) -> None:
+    """A render pass's subpixel sum, film add and ray count
+    (``csrc/accumulate.cu``), in place on the current stream.
+
+    ``out`` [n_out, B] f32 are the tracer's per-lane channel sums and
+    ``rays`` [B] its per-lane ray counts, B = P·``nn`` lanes in row-major
+    (pixel, subpixel) order (:func:`pass_lanes`). For each of the P pixels
+    the three film channels of ``output`` (:data:`CHANNEL_ROWS`) are the sums
+    of its ``nn`` subpixel words in subpixel order, ((s0 + s1) + s2) + ...,
+    added to ``dst`` (the pixels' [..., 3] f32 film rows, contiguous) with
+    ``add``, else stored there; the lanes' rays are added to ``ray_total``
+    ([1] int64), exactly. At ``nn = 1`` the film equals ``dst +
+    pixel_sums(...)`` bit for bit; past it ``torch.sum``'s order may differ
+    by rounding. CPU tensors run :func:`accumulate_plain`; CUDA ones launch
+    the kernel (adding one to ``accumulate.launches``) or raise."""
+    from bendy_tpu_torch import _build
+
+    dev = out.device
+    pixels = dst.numel() // 3
+    if (out.dim() != 2 or out.dtype != torch.float32 or dst.dtype != torch.float32
+            or dst.shape[-1:] != (3,) or out.shape[1] != pixels * nn or nn < 1
+            or rays.shape != (out.shape[1],) or ray_total.shape != (1,)
+            or ray_total.dtype != torch.int64 or rays.is_floating_point()
+            or any(t.device != dev or not t.is_contiguous()
+                   for t in (out, rays, dst, ray_total))):
+        raise ValueError(f"accumulate: expected contiguous out [n_out, P·nn] f32, rays [P·nn] "
+                         f"integers, dst [..., 3] f32 of P pixels and ray_total [1] int64 on "
+                         f"{dev}")
+    row0, step = _channel_rows(output, out.shape[0])
+    if dev.type == "cpu":
+        return accumulate_plain(out, rays, output, nn, dst, add=add, ray_total=ray_total)
+    if dev.type != "cuda":
+        raise ValueError(f"accumulate runs on CPU or CUDA tensors, got {dev}")
+    if rays.dtype != torch.int32:
+        raise ValueError(f"accumulate: the kernel takes int32 rays, got {rays.dtype}")
+    if pixels == 0:
+        return None
+    rc = _build.library().bendy_accumulate(
+        out.data_ptr(), out.shape[0], out.shape[1], row0, step, rays.data_ptr(), pixels, nn,
+        dst.data_ptr(), int(add), ray_total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("bendy_accumulate", dev, rc)
+    accumulate.launches += 1
+    return None
+
+
+accumulate.launches = 0
+
+
 def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
                      spp: int, subsample: int, cfg: TraceConfig, output: str):
     """Counterpart of ``render.render_pass`` on the tracer: returns
-    ``fn(cam_packed, seed, pass_idx, y_offset) -> (sums [rows,W,3], rays)``
-    over image rows [y_offset, y_offset+rows), on ``cam_packed``'s device.
+    ``fn(cam_packed, seed, pass_idx, y_offset, dst=None, add=False,
+    rays=None) -> (dst, rays)`` over image rows [y_offset, y_offset+rows),
+    on ``cam_packed``'s device: one tracer call (:func:`make_tracer`'s
+    ``words``), then one :func:`accumulate` of its pixel sums into ``dst``
+    ([rows, W, 3] f32; allocated when None), added to it with ``add`` (a
+    film's rows) else stored, and of its rays into ``rays`` ([1] int64;
+    zeros allocated when None). The lanes of each (y_offset, device) are
+    built at its first pass and kept (8 bytes a lane), so a pass runs no
+    torch op besides the tracer's and the accumulate's allocations.
     """
     nn = max(subsample, 1) ** 2
     tracer = make_tracer(scn, width, height, spp, subsample, cfg)
+    lanes: dict = {}
 
-    def run(cam_packed, seed, pass_idx, y_offset):
-        pix, sub = pass_lanes(width, rows, nn, y_offset, cam_packed.device)
-        res = tracer(cam_packed, seed, pass_idx, pix, sub)
-        return pixel_sums(res, output, rows, width, nn), res.rays
+    def run(cam_packed, seed, pass_idx, y_offset, dst=None, add=False, rays=None):
+        dev = cam_packed.device
+        if (y_offset, dev) not in lanes:
+            lanes[y_offset, dev] = pass_lanes(width, rows, nn, y_offset, dev)
+        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, *lanes[y_offset, dev])
+        if dst is None:
+            if add:
+                raise ValueError("add: a pass adds into the film rows it is given")
+            dst = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
+        if rays is None:
+            rays = torch.zeros(1, dtype=torch.int64, device=dev)
+        accumulate(out, lane_rays, output, nn, dst, add=add, ray_total=rays)
+        return dst, rays
 
     return run

@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from bendy_tpu_torch.ops.camera import CameraParams
-from bendy_tpu_torch.ops.trace_kernel import make_tracer, pass_lanes, pixel_sums
+from bendy_tpu_torch.ops.trace_kernel import accumulate, make_tracer, pass_lanes, pixel_sums
 from bendy_tpu_torch.ops.wavefront import TraceConfig, trace_core
 from bendy_tpu_torch.parallel.multihost import (
     DEFAULT_TIMEOUT_S,
@@ -144,9 +144,11 @@ def make_kernel_pass_sharded(scn: SceneArrays, mesh: Mesh, width: int, height: i
     [rows_local, W, 3] f32, summed over its sample ranks, and the pass's
     rays, int64, summed over the world)``. One tracer launch per rank and
     pass, adding one to ``make_kernel_pass_sharded.launches`` (and to the
-    tracer wrapper's own count); on a CPU mesh the tracer runs its plain
-    version and nothing is counted. On a (1, 1) mesh the film is bit-equal
-    to the unsharded pass of ``ops/trace_kernel.make_render_pass``.
+    tracer wrapper's own count), then one ``accumulate`` that stores the
+    rank's pixel sums and counts its rays before the reduce; on a CPU mesh
+    both run their plain versions and nothing is counted. On a (1, 1) mesh
+    the film is bit-equal to the unsharded pass of
+    ``ops/trace_kernel.make_render_pass`` and to the Renderer's pass.
     """
     n = max(subsample, 1)
     nn = n * n
@@ -157,10 +159,14 @@ def make_kernel_pass_sharded(scn: SceneArrays, mesh: Mesh, width: int, height: i
     sample0 = mesh.si * spp_local
 
     def run(cam_packed, seed, pass_idx):
-        res = tracer(cam_packed.to(mesh.device), seed, pass_idx, pix, sub, sample0=sample0)
+        out, lane_rays = tracer.words(cam_packed.to(mesh.device), seed, pass_idx, pix, sub,
+                                      sample0=sample0)
         if mesh.device.type == "cuda":
             make_kernel_pass_sharded.launches += 1
-        return _reduce(pixel_sums(res, output, rows, width, nn), res.rays, mesh)
+        sums = torch.empty((rows, width, 3), dtype=torch.float32, device=mesh.device)
+        rays = torch.zeros(1, dtype=torch.int64, device=mesh.device)
+        accumulate(out, lane_rays, output, nn, sums, add=False, ray_total=rays)
+        return _reduce(sums, rays, mesh)
 
     return run
 

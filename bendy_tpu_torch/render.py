@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bendy_tpu_torch.film import Film
+from bendy_tpu_torch.film import DeviceFilm, Film
 from bendy_tpu_torch.geodesic import GeoParams, geo_from_dict
 from bendy_tpu_torch.ops.camera import CameraParams
 from bendy_tpu_torch.ops.trace_kernel import (
@@ -177,8 +177,8 @@ class Renderer:
         self.scene = scene
         self.arrays = compile_scene(scene, self.device)
         self.max_lanes = max_lanes
-        self._rays_host = 0  # Python int: exact at any count
-        self._rays_pending: list = []
+        # every pass adds its rays here on the device (int64: exact)
+        self._rays = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._pass_cache: dict = {}
         self._cam_key = None
         self.has_volumes = any(
@@ -199,18 +199,14 @@ class Renderer:
 
     @property
     def rays_traced(self) -> int:
-        """Total traced rays, exact (int64 counters, not the reference's f32);
-        fetches the device-pending pass counters in one batch, so rendering
-        itself never waits on them."""
-        if self._rays_pending:
-            self._rays_host += int(torch.stack(self._rays_pending).sum().item())
-            self._rays_pending = []
-        return self._rays_host
+        """Total traced rays, exact (an int64 counter on the device that
+        every pass adds to, not the reference's f32): reading it waits for
+        the queued passes, once; rendering itself never waits on it."""
+        return int(self._rays.item())
 
     @rays_traced.setter
     def rays_traced(self, value: int) -> None:
-        self._rays_host = int(value)
-        self._rays_pending = []
+        self._rays.fill_(int(value))
 
     def camera_params(self, camera_ref: int) -> CameraParams:
         """Camera params on the device, cached until the camera changes.
@@ -293,9 +289,13 @@ class Renderer:
         """Render ``render_config.samples`` spp into the film, one pass.
 
         Early-outs on samples == 0 and otherwise reports IN_PROGRESS, like
-        ``Tracer::render`` (``tracer/mod.rs:186,201``). Pass sums stay on
-        the device: a host :class:`Film` copies them in ``add_pass``, a
-        :class:`DeviceFilm` adds them in place with no sync.
+        ``Tracer::render`` (``tracer/mod.rs:186,201``). Each row chunk is
+        one tracer call and one ``accumulate`` (``ops/trace_kernel.py``),
+        which adds the chunk's pixel sums into the rows of a
+        :class:`DeviceFilm` on this device in place, with no sync, or stores
+        them into one pass image that ``add_pass`` takes (a host
+        :class:`Film`, a film elsewhere); the rays go to the device counter
+        behind :attr:`rays_traced`.
         """
         if render_config.samples == 0:
             return Status.DONE
@@ -306,7 +306,9 @@ class Renderer:
         nn = render_config.subsample.subpixel_count
         n = max(render_config.subsample.n, 1)
         rows_chunk = min(H, max(1, self.max_lanes // max(W * nn, 1)))
-        parts = []
+        in_place = isinstance(film, DeviceFilm) and film.sum.device == self.device
+        dst = film.sum if in_place else torch.empty((H, W, 3), dtype=torch.float32,
+                                                    device=self.device)
         for y0 in range(0, H, rows_chunk):
             rows = min(rows_chunk, H - y0)
             key = (W, H, rows, render_config.samples, n, tcfg, cfg.output.value)
@@ -315,9 +317,10 @@ class Renderer:
                     self.arrays, W, H, rows, render_config.samples, n, tcfg,
                     cfg.output.value,
                 )
-            sums, rays = self._pass_cache[key](self._cam_packed, seed, film.passes, y0)
-            parts.append(sums)
-            self._rays_pending.append(rays)
-        film.add_pass(torch.cat(parts, dim=0) if len(parts) > 1 else parts[0],
-                      render_config.samples * nn)
+            self._pass_cache[key](self._cam_packed, seed, film.passes, y0, dst[y0:y0 + rows],
+                                  add=in_place, rays=self._rays)
+        if in_place:
+            film.count_pass(render_config.samples * nn)
+        else:
+            film.add_pass(dst, render_config.samples * nn)
         return Status.IN_PROGRESS

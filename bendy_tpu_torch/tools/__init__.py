@@ -79,6 +79,36 @@ def cuda_ms_median(fn, repeats: int = 7, warmup: int = 1, warm_s: float = 0.5):
     return out, statistics.median(times), min(times), max(times)
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 7) -> tuple[float, float, float]:
+    """(median, min, max ms per call) of ``calls`` calls of ``fn`` captured
+    in one CUDA graph, over ``replays`` replays, each between its own CUDA
+    events, after one untimed call and one untimed replay: the device time
+    of work too short for CUDA events around one call, which would time
+    the host's launch overhead instead (a replay launches every captured
+    kernel with no host work between them)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times), min(times), max(times)
+
+
 def card() -> dict:
     """The card's name, power limit, SM clock and power draw, as nvidia-smi
     reads them now."""

@@ -11,8 +11,11 @@ parent unpacked with ``git archive`` into a git-ignored directory, this
 tree as ``.``). All are built first, at once; then each DIR, in the order
 given (a DIR named twice runs twice: parent, A, B, B, A, parent), runs in
 a process of its own from its own root: chip_smoke's phase-2 ptxas lines,
-then ``main_path`` (in FULL output only: its film check reads radiance)
-and ``kernel_alone_and_passes`` of each phase asked for (its kernel and
+then ``main_path`` (in FULL output only: its film check reads radiance),
+three times the host ms and the wall of 4 chained ``Renderer.render``
+calls (the host time before one synchronize, and the wall with it, over
+4; through the Renderer API alone, so every checkout is timed by the same
+code) and ``kernel_alone_and_passes`` of each phase asked for (its kernel and
 plain passes at no more than 4 spp), with the scene's ``Output`` from
 ``--output``, the phase's scene replaced by ``--scene`` (scenes/NAME.json.gz
 at the phase's size and Config) and module settings of ``ops/trace_kernel``
@@ -20,7 +23,8 @@ from ``--set``. With ``--module`` each run is ``python3 -m MODULE ARGS``
 instead, and each entry of the JSON line it prints last that has an
 ``ms`` is printed (its ms, share of peak, SM clock and ``library_ms``).
 Each run's output goes to ``OUT/<index>_<dir>.txt``; the kernel-alone
-lines are printed. Needs one card; a run that fails stops the rest.
+lines, the main-path lines and the host-time lines are printed. Needs one
+card; a run that fails stops the rest.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import time
 from pathlib import Path
 
 RUN = """
-import os, sys, torch
+import os, sys, time, torch
 import chip_smoke as c
-from bendy_tpu_torch import Config, Output, _build
+from bendy_tpu_torch import Config, DeviceFilm, Output, RenderConfig, Subsample, _build
 from bendy_tpu_torch.ops import trace_kernel
 phases, output, settings, scene = {phases!r}, {output!r}, {settings!r}, {scene!r}
 dev = torch.device("cuda", 0)
@@ -51,6 +55,18 @@ for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, _) in c.MAIN_PATHS:
         config = Config(**kw, output=Output(output))
         if output == "full":
             path = c.main_path(phase, name, config, W, H, spp, n, dev, launch)
+            rc, film = RenderConfig(samples=spp, subsample=Subsample(n)), DeviceFilm(W, H, device=dev)
+            for rep in range(3):  # the Renderer API alone, so every checkout is timed alike
+                path["r"].render(path["cam"], rc, film, seed=rep)
+                film.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    path["r"].render(path["cam"], rc, film, seed=rep)
+                host = time.perf_counter() - t0
+                film.synchronize()
+                wall = time.perf_counter() - t0
+                print(f"phase {{phase}}: {{name}} host ms per pass {{host / 4 * 1e3:.3f}}, pass "
+                      f"wall {{wall / 4 * 1e3:.3f}} ms (4 render calls, then one synchronize)")
         else:  # main_path's film check reads radiance: the kernel alone only
             r, cam = c.renderer(name, config, W, H, dev)
             r.camera_params(cam)
@@ -108,7 +124,7 @@ def main(argv=None) -> int:
         print(f"run {i} {label} ({time.perf_counter() - t0:.0f} s, exit {proc.returncode}):",
               flush=True)
         for ln in text.splitlines():
-            if "alone median" in ln or "FAIL" in ln:
+            if any(k in ln for k in ("alone median", "FAIL", "main path", "host ms per pass")):
                 print(f"  {ln}", flush=True)
         if args.module and proc.returncode == 0:
             for key, m in json.loads(proc.stdout.strip().splitlines()[-1]).items():

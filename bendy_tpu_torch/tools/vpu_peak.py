@@ -33,6 +33,8 @@ NACC = 8
 REPS = OPS_PER_ITER // 2 // NACC
 ROWS = 2112  # x 128 lanes = 132 SMs x 2,048 threads: every SM full
 PEAK_F32_S = 67e12  # H100 SXM datasheet FP32 (non-tensor) FLOP/s, an FMA counted as 2
+# the SM clock behind that peak: 132 SMs x 128 FP32 lanes x 2 x 1,980 MHz
+PEAK_CLOCK_MHZ = 1980
 MIN_MS = 50.0
 
 
@@ -112,8 +114,10 @@ def measure(kind: str, rows: int = ROWS, iters: int = 200_000, repeats: int = 5,
             device="cuda") -> dict:
     """Median and best operations/s of one kind over ``repeats`` launches of
     at least ``MIN_MS`` each (``iters`` is raised until a launch takes that
-    long), with the SM clock read after."""
-    from bendy_tpu_torch.tools import card, cuda_ms
+    long), with the medians of the SM clock and power draw that nvidia-smi
+    read during those launches (and once after them), and the share of the
+    peak at that clock (the peak scaled by clock / ``PEAK_CLOCK_MHZ``)."""
+    from bendy_tpu_torch.tools import card, card_during, cuda_ms
     from bendy_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -124,15 +128,21 @@ def measure(kind: str, rows: int = ROWS, iters: int = 200_000, repeats: int = 5,
     while ms < MIN_MS:
         iters = int(iters * max(2.0, 1.2 * MIN_MS / max(ms, 1e-3)))
         _, ms = cuda_ms(lambda: fp32_chain(x, kind, iters), 1)
-    times = [cuda_ms(lambda: fp32_chain(x, kind, iters), 1)[1]
-             for _ in range(repeats)]
+    with card_during() as during:
+        times = [cuda_ms(lambda: fp32_chain(x, kind, iters), 1)[1]
+                 for _ in range(repeats)]
     clock = card()
     rates = [ops(rows, iters) / (t * 1e-3) for t in times]
     med = statistics.median(rates)
+    mhz = during["clocks.sm"]
     return dict(kind=kind, rows=rows, iters=iters, ms=statistics.median(times),
                 ms_all=times, ops_per_s=med, ops_per_s_best=max(rates),
-                share_of_peak=med / peak(kind), sm_clock=clock["clocks.sm"],
-                power_draw=clock["power.draw"])
+                share_of_peak=med / peak(kind),
+                share_at_clock=(med / (peak(kind) * mhz / PEAK_CLOCK_MHZ) if mhz else None),
+                sm_clock=(f"{mhz:.0f} MHz" if mhz else None),
+                power_draw=(f"{during['power.draw']:.2f} W" if mhz else None),
+                clock_samples=during["samples"], sm_clock_after=clock["clocks.sm"],
+                power_draw_after=clock["power.draw"])
 
 
 def measure_peaks(rows: int = ROWS, iters: int = 200_000) -> dict:

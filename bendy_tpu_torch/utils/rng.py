@@ -3,7 +3,8 @@
 Counterpart of ``bendy_tpu/utils/rng.py``: the same two hash tiers, so the
 port renders the *same* image as the reference for the same seed:
 
-- ``threefry2x32`` (20 rounds) hashes (seed, pass) into the per-pass key,
+- ``threefry2x32`` (20 rounds) hashes (seed, pass) into the per-pass key
+  (``render_key``, the same rounds on Python ints),
 - ``pcg4d`` (Jarzynski & Olano, JCGT 2020) generates the per-iteration
   uniforms from (stream id, tag·16 + block, key0, key1).
 
@@ -67,9 +68,21 @@ def to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 
 def render_key(seed, pass_idx) -> tuple[int, int]:
-    """Hash (seed, pass) into a per-pass key pair of Python ints."""
-    k0, k1 = threefry2x32(0x9E3779B9, 0xBB67AE85, seed, pass_idx)
-    return int(k0), int(k1)
+    """Hash (seed, pass) into a per-pass key pair of Python ints.
+
+    :func:`threefry2x32` on plain Python ints masked to 32 bits, bit-equal
+    to it: a pass derives its key on the host in microseconds and runs no
+    torch op (the tensor form costs one op per step of the 20 rounds)."""
+    ks = (0x9E3779B9, 0xBB67AE85, 0x9E3779B9 ^ 0xBB67AE85 ^ _PARITY)
+    x0 = (int(seed) + ks[0]) & MASK32
+    x1 = (int(pass_idx) + ks[1]) & MASK32
+    for g in range(1, 6):
+        for r in _ROT_A if g % 2 == 1 else _ROT_B:
+            x0 = (x0 + x1) & MASK32
+            x1 = (((x1 << r) & MASK32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[g % 3]) & MASK32
+        x1 = (x1 + ks[(g + 1) % 3] + g) & MASK32
+    return x0, x1
 
 
 def pcg4d(a, b, c, d):

@@ -15,9 +15,9 @@ Phases, one line each (any failure exits non-zero):
      each with the table in shared or in global memory, GTAB), of the fold
      kernel and of the probe kernels (csrc/probes.cu: the FP32 chains and
      each tile of the wgmma dot chain, and ptxas's warnings on wgmma, if
-     any); then each item instantiation's register budget (minBlocks) and
-     the blocks of 128 an SM holds, and the surface instantiation's (no
-     budget),
+     any) and of the pass's accumulate kernel (csrc/accumulate.cu); then
+     each item instantiation's register budget (minBlocks) and the blocks
+     of 128 an SM holds, and the surface instantiation's (no budget),
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output, with the table in
@@ -45,15 +45,32 @@ Phases, one line each (any failure exits non-zero):
      per-lane node and primitive test counts to the kernel's);
      blackhole, cloud, blackhole_cloud at spp 4, mass_cluster at spp 4 and
      the medium case also with the table forced into global memory and
-     with one sample per chunk; then the Renderer
+     with one sample per chunk; a flat table of 140,000 spheres (past the
+     BVH walk's depth: the sweep instantiation, table in global memory) at
+     spp 1, max_bounces=2, seed 9, FULL; then the Renderer
      against the cornell CPU golden at the same tolerance, and against the
-     volume golden within the budget tests/test_torch_volume.py holds,
+     volume golden within the budget tests/test_torch_volume.py holds; and
+     the accumulate kernel against its plain version, bit for bit, on
+     seeded words of 37x29 pixels for every output at nn = 1 and 4, in add
+     and store mode, with equal ray counts,
   4. the cornell main path: Renderer(cornell) at 256x256, 64 spp, 2x2
      subpixels, default Config, into a DeviceFilm — one warm-up pass, then
-     4 chained timed passes (Mrays/s, seconds per pass, the surface kernel's
-     launch count); then the kernel alone and one kernel pass (lanes,
-     launch, subpixel sum), each the median and spread of 7 calls with
-     fresh seeds between their own CUDA events after 0.5 s of warm-up; the
+     4 chained timed passes (Mrays/s, seconds per pass, host ms per pass:
+     the host time of the 4 render calls before the synchronize, over 4;
+     the surface kernel's and the accumulate kernel's launch counts, the
+     latter once per row chunk and pass); one more pass under
+     torch.profiler, which must run no aten::arange, stack, cat, sum,
+     zeros_like or add_ (only the tracer, the accumulate and
+     allocations); every pass of the film again through the parent's route
+     (the tracer's TraceSums, pixel_sums and +=), bit-equal at 1x1
+     subpixels and past it within what two summation orders can differ
+     by, with equal rays; then the kernel alone and one kernel pass
+     (lanes, launch, accumulate), each the median and spread of 7 calls
+     with fresh seeds between their own CUDA events after 0.5 s of
+     warm-up, and the pass wall minus the kernel alone; the accumulate
+     kernel alone, 20 launches in a CUDA graph, at the path's shape
+     against its plain version (bit-equal) and against the parent's route
+     (pixel_sums, += and the int64 ray sum); the
      lane loop's blocks, waves and warps per SM, rays per warp issue slot
      and block tail, and the ptxas line of every surface instantiation; and
      one plain pass at the same geometry and seed; the two passes are
@@ -98,8 +115,8 @@ Phases, one line each (any failure exits non-zero):
  13. the sharded pass (make_kernel_pass_sharded): (a) cornell at 256x256,
      64 spp, 2x2 subpixels, default Config on a (1,1) mesh, an NCCL world of
      one in this process: a warm-up pass, 4 chained passes with fresh seeds
-     (Mrays/s, s per pass, launch counts: the tracer once a pass, no
-     fold), the film bit-equal to the
+     (Mrays/s, s per pass, launch counts: the tracer and the accumulate
+     once a pass, no fold), the film bit-equal to the
      Renderer's pass at the same seed, the pass alone and the plain sharded
      pass at spp 4; (b) 2x2 meshes of 4 spawned gloo ranks sharing this
      card, on cornell at full size and on blackhole_cloud and mass_cluster
@@ -114,8 +131,9 @@ Phases, one line each (any failure exits non-zero):
      small iteration count (the dot chain at each of the four tiles its plan
      takes, n 64-8192, the f32 control and random inputs, equal), then measured
      through tools/vpu_peak.measure and tools/mxu_shape_probe.measure (the
-     dot chain at n 1024-8192 beside its cuBLAS yardstick, with the SM
-     clock and power draw read during its launches).
+     dot chain at n 1024-8192 beside its cuBLAS yardstick; both with the SM
+     clock and power draw read during their launches, the FP32 chain's
+     share of its peak also at that clock).
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes a few minutes, most of it the plain passes.
@@ -132,7 +150,7 @@ import subprocess
 import sys
 import time
 
-from bendy_tpu_torch.tools import card, cuda_ms, cuda_ms_median
+from bendy_tpu_torch.tools import card, cuda_ms, cuda_ms_median, graph_ms
 
 SCENES = ("cornell", "cornell2", "scene")
 GEO_SCENES = ("blackhole", "binary_blackhole")
@@ -221,7 +239,8 @@ def ptxas_report(log: str) -> list[str]:
             label = (trace_label(*(int(g) for g in t.groups())) if t else
                      f"fp32_chain_kernel<FMA={p.group(1)}>" if p else
                      f"bf16_dot_chain_kernel<BN={d.group(1)},KS={d.group(2)}>" if d else
-                     "fold_kernel" if "fold_kernel" in name else name)
+                     "fold_kernel" if "fold_kernel" in name else
+                     "accumulate_kernel" if "accumulate_kernel" in name else name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines
 
@@ -545,6 +564,120 @@ def walk_check(tag: str, r, cfg, kern, plain, table_np, counts, seed: int, spp: 
         fail(f"the BVH walk of {tag} disagrees with the sweep or the kernel's walk")
 
 
+OUTPUTS = ("full", "albedo", "normal", "depth")
+
+
+def accumulate_vs_plain(dev) -> float:
+    """Phase 3: the accumulate kernel against its plain version on seeded
+    words of 37x29 pixels (blocks of 128 pixels with a ragged last one):
+    every output at nn = 1 and 4, in add mode (onto a seeded film) and in
+    store mode, bit for bit, with equal int64 ray counts. Returns the
+    largest |diff| (0 when they agree)."""
+    import torch
+
+    from bendy_tpu_torch.ops.trace_kernel import accumulate, accumulate_plain
+
+    rows, W = 37, 29
+    g = torch.Generator(device=dev).manual_seed(23)
+    worst = 0.0
+    for nn in (1, 4):
+        B = rows * W * nn
+        out = torch.randn((10, B), generator=g, device=dev) * 10.0 ** torch.randint(
+            -4, 4, (10, B), generator=g, device=dev)
+        rays = torch.randint(0, 500, (B,), generator=g, device=dev, dtype=torch.int32)
+        film = torch.rand((rows, W, 3), generator=g, device=dev)
+        for output in OUTPUTS:
+            for add in (True, False):
+                got, want = film.clone(), film.clone()
+                rk = torch.full((1,), 5, dtype=torch.int64, device=dev)
+                rp = rk.clone()
+                accumulate(out, rays, output, nn, got, add=add, ray_total=rk)
+                accumulate_plain(out, rays, output, nn, want, add=add, ray_total=rp)
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                print(f"phase 3: accumulate {output} nn {nn} {'add' if add else 'store'} at "
+                      f"{rows}x{W} pixels: bit-equal to its plain version {equal}, rays "
+                      f"{int(rk)} vs {int(rp)}")
+                if not equal or int(rk) != int(rp):
+                    fail(f"accumulate disagrees with its plain version ({output}, nn {nn})")
+    return worst
+
+
+SPHERE_FIELD = 140_000  # spheres: a median tree 17 deep, past the kernel's uint16 walk
+
+
+def sphere_field(n: int, dev):
+    """build_prim_grid(2)'s scene on ``dev`` with its sphere block replaced
+    by ``n`` seeded small diffuse spheres over the field (the flat table of
+    tests/test_torch_pass.py): (scene arrays, packed camera, TraceConfig
+    with the looped sweep at max_bounces=2)."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    import bendy_tpu_torch as bt
+    from bendy_tpu_torch.scene.compiler import MAT_DIFFUSE, scene_arrays_from_numpy
+
+    r = bt.Renderer(bt.build_prim_grid(2), device=dev)
+    cam = r.scene.find_by_tag("camera")
+    r.camera_params(cam)
+    g = np.random.default_rng(3)
+    f32 = np.float32
+    center = np.stack([g.uniform(-2.2, 2.2, n), g.uniform(0.05, 1.5, n),
+                       g.uniform(-2.2, 2.2, n)], axis=1).astype(f32)
+    host = replace(r.arrays.host_copy(), sph_center=center,
+                   sph_radius=g.uniform(0.01, 0.03, n).astype(f32),
+                   sph_mtype=np.full(n, MAT_DIFFUSE, np.int32),
+                   sph_albedo=g.uniform(0.2, 0.9, (n, 3)).astype(f32),
+                   sph_rough=np.zeros(n, f32), sph_ior=np.full(n, 1.5, f32),
+                   sph_emitted=np.zeros((n, 3), f32), sph_vol_grid=np.full(n, -1, np.int32),
+                   sph_vol_size=np.zeros((n, 3), f32))
+    cfg = replace(r.trace_config(r.config, cam), max_bounces=2, looped_sweep=True,
+                  has_diffuse=True)
+    return scene_arrays_from_numpy(host, dev), r._cam_packed, cfg
+
+
+def sweep_past_the_walk(dev) -> float:
+    """Phase 3: the flat table of SPHERE_FIELD spheres, whose tree the
+    kernel's walk cannot hold, at 16x16, spp 1, seed 9, FULL: no node
+    block (the sweep instantiation, the table in global memory), one
+    trace_surface launch, per lane against the plain sweep. Returns the
+    largest |diff|."""
+    import torch
+
+    from bendy_tpu_torch.ops import trace_kernel
+    from bendy_tpu_torch.ops.trace_kernel import make_tracer, tracer_table, unpack_camera
+    from bendy_tpu_torch.ops.wavefront import trace_core
+    from bendy_tpu_torch.utils.rng import render_key
+
+    W = H = 16
+    seed = 9
+    arrays, cam_packed, cfg = sphere_field(SPHERE_FIELD, dev)
+    t0 = time.perf_counter()
+    table_np, counts = tracer_table(arrays.host_copy(), cfg)
+    table_s = time.perf_counter() - t0
+    pix = torch.arange(W * H, dtype=torch.int32, device=dev)
+    sub = torch.zeros_like(pix)
+    t0 = time.perf_counter()
+    plain = trace_core(arrays, unpack_camera(cam_packed), render_key(seed, 0), pix, sub, W, H,
+                       1, 1, cfg)
+    plain_s = time.perf_counter() - t0
+    before = trace_kernel.trace_surface.launches
+    kern = make_tracer(arrays, W, H, 1, 1, cfg)(cam_packed, seed, 0, pix, sub)
+    torch.cuda.synchronize()
+    launches = trace_kernel.trace_surface.launches - before
+    gtab = trace_kernel.table_in_global(table_np.nbytes)
+    print(f"phase 3: {SPHERE_FIELD} spheres: node block {'bvh0' in counts}, table "
+          f"{table_np.nbytes} B in {'global' if gtab else 'shared'} memory (routed in "
+          f"{table_s:.2f} s), trace_surface launches {launches}")
+    if "bvh0" in counts or launches != 1:
+        fail(f"the {SPHERE_FIELD}-sphere table did not run the sweep instantiation once")
+    return compare_lanes(f"{SPHERE_FIELD} spheres spp 1 full looped_sweep, the sweep "
+                         f"(plain {plain_s:.1f} s)", kern, plain, cfg)
+
+
 def kernel_vs_plain(dev, names=None) -> dict:
     """Phase 3 (the cases of ``names`` only, and no goldens, when given);
     returns the largest |diff| of each kernel against the plain version,
@@ -608,11 +741,21 @@ def kernel_vs_plain(dev, names=None) -> dict:
                 kind = ("trace_volume" if cfg.has_volumes else
                         "trace_geodesic" if cfg.geodesic else "trace_surface")
                 worst[kind] = max(worst[kind], err)
+    if names is None or "sphere_field" in names:
+        worst["trace_surface"] = max(worst["trace_surface"], sweep_past_the_walk(dev))
     if names is None:
         worst["trace_surface"] = max(worst["trace_surface"],
                                      golden_check(dev, "cornell", 0, RTOL, ATOL))
         golden_check(dev, "volume", VOLUME_GOLDEN_PIXELS_OFF, 1e-5, 1e-6)
+    if names is None or "accumulate" in names:
+        worst["accumulate"] = accumulate_vs_plain(dev)
     return worst
+
+
+# aten ops a main-path pass must not run: the lanes, the subpixel sums, the
+# cat of row chunks, the ray sums and the film add of the parent's pass glue
+GLUE_OPS = ("aten::arange", "aten::stack", "aten::cat", "aten::sum", "aten::zeros_like",
+            "aten::add_", "aten::remainder", "aten::floor_divide", "aten::div")
 
 
 def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, dev,
@@ -622,15 +765,20 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
     unless ``launch`` (the path's kernel wrapper) launched its kernel once
     per pass, or on a per-item path once per chunk of samples
     (:func:`sample_chunks`), each launch followed by one of the fold
-    kernel."""
+    kernel, and the accumulate kernel once per row chunk and pass. Host ms
+    per pass: the host time of the 4 render calls, before the synchronize,
+    over 4. Then one more pass under torch.profiler (no op of
+    ``GLUE_OPS``) and :func:`parent_route_check`."""
     import numpy as np
+    import torch
 
     from bendy_tpu_torch import DeviceFilm, RenderConfig, Subsample
-    from bendy_tpu_torch.ops.trace_kernel import fold_samples
+    from bendy_tpu_torch.ops.trace_kernel import accumulate, fold_samples
 
     r, cam = renderer(name, config, W, H, dev)
     cfg = r.trace_config(r.config, cam)
     chunks = sample_chunks(cfg, W * H * n * n, spp)
+    row_chunks = -(-H // min(H, max(1, r.max_lanes // (W * n * n))))
     rc = RenderConfig(samples=spp, subsample=Subsample(n))
     seed = int.from_bytes(os.urandom(4), "little")
     film = DeviceFilm(W, H, device=dev)
@@ -641,23 +789,79 @@ def main_path(phase: int, name: str, config, W: int, H: int, spp: int, n: int, d
     t0 = time.perf_counter()
     for _ in range(4):
         r.render(cam, rc, film, seed=seed)
+    host_s = time.perf_counter() - t0
     film.synchronize()
     dt = time.perf_counter() - t0
-    launches, folds = launch.launches, fold_samples.launches
+    launches, folds, accs = launch.launches, fold_samples.launches, accumulate.launches
     rays = r.rays_traced - rays0
     mean = film.mean()
     print(f"phase {phase}: main path {name} {W}x{H} {spp} spp {n}x{n}: 4 passes in {dt:.4f} s, "
-          f"{dt / 4:.4f} s/pass, {rays} rays ({rays // 4} per pass), "
-          f"{rays / dt / 1e6:.1f} Mrays/s, {launch.__name__} launches {launches}, "
-          f"fold_samples launches {folds}")
+          f"{dt / 4:.4f} s/pass, host ms per pass {host_s / 4 * 1e3:.3f}, {rays} rays "
+          f"({rays // 4} per pass), {rays / dt / 1e6:.1f} Mrays/s, {launch.__name__} launches "
+          f"{launches}, fold_samples launches {folds}, accumulate launches {accs} "
+          f"({row_chunks} row chunk(s) a pass)")
     if launches != 4 * chunks:
         fail(f"main path launched {launch.__name__} {launches} times, expected 4 x {chunks}")
     if folds != (launches if is_per_item(cfg) else 0):
         fail(f"main path launched fold_samples {folds} times, expected one per tracer launch")
+    if accs != 4 * row_chunks:
+        fail(f"main path launched accumulate {accs} times, expected 4 x {row_chunks}")
     if not (np.isfinite(mean).all() and mean.shape == (H, W, 3) and mean.mean() > 0):
         fail(f"{name} main-path film is not finite and non-zero")
-    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, launches=launches, folds=folds,
-                chunks=chunks)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        r.render(cam, rc, film, seed=seed)
+        film.synchronize()
+    ops = {e.key: e.count for e in prof.key_averages() if e.key.startswith("aten::")}
+    glue = sorted(set(ops) & set(GLUE_OPS))
+    print(f"phase {phase}: torch ops of one pass: {ops or 'none'}")
+    if glue:
+        fail(f"a {name} pass ran the pass glue's ops {glue}")
+    parent_route_check(phase, r, cam, film, rc, seed)
+    return dict(r=r, cam=cam, seed=seed, rays=rays, dt=dt, host_s=host_s, launches=launches,
+                folds=folds, chunks=chunks, accumulates=accs)
+
+
+def parent_route_check(phase: int, r, cam, film, rc, seed: int) -> None:
+    """Every pass of ``film`` again through the parent's route: the
+    tracer's TraceSums over the whole image, ``pixel_sums`` and ``+=`` in
+    the film's order, the rays by ``int64`` sums. Fails unless the rays
+    are equal and the films bit-equal at 1x1 subpixels; past that,
+    ``torch.sum`` adds a pixel's subpixels in another order than the
+    accumulate's, so the films must agree within what any two orders can
+    differ by: per pass 2 (nn - 1) u sum |x_s| (u = 2^-24) for the
+    subpixel sums, and 2 u |film| for each film add of the two routes."""
+    import numpy as np
+    import torch
+
+    from bendy_tpu_torch.ops.trace_kernel import make_tracer, pass_lanes, pixel_sums
+
+    W, H, n = film.width, film.height, max(rc.subsample.n, 1)
+    nn = n * n
+    cfg = r.trace_config(r.config, cam)
+    tracer = make_tracer(r.arrays, W, H, rc.samples, n, cfg)
+    pix, sub = pass_lanes(W, H, nn, 0, film.device)
+    old = torch.zeros_like(film.sum)
+    mags = torch.zeros_like(film.sum, dtype=torch.float64)
+    rays = 0
+    for p in range(film.passes):
+        res = tracer(r._cam_packed, seed, p, pix, sub)
+        old += pixel_sums(res, "full", H, W, nn)
+        mags += torch.stack([c.abs().double().reshape(H, W, nn).sum(dim=2)
+                             for c in res.radiance], dim=-1)
+        rays += int(res.rays)
+    a, b = film.sum.cpu().numpy(), old.cpu().numpy()
+    top = np.maximum(np.abs(a), np.abs(b)).astype(np.float64)
+    diff = np.abs(a.astype(np.float64) - b)
+    u = 2.0**-24
+    bound = (2 * (nn - 1) * u * mags.cpu().numpy() + 2 * u * film.passes * top) * (1 + 1e-6)
+    ulps = diff / np.spacing(top.astype(np.float32))
+    equal = bool(torch.equal(film.sum, old))
+    print(f"phase {phase}: the film's {film.passes} passes through the parent's route (pixel_sums "
+          f"and +=): bit-equal {equal}, pixels off {int((a != b).any(axis=-1).sum())}, max "
+          f"{float(ulps.max()):.1f} ulp, max |diff| over the two orders' bound "
+          f"{float((diff / np.maximum(bound, 1e-45)).max()):.3f}; rays {rays} vs {r.rays_traced}")
+    if rays != r.rays_traced or (nn == 1 and not equal) or (diff > bound).any():
+        fail("the accumulate's film or rays differ from the parent's route")
 
 
 def is_per_item(cfg) -> bool:
@@ -796,7 +1000,12 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     print(f"phase {phase}: kernel vs plain pass at {W}x{plain_rows} rows, {pass_spp} spp: "
           f"pixels within tol {share:.6f}, image mean rel diff {mean_rel:.3e}, max |diff| "
           f"{max_err:.3e}, rays kernel {int(k_rays)} plain {int(p_rays)}; kernel pass "
-          f"(lanes, launch, subpixel sum) {pass_ms:.3f} ms, plain pass {plain_ms:.1f} ms")
+          f"(tracer, accumulate) {pass_ms:.3f} ms, plain pass {plain_ms:.1f} ms")
+    glue_ms = run["dt"] / 4 * 1e3 - call_ms
+    print(f"phase {phase}: the main path's pass wall minus the kernel alone {glue_ms:.3f} ms "
+          f"({run['dt'] / 4 * 1e3:.3f} - {call_ms:.3f}); host ms per pass "
+          f"{run['host_s'] / 4 * 1e3:.3f}")
+    acc = accumulate_alone(phase, res[0], res[1], n * n, H, W, dev)
     if share < 0.999 or mean_rel > 1e-4:
         fail(f"kernel pass disagrees with the plain pass at {W}x{plain_rows}")
     if int(k_rays) != int(p_rays):
@@ -809,7 +1018,65 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
                 max_err=max_err, bound_ms=bound_ms,
                 bound_by=bound_by, rays=n_rays, vol_events=n_vol, rk4_steps=n_rk4,
                 pass_spp=pass_spp, fold=fold, sweep_floor_ms=sweep_ms if bvh else None,
-                tests=tests, table_ms=table_s * 1e3)
+                tests=tests, table_ms=table_s * 1e3, glue_ms=glue_ms, accumulate=acc)
+
+
+def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev) -> dict:
+    """The accumulate kernel alone at a main path's shape, on the tracer's
+    words of the kernel-alone call (FULL output): add mode into a seeded
+    film, held bit for bit to its plain version, then timed on the device
+    as 20 launches captured in a CUDA graph (:func:`graph_ms`, the median
+    of 7 replays: a launch of a few microseconds is shorter than the
+    host's launch overhead, which CUDA events around one call would time),
+    beside the plain version and the parent's route, which it replaces
+    (``pixel_sums`` of the TraceSums, ``+=`` into the film and the int64 ray
+    sum: 6 kernels and 2 temporaries), timed the same way; each call's
+    CUDA-event time (the median of REPEATS, host-bound) is printed too. The
+    bound is bytes: three rows of lane words and the ray counts read once,
+    the film read and written once."""
+    import torch
+
+    from bendy_tpu_torch.ops.trace_kernel import accumulate, accumulate_plain, pixel_sums
+    from bendy_tpu_torch.ops.wavefront import TraceSums
+    from bendy_tpu_torch.utils.v3 import V3
+
+    film = torch.rand((H, W, 3), generator=torch.Generator(device=dev).manual_seed(29),
+                      device=dev)
+    got, want = film.clone(), film.clone()
+    rk, rp = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
+    accumulate(out, rays, "full", nn, got, add=True, ray_total=rk)
+    (_, plain_ms) = cuda_ms(lambda: accumulate_plain(out, rays, "full", nn, want, add=True,
+                                                     ray_total=rp))
+    equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32))) and \
+        int(rk) == int(rp)
+    err = float((got - want).abs().max())
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    res = TraceSums(V3(out[0], out[1], out[2]), None, None, None, zero, zero, zero)
+
+    def kernel():
+        accumulate(out, rays, "full", nn, got, add=True, ray_total=rk)
+
+    def parent_route():
+        got.add_(pixel_sums(res, "full", H, W, nn))  # DeviceFilm.add_pass's +=
+        return rays.sum(dtype=torch.int64)
+
+    ms, lo, hi = graph_ms(kernel)
+    route_ms, _, _ = graph_ms(parent_route)
+    _, call_ms, _, _ = cuda_ms_median(lambda i: kernel(), REPEATS)
+    _, route_call_ms, _, _ = cuda_ms_median(lambda i: parent_route(), REPEATS)
+    lanes = out.shape[1]
+    bound_ms = (4 * (3 * lanes + lanes + 2 * H * W * 3) + 8) / PEAK_BYTES_S * 1e3
+    print(f"phase {phase}: accumulate alone {ms:.4f} ms a launch on the device (20 launches "
+          f"in a CUDA graph, median of 7 replays, min {lo:.4f}, max {hi:.4f}) at {H * W} pixels "
+          f"x {nn} subpixels, add mode (bound "
+          f"{bound_ms:.4f} ms by bytes); bit-equal to its plain version {equal}, plain "
+          f"{plain_ms:.3f} ms; the parent's route (pixel_sums, +=, the int64 ray sum) "
+          f"{route_ms:.4f} ms on the device; a call between CUDA events (host-bound, median of "
+          f"{REPEATS}) {call_ms:.4f} ms, the parent's route {route_call_ms:.4f} ms")
+    if not equal:
+        fail("accumulate disagrees with its plain version at the main path's shape")
+    return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=route_ms, max_err=err, call_ms=call_ms, route_call_ms=route_call_ms)
 
 
 def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> dict:
@@ -927,8 +1194,8 @@ def reset_launches() -> None:
     from bendy_tpu_torch.tools import mxu_shape_probe, vpu_peak
 
     for fn in (trace_kernel.trace_surface, trace_kernel.trace_geodesic,
-               trace_kernel.trace_volume, trace_kernel.fold_samples, mesh.make_kernel_pass_sharded,
-               vpu_peak.fp32_chain, mxu_shape_probe.bf16_dot_chain):
+               trace_kernel.trace_volume, trace_kernel.fold_samples, trace_kernel.accumulate,
+               mesh.make_kernel_pass_sharded, vpu_peak.fp32_chain, mxu_shape_probe.bf16_dot_chain):
         fn.launches = 0
 
 
@@ -945,8 +1212,8 @@ def sharded_pass(dev) -> dict:
     import torch.distributed as dist
 
     from bendy_tpu_torch import Config, DeviceFilm, RenderConfig, Subsample
-    from bendy_tpu_torch.ops.trace_kernel import (fold_samples, make_render_pass, scene_table,
-                                                  trace_surface)
+    from bendy_tpu_torch.ops.trace_kernel import (accumulate, fold_samples, make_render_pass,
+                                                  scene_table, trace_surface)
     from bendy_tpu_torch.parallel import (initialize, make_kernel_pass_sharded, make_mesh,
                                           render_pass_sharded, render_scene_pass, spawn)
     from bendy_tpu_torch.parallel.multihost import free_port
@@ -974,14 +1241,16 @@ def sharded_pass(dev) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches, surface_launches = make_kernel_pass_sharded.launches, trace_surface.launches
-        folds = fold_samples.launches
+        folds, accs = fold_samples.launches, accumulate.launches
         rays = int(torch.stack(ray_parts).sum())
         print(f"phase 13: (a) {backend} world of 1, (1,1) mesh, cornell {W}x{H} {spp} spp "
               f"{n}x{n}: 4 passes in {dt:.4f} s, {dt / 4:.4f} s/pass, {rays} rays, "
               f"{rays / dt / 1e6:.1f} Mrays/s, make_kernel_pass_sharded launches {launches}, "
-              f"trace_surface launches {surface_launches}, fold_samples launches {folds}")
-        if launches != 4 or surface_launches != 4 or folds != 0:
-            fail("the sharded main path did not launch its kernel once per pass, without a fold")
+              f"trace_surface launches {surface_launches}, fold_samples launches {folds}, "
+              f"accumulate launches {accs}")
+        if launches != 4 or surface_launches != 4 or folds != 0 or accs != 4:
+            fail("the sharded main path did not launch its kernel and the accumulate once per "
+                 "pass, without a fold")
         if not bool(torch.isfinite(total).all()) or float(total.mean()) <= 0:
             fail("the sharded cornell film is not finite and non-zero")
         seed = base + 1
@@ -1292,7 +1561,10 @@ def probes(dev) -> list:
         print(f"phase 15: fp32_chain {m['kind']}: {m['ops_per_s']:.4e} ops/s median of 5 "
               f"launches of {m['ms']:.2f} ms ({m['iters']} iters x {m['rows']}x128), best "
               f"{m['ops_per_s_best']:.4e}, {m['share_of_peak']:.4f} of "
-              f"{vpu.peak(m['kind']):.3g}; SM clock {m['sm_clock']}, power {m['power_draw']}")
+              f"{vpu.peak(m['kind']):.3g} ({vpu.PEAK_CLOCK_MHZ} MHz), "
+              f"{m['share_at_clock'] or float('nan'):.4f} of the peak at the SM clock during the launches, "
+              f"{m['sm_clock']} (power {m['power_draw']}, {m['clock_samples']} samples); after "
+              f"them {m['sm_clock_after']}, {m['power_draw_after']}")
     print(f"phase 15: fusion ratio fma/nofma {fma['ops_per_s'] / nofma['ops_per_s']:.4f}")
     dots = {}
     for n in (1024, 2048, 4096, 8192):
@@ -1333,6 +1605,9 @@ def probes(dev) -> list:
          "nofma_ms": nofma["ms"], "fusion_ratio": fma["ops_per_s"] / nofma["ops_per_s"],
          "fma_share_of_peak": fma["share_of_peak"],
          "nofma_share_of_peak": nofma["share_of_peak"],
+         "sm_clock": fma["sm_clock"], "nofma_sm_clock": nofma["sm_clock"],
+         "fma_share_at_clock": fma["share_at_clock"],
+         "nofma_share_at_clock": nofma["share_at_clock"],
          "sass": {k: v for k, v in counts.items() if k in ("fma", "nofma")}},
         {"name": "bf16_dot_chain", "route": "cuda", "source": "bendy_tpu_torch/csrc/probes.cu",
          "replaces": "tools/mxu_shape_probe.py:110", "launches": dot_launches,
@@ -1421,6 +1696,21 @@ def run(phases=None, phase3_names=None) -> int:
                                node_tests_per_segment=k["tests"][0],
                                prim_tests_per_segment=k["tests"][1],
                                bvh_table_build_ms=k["table_ms"])
+        kernels[-1].update(host_ms_per_pass=path["host_s"] / 4 * 1e3,
+                           pass_wall_minus_kernel_ms=k["glue_ms"])
+        a = k["accumulate"]
+        kernels.append({
+            "name": "accumulate", "route": "cuda", "source": "bendy_tpu_torch/csrc/accumulate.cu",
+            "replaces": f"{replaces}: the pass's subpixel sum, film add and ray count "
+                        "(bendy_tpu/render.py:224-226)",
+            "launches": path["accumulates"], "max_abs_err": a["max_err"], "ms": a["ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"], "bound_by": "bytes",
+            "library_ms": a["library_ms"],
+            "library_form": "the parent's route: pixel_sums, += and the int64 ray sum",
+            "path": label, "ms_min": a["ms_min"], "ms_max": a["ms_max"],
+            "timed_by": "20 launches in a CUDA graph, median of 7 replays",
+            "call_ms": a["call_ms"], "library_call_ms": a["route_call_ms"],
+        })
         if k["fold"] is not None:
             f = k["fold"]
             kernels.append({
