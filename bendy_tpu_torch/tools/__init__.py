@@ -1,27 +1,37 @@
-"""Ceiling probes of the card, counterparts of the reference's ``tools/``.
+"""Tools of the port, counterparts of the reference's ``tools/``.
 
     vpu_peak.py         the FP32 ceiling: the FMA-chain kernel
                         (csrc/probes.cu, replaces tools/vpu_peak.py:85)
     mxu_shape_probe.py  the tensor-core ceiling at the brick-fetch shape:
                         the bf16 dot-chain kernel (csrc/probes.cu,
                         replaces tools/mxu_shape_probe.py:110)
+    fidelity.py         MSE-vs-spp of the port's renders against the C++
+                        oracle (docs/fidelity_torch.json)
+    checkout_ab.py      one card call over several checkouts, in turns
 
-Each has a plain PyTorch version of its function, ``measure(...)`` and a
-``main()`` that prints one JSON line:
+The probes have a plain PyTorch version of their function, ``measure(...)``
+and a ``main()`` that prints one JSON line:
 
     python3 -m bendy_tpu_torch.tools.vpu_peak [--rows R] [--iters N]
     python3 -m bendy_tpu_torch.tools.mxu_shape_probe [--iters N] [--ns 1024,2048]
+    python3 -m bendy_tpu_torch.tools.fidelity [--scenes cornell ...] [--device cpu]
 
-Both measure on the card and raise without one.
+The probes measure on the card and raise without one; the fidelity tool
+renders on the card unless ``--device cpu``. Below: the timing helpers
+they and ``chip_smoke.py`` share, the occupancy arithmetic and the
+provenance a result file records.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
 import subprocess
 import threading
 import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def cuda_ms(fn, repeats: int = 1, warmup: int = 0, warm_s: float = 0.0):
@@ -149,3 +159,51 @@ def card_during():
         out["samples"] = len(samples)
         for i, key in enumerate(("clocks.sm", "power.draw")):
             out[key] = statistics.median(s[i] for s in samples) if samples else None
+
+
+def rays_per_warp_issue_slot(rays, iters) -> float:
+    """The tracer's occupancy: the sum of per-thread rays over 32 x the
+    slowest thread's loop length, summed over the warps of 32 consecutive
+    threads (``rays``, ``iters``: per-thread counts, such as a call's
+    ``TraceSums.lane_counts``; a trailing partial warp is left out). The
+    GPU counterpart of the reference's rays over issue slots
+    (``tools/perf_report.py:239``): 1.0 when every thread of a warp runs
+    as many iterations as the warp, each tracing a ray."""
+    import torch
+
+    n = iters.numel() // 32 * 32
+    slots = 32 * int(iters[:n].view(-1, 32).max(dim=1).values.sum(dtype=torch.int64))
+    return int(rays[:n].sum(dtype=torch.int64)) / max(slots, 1)
+
+
+def commit() -> str | None:
+    """The commit this checkout runs: git's HEAD, with "+changes" when the
+    working tree differs from it; in a copy without git history, the
+    ``BENDY_COMMIT`` environment variable the caller sets, else None."""
+    try:
+        head = subprocess.run(["git", "-C", REPO, "rev-parse", "HEAD"], capture_output=True,
+                              text=True, timeout=60)
+        dirty = subprocess.run(["git", "-C", REPO, "status", "--porcelain", "--", "."],
+                               capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        head = None
+    if head is not None and head.returncode == 0:
+        return head.stdout.strip() + ("+changes" if dirty.stdout.strip() else "")
+    return os.environ.get("BENDY_COMMIT")
+
+
+def provenance(device) -> dict:
+    """What a result file records of where it ran: the device and, on a
+    card, its name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (card
+    0, :func:`card`); and the commit (:func:`commit`)."""
+    import torch
+
+    dev = torch.device(device)
+    out = {"device": str(dev)}
+    if dev.type == "cuda":
+        c = card()
+        out["card"] = f"{c['name']}, {c['power.limit']}"
+        out["kind"] = torch.cuda.get_device_name(dev)
+    out["commit"] = commit()
+    return out

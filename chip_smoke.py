@@ -134,12 +134,26 @@ Phases, one line each (any failure exits non-zero):
      dot chain at n 1024-8192 beside its cuBLAS yardstick; both with the SM
      clock and power draw read during their launches, the FP32 chain's
      share of its peak also at that clock).
+ 16. the bench: python3 -m bendy_tpu_torch.bench --full in this process into
+     smoke_out/benches_results_torch.json (its headline JSON line printed on
+     a line of its own): every reference row but vpu_utilization_cornell
+     with a finite Mrays/s, its tracer launched in every timed pass, the
+     headline's cornell median within 25 % of phase 4's Mrays/s, and each
+     row's occupancy equal to the rays per warp issue slot phases 4-12
+     print for the same path at the bench's seed; each row joins its main
+     path's tracer entry in the kernel line as a "bench" field,
+ 17. fidelity: python3 -m bendy_tpu_torch.tools.fidelity at its defaults on
+     all 12 scenes into smoke_out/fidelity_torch.json (the port on the card,
+     the C++ oracle on the host's cores), each entry held to
+     docs/fidelity.json by check_against, its worst ratio printed.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
-the whole run takes a few minutes, most of it the plain passes.
+the whole run takes several minutes, most of it the plain passes and the
+oracle.
 
     python3 -c "import chip_smoke as c; c.run(phases=(2, 3))"   # a subset
     python3 -c "import chip_smoke as c; c.run(phases=(2, 15))"  # the probes alone
+    python3 -c "import chip_smoke as c; c.run(phases=(4, 16, 17))"  # bench, fidelity
 """
 
 import contextlib
@@ -150,7 +164,8 @@ import subprocess
 import sys
 import time
 
-from bendy_tpu_torch.tools import card, cuda_ms, cuda_ms_median, graph_ms
+from bendy_tpu_torch.tools import (card, cuda_ms, cuda_ms_median, graph_ms,
+                                   rays_per_warp_issue_slot)
 
 SCENES = ("cornell", "cornell2", "scene")
 GEO_SCENES = ("blackhole", "binary_blackhole")
@@ -310,18 +325,13 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int, sam
 
 
 def warp_stats(rays, iters, what: str = "lane") -> str:
-    """Per-thread loop-length spread and rays per warp issue slot (the sum of
-    per-thread rays over 32 x the slowest thread's loop length per warp of
-    32 consecutive threads); a thread is a lane, or an item (lane, sample)
-    of a looped-mass launch."""
-    import torch
-
-    n = iters.numel() // 32 * 32
-    slots = 32 * int(iters[:n].view(-1, 32).max(dim=1).values.sum(dtype=torch.int64))
-    eff = int(rays[:n].sum(dtype=torch.int64)) / max(slots, 1)
+    """Per-thread loop-length spread and rays per warp issue slot
+    (``tools.rays_per_warp_issue_slot``, the bench's occupancy); a thread is
+    a lane, or an item (lane, sample) of a per-item launch."""
     it = iters.double()
     return (f"{what} loop lengths min {int(iters.min())} mean {float(it.mean()):.1f} "
-            f"max {int(iters.max())}, rays per warp issue slot {eff:.3f}")
+            f"max {int(iters.max())}, rays per warp issue slot "
+            f"{rays_per_warp_issue_slot(rays, iters):.3f}")
 
 
 def block_tail(iters, threads: int = 128) -> float:
@@ -893,12 +903,15 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     ``plain_rows`` rows, compared per pixel and by ray count. It prints the
     per-lane loop lengths and block tail; a per-item path
     (:func:`is_per_item`) also its per-item ones, the blocks per SM (the
-    item instantiations) and the fold kernel alone (:func:`fold_alone`).
-    Returns the timings and the bound per launch and the largest
-    |diff|."""
+    item instantiations) and the fold kernel alone (:func:`fold_alone`),
+    and the rays per warp issue slot of one more call at the bench's
+    occupancy seed (``bench.OCCUPANCY_SEED``), which phase 16 holds the
+    bench's row to. Returns the timings and the bound per launch, the
+    largest |diff| and that occupancy."""
     import torch
 
     from bendy_tpu_torch import _build
+    from bendy_tpu_torch.bench import OCCUPANCY_SEED
     from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_render_pass, pass_lanes,
                                                   tracer_table)
     from bendy_tpu_torch.render import render_pass
@@ -928,6 +941,11 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
 
     res, call_ms, call_lo, call_hi = cuda_ms_median(call, REPEATS)
     clock = sm_clock()
+    occ = launch(*lanes, width=W, height=H, spp=spp, spp_total=spp, subsample=n,
+                 key=render_key(OCCUPANCY_SEED, 0), sample0=0, cfg=cfg)
+    occupancy = rays_per_warp_issue_slot(occ[1], occ[2])
+    print(f"phase {phase}: rays per warp issue slot at the bench's occupancy seed "
+          f"{OCCUPANCY_SEED}: {occupancy!r}")
     rays, iters = res[1], res[2]
     item_counts = None
     if items:  # an instrumented call: each item's counts (RK4 steps in row 3)
@@ -1018,7 +1036,8 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
                 max_err=max_err, bound_ms=bound_ms,
                 bound_by=bound_by, rays=n_rays, vol_events=n_vol, rk4_steps=n_rk4,
                 pass_spp=pass_spp, fold=fold, sweep_floor_ms=sweep_ms if bvh else None,
-                tests=tests, table_ms=table_s * 1e3, glue_ms=glue_ms, accumulate=acc)
+                tests=tests, table_ms=table_s * 1e3, glue_ms=glue_ms, accumulate=acc,
+                occupancy=occupancy)
 
 
 def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev) -> dict:
@@ -1627,6 +1646,130 @@ def probes(dev) -> list:
     ]
 
 
+# each bench row (bendy_tpu_torch/bench.py --full) and the main path whose
+# kernel entry it joins: the phase of the same tracer, scene class and shape
+BENCH_PATH = {
+    "cornell": "cornell", "cornell2": "cornell", "scene": "cornell", "volume": "cloud",
+    "cloud": "cloud", "dense_cloud": "dense_cloud", "blackhole_geodesic": "blackhole",
+    "blackhole_cloud": "blackhole_cloud", "prim_grid_256_looped": "prim_grid_256",
+    "cloud_field_256_looped": "cloud_field", "mass_cluster_64_looped": "mass_cluster",
+    "kernel_sharded_1x1": "sharded", "blackhole_1080p_256spp": "blackhole",
+}
+HEADLINE_BAND = 0.25  # the headline median against phase 4's Mrays/s, relative
+
+
+def bench_phase(paths: dict) -> dict:
+    """Phase 16: ``python3 -m bendy_tpu_torch.bench --full`` in this
+    process, into ``smoke_out/benches_results_torch.json``; it prints the
+    headline JSON line. Fails unless every reference row but
+    vpu_utilization_cornell is there with a finite Mrays/s above 0, its
+    tracer launched its kernel in every timed pass (the launch counts the
+    row records, as main_path reads them; the sharded row: the pass, the
+    tracer and the accumulate 12 times), the headline's cornell median lies
+    within HEADLINE_BAND of phase 4's Mrays/s, and each row's occupancy is
+    the number phases 4-12 printed for the same path (scene and shape) at
+    the same seed.
+    ``paths``: {main path name: (Mrays/s, occupancy)} of the phases run.
+    Returns the rows."""
+    import math
+
+    from bendy_tpu_torch import bench
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    out = os.path.join(SMOKE_DIR, "benches_results_torch.json")
+    t0 = time.perf_counter()
+    bench.main(["--full", "--out", out])
+    secs = time.perf_counter() - t0
+    with open(out) as f:
+        rows = json.load(f)
+    bad = sorted(set(BENCH_PATH) ^ (set(rows) - {"_meta"}))
+    for name in BENCH_PATH:
+        r = rows.get(name, {})
+        mrays, launches, tracer = r.get("mrays"), r.get("launches", {}), r.get("tracer")
+        wl = r.get("workload", {})
+        timed = wl.get("passes_per_timing", 0) * wl.get("repeats", 0)
+        ok = mrays is not None and math.isfinite(mrays) and mrays > 0
+        if name == "kernel_sharded_1x1":
+            ok = ok and launches.get("make_kernel_pass_sharded") == timed and \
+                launches.get(tracer) == timed and launches.get("accumulate") == timed
+        else:
+            folds = launches.get("fold_samples")
+            ok = ok and launches.get(tracer, 0) >= timed > 0 and \
+                launches.get("accumulate", 0) >= timed and \
+                folds in (0, launches.get(tracer))
+        path = BENCH_PATH[name]
+        occ = ""
+        if "occupancy" in r and path in paths and wl["scene"].split(" ")[0] == path:
+            same = r["occupancy"] == paths[path][1] and r["occupancy_seed"] == \
+                bench.OCCUPANCY_SEED
+            ok = ok and same
+            occ = (f", occupancy {r['occupancy']!r} (phase's {paths[path][1]!r}, seed "
+                   f"{r['occupancy_seed']}: equal {same})")
+        print(f"phase 16: {name}: {mrays} Mrays/s median, {r.get('seconds')} s a pass, tracer "
+              f"alone {r.get('kernel_ms')} ms, {tracer} launches {launches}{occ}")
+        if not ok:
+            bad.append(name)
+    head = rows.get("cornell", {}).get("mrays")
+    if "cornell" in paths and head:
+        off = head / paths["cornell"][0] - 1.0
+        print(f"phase 16: headline cornell median {head} Mrays/s against phase 4's "
+              f"{paths['cornell'][0]} Mrays/s: {off:+.4f} (band +-{HEADLINE_BAND})")
+        if abs(off) > HEADLINE_BAND:
+            bad.append("headline")
+    print(f"phase 16: the bench --full in {secs:.1f} s on {rows.get('_meta', {}).get('card')}")
+    if bad:
+        fail(f"the bench's rows {sorted(set(bad))} are missing, not finite, did not launch "
+             "their tracer or disagree with the main paths")
+    return rows
+
+
+def fidelity_phase() -> dict:
+    """Phase 17: ``python3 -m bendy_tpu_torch.tools.fidelity`` at its
+    defaults on all 12 scenes (the port on the card, the C++ oracle on the
+    host's cores) into ``smoke_out/fidelity_torch.json``; each entry held
+    to docs/fidelity.json through ``check_against``, with every point of
+    the table's entry present. Prints each scene's worst ratio (deviation
+    over its band; <= 1 passes) and the phase's seconds; fails on any point
+    outside its band. Returns {scene: (worst ratio, the tracer that
+    renders it)}."""
+    from bendy_tpu_torch import Renderer
+    from bendy_tpu_torch.bench import tracer_name
+    from bendy_tpu_torch.tools import fidelity
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    out = os.path.join(SMOKE_DIR, "fidelity_torch.json")
+    t0 = time.perf_counter()
+    fidelity.main(["--out", out])
+    secs = time.perf_counter() - t0
+    with open(out) as f:
+        ours = json.load(f)
+    with open("docs/fidelity.json") as f:
+        ref = json.load(f)
+    worst, bad = {}, []
+    for name in fidelity.FIDELITY_SCENES:
+        if name not in ours:
+            print(f"phase 17: {name}: no entry")
+            bad.append(name)
+            continue
+        res = fidelity.check_against(ours[name], ref[name], name)
+        missing = sorted(set(ref[name]) - set(ours[name]))
+        point, metric, got, want, ratio = max(res["checks"], key=lambda c: c[4])
+        scene, cam_ref, _, mb, _ = fidelity.prepare(name, 4)
+        r = Renderer(scene, device="cpu")
+        worst[name] = (res["worst"], tracer_name(r.trace_config(r.config, cam_ref)))
+        band = "flat" if name in fidelity.FLAT_SCENES else "statistical"
+        print(f"phase 17: {name} ({band} band): worst ratio {res['worst']:.4f} at {point} "
+              f"{metric} ({got!r} against the table's {want!r}); points {len(res['checks'])} "
+              f"checks over {sorted(ours[name])}" + (f"; missing {missing}" if missing else ""))
+        if not res["ok"] or missing:
+            bad.append(name)
+    print(f"phase 17: fidelity of 12 scenes in {secs:.1f} s on "
+          f"{ours['_meta'].get('card')}; worst ratio {max(w for w, _ in worst.values()):.4f}")
+    if bad:
+        fail(f"fidelity outside its band on {bad}")
+    return worst
+
+
 def run(phases=None, phase3_names=None) -> int:
     """Run the phases in ``phases`` (all when None; the card and the build
     always run), phase 3 on the cases of ``phase3_names`` only when given."""
@@ -1658,12 +1801,14 @@ def run(phases=None, phase3_names=None) -> int:
         err16 = kernel_vs_plain(dev, phase3_names)
 
     kernels = []
+    paths = {}  # main path name: (Mrays/s, occupancy at the bench's seed), for phase 16
     for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, replaces) in MAIN_PATHS:
         if phases is not None and phase not in phases:
             continue
         launch = getattr(trace_kernel, wrapper)
         path = main_path(phase, name, Config(**kw), W, H, spp, n, dev, launch)
         k = kernel_alone_and_passes(phase, path, W, H, spp, n, pass_spp, rows, launch, dev)
+        paths[name] = (path["rays"] / path["dt"] / 1e6, k["occupancy"])
         label = f"{name} {W}x{H} {spp}spp" + (f" {n}x{n}" if n > 1 else "")
         kernels.append({
             "name": wrapper,
@@ -1697,7 +1842,8 @@ def run(phases=None, phase3_names=None) -> int:
                                prim_tests_per_segment=k["tests"][1],
                                bvh_table_build_ms=k["table_ms"])
         kernels[-1].update(host_ms_per_pass=path["host_s"] / 4 * 1e3,
-                           pass_wall_minus_kernel_ms=k["glue_ms"])
+                           pass_wall_minus_kernel_ms=k["glue_ms"],
+                           rays_per_warp_issue_slot=k["occupancy"])
         a = k["accumulate"]
         kernels.append({
             "name": "accumulate", "route": "cuda", "source": "bendy_tpu_torch/csrc/accumulate.cu",
@@ -1734,12 +1880,28 @@ def run(phases=None, phase3_names=None) -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": None, "path": "cornell 256x256 64spp 2x2, (1,1) mesh, nccl",
             "pass_spp": s["pass_spp"], "mrays_per_s": s["rays"] / s["dt"] / 1e6,
-            "s_per_pass": s["dt"] / 4,
+            "s_per_pass": s["dt"] / 4, "bench_path": "sharded",
         })
     if phases is None or 14 in phases:
         cli_on_card(dev)
     if phases is None or 15 in phases:
         kernels += probes(dev)
+    if phases is None or 16 in phases:
+        rows = bench_phase(paths)
+        for row_name, row in rows.items():
+            path = BENCH_PATH.get(row_name)
+            for entry in kernels:  # the row joins its main path's tracer entry
+                if entry.get("bench_path", entry.get("path", "").split(" ")[0]) == path and \
+                        entry["name"] in (row["tracer"], "make_kernel_pass_sharded"):
+                    entry.setdefault("bench", {})[row_name] = row
+                    break
+    if phases is None or 17 in phases:
+        worst = fidelity_phase()
+        for tracer in ("trace_surface", "trace_geodesic", "trace_volume"):
+            entry = next((e for e in kernels if e["name"] == tracer), None)
+            if entry is not None:  # each scene's worst ratio on the first entry of its tracer
+                entry["fidelity_worst_ratio"] = {
+                    name: ratio for name, (ratio, t) in worst.items() if t == tracer}
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

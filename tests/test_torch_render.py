@@ -91,7 +91,8 @@ def test_checkpoints_cross_load(tmp_path):
 def test_import_leaves_jax_out():
     code = ("import sys, bendy_tpu_torch, bendy_tpu_torch.parallel, bendy_tpu_torch.cli, "
             "bendy_tpu_torch.preview, bendy_tpu_torch.tools.vpu_peak, "
-            "bendy_tpu_torch.tools.mxu_shape_probe, bendy_tpu_torch.tools.checkout_ab; "
+            "bendy_tpu_torch.tools.mxu_shape_probe, bendy_tpu_torch.tools.checkout_ab, "
+            "bendy_tpu_torch.bench, bendy_tpu_torch.native, bendy_tpu_torch.tools.fidelity; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bendy_tpu.'))"
             " or m == 'bendy_tpu']; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
