@@ -9,14 +9,23 @@ division and sqrt and no multiply-add contraction: never
 ``--use_fast_math`` (see ``csrc/trace_surface.cu``); the FP32-chain probe
 (``csrc/probes.cu``) fuses with ``__fmaf_rn`` where it means to, and the
 pass's accumulate kernel (``csrc/accumulate.cu``) only adds.
+
+The tracer's threads per block are a build parameter
+(``-DBENDY_TRACE_BLOCK=n``): :func:`library` builds the library for
+``TRACE_BLOCK`` (128) unless asked for another block, each into its own
+hashed directory, and the host side (the launch glue's walk stacks, lanes
+per block and occupancy) reads the same ``TRACE_BLOCK``, which
+``tools/block_sweep.py`` sets per variant (:func:`trace_block`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +41,8 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in build.log
 ]
 LIB_NAME = "libbendy_kernels.so"
+# the tracer's threads per block that launches run (csrc/trace_surface.cu BLOCK)
+TRACE_BLOCK = 128
 
 c_void_p, c_int, c_uint, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
@@ -68,11 +79,11 @@ SIGNATURES = {
          c_void_p, c_void_p, c_void_p, c_void_p],
         c_int,
     ),
-    # csrc/accumulate.cu: out, n_out, lanes, row0, step, rays, pixels, nn, film, add,
-    #   ray_total, stream
+    # csrc/accumulate.cu: out, n_out, lanes, row0, step, rays, pixels, nn, pix, pix0, film,
+    #   add, ray_total, stream
     "bendy_accumulate": (
         [c_void_p, c_int, c_int, c_int, c_int, c_void_p, c_int, c_int, c_void_p, c_int,
-         c_void_p, c_void_p],
+         c_void_p, c_int, c_void_p, c_void_p],
         c_int),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),
     # csrc/probes.cu: x, out, n, iters, fma, stream
@@ -97,23 +108,40 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def nvcc_flags(block: int) -> list[str]:
+    """The flags of a build whose tracer runs ``block`` threads a block."""
+    if block % 32 or not 32 <= block <= 1024:
+        raise ValueError(f"the tracer's block is whole warps, 32 to 1024 threads, not {block}")
+    return [*NVCC_FLAGS, f"-DBENDY_TRACE_BLOCK={block}"]
+
+
+def _block(block: int | None) -> int:
+    return TRACE_BLOCK if block is None else block
+
+
+def source_hash(block: int | None = None) -> str:
+    h = hashlib.sha256(" ".join(nvcc_flags(_block(block))).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-@functools.cache
-def build() -> tuple[Path, float]:
-    """Compile the kernels if this source hash has no library yet: one
-    ``nvcc -c`` per source, all started together, then one link.
+def build(block: int | None = None) -> tuple[Path, float]:
+    """Compile the kernels, the tracer at ``block`` threads a block (default
+    ``TRACE_BLOCK``), if this source hash has no library yet: one ``nvcc
+    -c`` per source, all started together, then one link.
 
     Returns (library path, seconds spent compiling; 0.0 when it was built
     before). Raises if nvcc fails, with its output.
     """
-    out_dir = BUILD_ROOT / source_hash()
+    return _build(_block(block))
+
+
+@functools.cache
+def _build(block: int) -> tuple[Path, float]:
+    flags_all = nvcc_flags(block)
+    out_dir = BUILD_ROOT / source_hash(block)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0
@@ -123,7 +151,7 @@ def build() -> tuple[Path, float]:
     try:
         nvcc = find_nvcc()
         objs = [str(tmp_dir / f"{src.stem}.o") for src in sources()]
-        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        flags = [f for f in flags_all if f != "-shared"]
         cmds = [[nvcc, *flags, "-c", "-o", o, str(src)] for o, src in zip(objs, sources())]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
@@ -143,10 +171,15 @@ def build() -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
+def library(block: int | None = None) -> ctypes.CDLL:
+    """The built kernel library, its tracer at ``block`` threads a block
+    (default ``TRACE_BLOCK``), with every entry point's signature set."""
+    return _library(_block(block))
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built kernel library with every entry point's signature set."""
-    lib = ctypes.CDLL(str(build()[0]))
+def _library(block: int) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build(block)[0]))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -154,6 +187,53 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def build_log() -> str:
-    """nvcc's output of the current build (ptxas register/spill report)."""
-    return (BUILD_ROOT / source_hash() / "build.log").read_text()
+def build_log(block: int | None = None) -> str:
+    """nvcc's output of a build (ptxas register/spill report)."""
+    return (BUILD_ROOT / source_hash(block) / "build.log").read_text()
+
+
+@contextlib.contextmanager
+def trace_block(block: int):
+    """``TRACE_BLOCK`` set to ``block`` for one block of code: the tracer's
+    launches, and the host's walk stacks, lanes per block and occupancy,
+    follow the build of that block (built at first use)."""
+    global TRACE_BLOCK
+    nvcc_flags(block)  # refuse a block the kernel does not take
+    old, TRACE_BLOCK = TRACE_BLOCK, block
+    try:
+        yield
+    finally:
+        TRACE_BLOCK = old
+
+
+def trace_label(aovs: int, geo: int, vol: int, loopm: int, gtab: int, bvh: int) -> str:
+    """A tracer instantiation's name: its flags, and ITEM for the item
+    instantiations (one thread per (lane, sample) without LOOPM: geodesics,
+    and media without the BVH; the kernel's PER_ITEM)."""
+    item = " ITEM" if not loopm and (geo or (vol and not bvh)) else ""
+    return (f"trace_kernel<AOVS={aovs},GEO={geo},VOL={vol},LOOPM={loopm},GTAB={gtab},"
+            f"BVH={bvh}>{item}")
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel instantiation: registers, stack frame, spills."""
+    lines, name, frame = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            p = re.search(r"fp32_chain_kernelILb(\d)E", name)
+            d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
+            label = (trace_label(*(int(g) for g in t.groups())) if t else
+                     f"fp32_chain_kernel<FMA={p.group(1)}>" if p else
+                     f"bf16_dot_chain_kernel<BN={d.group(1)},KS={d.group(2)}>" if d else
+                     "fold_kernel" if "fold_kernel" in name else
+                     "accumulate_kernel" if "accumulate_kernel" in name else name)
+            lines.append(f"{label}: {m.group(1)} registers, {frame}")
+    return lines

@@ -11,8 +11,9 @@ one scene intersection and shade, a geodesic chord or a march step.
 
 The headline is one JSON line {"metric", "value", "unit", "vs_baseline",
 ...}; ``--full`` adds the reference's rows (``bench.py:196-349``, less its
-TPU-pod projection and the VPU-utilization row) and writes them, with the
-card's name and power limit, to ``--out`` (default
+TPU-pod projection; its ``vpu_utilization_cornell`` row from
+``tools/perf_report.report("cornell")``, the FP32 utilisation) and writes
+them, with the card's name and power limit, to ``--out`` (default
 ``benches_results_torch.json``). Each row carries ``kernel_ms``, the tracer
 alone at the row's shape, so the pass glue shows beside ``seconds``.
 Without a card :func:`main` raises: it never times the CPU.
@@ -31,9 +32,10 @@ import torch
 
 from bendy_tpu_torch.film import DeviceFilm
 from bendy_tpu_torch.ops import trace_kernel
-from bendy_tpu_torch.ops.trace_kernel import make_tracer, pass_lanes
+from bendy_tpu_torch.ops.trace_kernel import make_render_pass, make_tracer
 from bendy_tpu_torch.render import Config, Renderer, RenderConfig, Subsample
-from bendy_tpu_torch.tools import cuda_ms_median, provenance, rays_per_warp_issue_slot
+from bendy_tpu_torch.tools import (cuda_ms_median, perf_report, provenance,
+                                   rays_per_warp_issue_slot)
 
 TARGET = 50.0  # Mrays/sec/chip (BASELINE.json)
 OCCUPANCY_SEED = 7  # the seed of occupancy's one untimed call (chip_smoke phases 4-12 too)
@@ -57,15 +59,26 @@ def _seed() -> int:
     return int.from_bytes(os.urandom(4), "little") & 0x7FFFFFFF
 
 
+def renderer_lanes(r: Renderer, cfg, width: int, height: int, samples: int, subsample: int):
+    """(pix, sub): the whole frame's lanes in the order the Renderer's pass
+    feeds them (``make_render_pass`` at its default lane order), so that a
+    tracer call here runs the production schedule."""
+    n = max(subsample, 1)
+    return make_render_pass(r.arrays, width, height, height, samples, n, cfg, "full").lanes(
+        0, r.device)
+
+
 def tracer_ms(r: Renderer, cam_ref: int, width: int, height: int, samples: int,
               subsample: int) -> float:
-    """The tracer alone over the whole frame's lanes (one call of
-    ``make_tracer(...).words``: its launches and, per item, its folds; no
-    accumulate): the median ms of KERNEL_REPEATS calls with fresh seeds,
-    each between its own CUDA events (``tools.cuda_ms_median``)."""
+    """The tracer alone over the whole frame's lanes in the Renderer's
+    order (:func:`renderer_lanes`; one call of ``make_tracer(...).words``:
+    its launches and, per item, its folds; no accumulate): the median ms of
+    KERNEL_REPEATS calls with fresh seeds, each between its own CUDA events
+    (``tools.cuda_ms_median``)."""
     n = max(subsample, 1)
-    tracer = make_tracer(r.arrays, width, height, samples, n, r.trace_config(r.config, cam_ref))
-    pix, sub = pass_lanes(width, height, n * n, 0, r.device)
+    cfg = r.trace_config(r.config, cam_ref)
+    tracer = make_tracer(r.arrays, width, height, samples, n, cfg)
+    pix, sub = renderer_lanes(r, cfg, width, height, samples, n)
     base = _seed()
     _, ms, _, _ = cuda_ms_median(lambda i: tracer.words(r._cam_packed, base + i, 0, pix, sub),
                                  KERNEL_REPEATS)
@@ -124,17 +137,18 @@ def timed_render(scene, width, height, samples, subsample, config=Config(),
 def occupancy(scene, width=256, height=256, spp=64, sub=2, config=Config(), device="cuda",
               seed=OCCUPANCY_SEED) -> float:
     """Rays per warp issue slot (:func:`tools.rays_per_warp_issue_slot`)
-    of one untimed tracer call at the row's shape, key ``render_key(seed,
-    0)``, from its ``TraceSums.lane_counts``: the number ``chip_smoke.py``
-    phases 4-12 print for the same path and seed."""
+    of one untimed tracer call at the row's shape on the Renderer's lanes
+    (:func:`renderer_lanes`), key ``render_key(seed, 0)``, from its
+    ``TraceSums.lane_counts``: the number ``chip_smoke.py`` phases 4-12
+    print for the same path and seed."""
     cam_ref = scene.find_by_tag("camera")
     scene.get_object(cam_ref).inner.aspect_ratio = width / height
     r = Renderer(scene, config, device=device)
     r.camera_params(cam_ref)
     n = max(sub, 1)
-    pix, lane_sub = pass_lanes(width, height, n * n, 0, r.device)
-    res = make_tracer(r.arrays, width, height, spp, n, r.trace_config(r.config, cam_ref))(
-        r._cam_packed, seed, 0, pix, lane_sub)
+    cfg = r.trace_config(r.config, cam_ref)
+    pix, lane_sub = renderer_lanes(r, cfg, width, height, spp, n)
+    res = make_tracer(r.arrays, width, height, spp, n, cfg)(r._cam_packed, seed, 0, pix, lane_sub)
     return rays_per_warp_issue_slot(res.lane_counts["rays"], res.lane_counts["iters"])
 
 
@@ -253,12 +267,16 @@ NORTH_STAR = ("blackhole_1080p_256spp", "blackhole", 1920, 1080, 256, 1, Config(
 
 
 def load(name: str):
-    """A bench scene: scenes/<name>.json.gz, or build_prim_grid(256)."""
-    from bendy_tpu_torch.models.prim_grid import build_prim_grid
+    """A scene by its class name: scenes/<name>.json.gz, or the generated
+    ``prim_grid_<n>`` (build_prim_grid(n)) and ``light_field_<n>``
+    (build_light_field(n))."""
+    from bendy_tpu_torch.models.prim_grid import build_light_field, build_prim_grid
     from bendy_tpu_torch.scene import load_scene
 
-    return build_prim_grid(256) if name == "prim_grid_256" else load_scene(
-        f"scenes/{name}.json.gz")
+    for prefix, build in (("prim_grid_", build_prim_grid), ("light_field_", build_light_field)):
+        if name.startswith(prefix) and name[len(prefix):].isdigit():
+            return build(int(name[len(prefix):]))
+    return load_scene(f"scenes/{name}.json.gz")
 
 
 def full_row(spec) -> dict:
@@ -322,6 +340,11 @@ def main(argv=None) -> int:
         results[spec[0]] = full_row(spec)
     results["kernel_sharded_1x1"] = sharded_row()
     print(f"kernel_sharded_1x1: {results['kernel_sharded_1x1']}", file=sys.stderr)
+    util = results["vpu_utilization_cornell"] = perf_report.report("cornell")
+    print(f"cornell FP32 utilization: {util['fp32_utilization_lo']:.4f}-"
+          f"{util['fp32_utilization_hi']:.4f}, {util['fp32_util_vs_measured_peak']:.4f} of the "
+          f"measured FMA ceiling (sustained {util['sustained_ops_per_sec']:.4e} ops/s)",
+          file=sys.stderr)
     results[NORTH_STAR[0]] = full_row(NORTH_STAR)
     results["_meta"] = {**meta, "seconds": time.time() - t0}
     with open(args.out, "w") as f:

@@ -289,12 +289,19 @@ constexpr int FACE_FRONT = 0, FACE_BACK = 1, FACE_VOLUME = 2, FACE_VOLUME_FRONT 
 constexpr int FLAG_DIFFUSE = 1, FLAG_METALLIC = 2, FLAG_GLASS = 4, FLAG_DOF = 8, FLAG_POLY = 16,
               FLAG_GEO = 32, FLAG_LOOPM = 64, FLAG_GTAB = 128, FLAG_BVH = 256;
 constexpr int N_COUNTS = 4;  // per-item counts: rays, iters, vevents, near_steps
-constexpr int BLOCK = 128;   // threads per block, every instantiation
+// threads per block, every instantiation: a build parameter
+// (-DBENDY_TRACE_BLOCK=n, bendy_tpu_torch/_build.py library(block=n); the
+// host reads the same n from its build), 128 unless the build asks
+#ifndef BENDY_TRACE_BLOCK
+#define BENDY_TRACE_BLOCK 128
+#endif
+constexpr int BLOCK = BENDY_TRACE_BLOCK;
+static_assert(BLOCK % 32 == 0 && BLOCK >= 32 && BLOCK <= 1024, "whole warps, at most 1024");
 
 // the BVH node block (ops/bvh.py::build_bvh): a header, 8 floats per node,
 // then the keys; the walk's stack of uint16 node indices in shared memory,
 // BVH_STACK per thread, thread-major within a level (no bank conflicts)
-constexpr int BVH_HEAD = 16, BVH_NODE = 8, BVH_STACK = 16, BVH_THREADS = 128;
+constexpr int BVH_HEAD = 16, BVH_NODE = 8, BVH_STACK = 16, BVH_THREADS = BLOCK;
 constexpr int H_NODES = 0, H_ALWAYS = 1, H_SPH = 2, H_RMAX = 3, H_KRB = 4, H_CABS = 5, H_MAG = 6,
               H_RT = 7, H_CENTER = 8;
 constexpr size_t BVH_STACK_BYTES = sizeof(uint16_t) * BVH_STACK * BVH_THREADS;
@@ -1075,11 +1082,16 @@ constexpr bool PER_ITEM = GEO || (VOL && !BVH);
 
 // the register budget of the item instantiations (PER_ITEM without LOOPM):
 // blocks of BLOCK threads that an SM must hold at once, so that ptxas caps
-// the registers to fit (6 blocks: 80 registers, 5: 96). Every other
-// instantiation gets 0 and keeps __launch_bounds__(BLOCK) alone: a minimum
-// of 0 blocks emits none (a minimum of 1 moves their registers).
+// the registers to fit: 768 threads an SM (80 registers), 640 with both
+// geodesics and media (96); at 128 threads a block 6 and 5 blocks. Where
+// BLOCK does not divide the count the blocks round down (256: 3 and 2, that
+// is 768 and 512 threads; 512: 1 and 1), so a budget is never tighter than
+// the 128-thread build's. Every other instantiation gets 0 and keeps
+// __launch_bounds__(BLOCK) alone: a minimum of 0 blocks emits none (a
+// minimum of 1 moves their registers).
 template <bool GEO, bool VOL, bool LOOPM, bool BVH>
-constexpr int MIN_BLOCKS = !LOOPM && PER_ITEM<GEO, VOL, BVH> ? (GEO && VOL ? 5 : 6) : 0;
+constexpr int MIN_BLOCKS =
+    !LOOPM && PER_ITEM<GEO, VOL, BVH> ? (GEO && VOL ? 640 : 768) / BLOCK : 0;
 
 // The tracer: one thread per lane, or with PER_ITEM one per (lane, sample)
 // item.

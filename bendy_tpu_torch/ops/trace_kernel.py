@@ -39,9 +39,15 @@ and the geodesic knobs (``GeoParams``) are launch arguments, so
 editing a scene or its ``geodesic`` block rebuilds nothing. The density
 grids go to the kernel as their own contiguous ``[G, D, H, W]`` f32
 buffer with the four extents as launch arguments: a 32³ grid (128 KiB)
-would crowd the shared-memory table. Lanes are fed
-row-major; the reference's tile-major lane order (``tile_perm``) changes
-no pixel and is left as scheduling work.
+would crowd the shared-memory table.
+
+A render pass feeds its lanes row-major, or with ``tile`` in the
+reference's tile-major order (:func:`tile_perm`), which gives each block
+of a launch a square-ish tile of pixels; the accumulate kernel reads each
+pixel's film row from the lanes' own pixel ids, and the RNG is keyed on
+the (pixel, sample, subpixel) values, so both orders render the same
+film bit for bit. The tracer's threads per block are a build parameter
+(``_build.TRACE_BLOCK``, 128 unless a build asks for another).
 """
 
 from __future__ import annotations
@@ -68,14 +74,21 @@ MAX_TABLE_BYTES = 227 * 1024
 
 MAX_MASSES = 8  # the geodesic kernel's mass unroll (render.MASS_LOOP_THRESHOLD)
 
+# the lane order of a render pass unless its caller asks (make_render_pass,
+# parallel/mesh.make_kernel_pass_sharded): row-major. On an H100 80GB HBM3
+# at 700 W, tools/block_sweep.py at 128 threads and the main paths' shapes
+# timed the tracer alone on the six lane-loop paths at 25.83 ms summed
+# tiled against 24.28 row-major: scene.json ran 3.9 % faster tiled, but
+# prim_grid_256 and cloud_field (16 spp, 1x1: one wave of 512 blocks, whose
+# time is the slowest block's) 14 % and 12 % slower, their block tails up
+# from 1.50 and 1.89 to 1.63 and 2.22 (PERF.md §6)
+TILE = False
+
 # kernel flag bits (csrc/trace_surface.cu FLAG_*)
 FLAG_DIFFUSE, FLAG_METALLIC, FLAG_GLASS, FLAG_DOF, FLAG_POLY, FLAG_GEO = 1, 2, 4, 8, 16, 32
 FLAG_LOOPM = 64  # the looped mass sweep (the LOOPM instantiations)
 FLAG_GTAB = 128  # the scene table stays in global memory
 FLAG_BVH = 256  # nearest hits by the BVH walk (the looped-sweep scenes, ops/bvh.py)
-# a BVH launch's walk stacks: uint16 node indices, BVH_STACK per thread of a
-# 128-thread block, in shared memory after the staged table
-BVH_STACK_BYTES = 2 * BVH_STACK * 128
 
 # a per-item launch (:func:`per_item`) traces each (lane, sample) into
 # per-item buffers of n_out floats and N_COUNTS int32 counts (rays, iters,
@@ -198,6 +211,20 @@ def scene_table(host: SceneArrays) -> tuple[np.ndarray, dict]:
     return table, counts
 
 
+def _prim_blocks(table: np.ndarray, counts: dict) -> tuple:
+    """The sphere, rect and box blocks of a :func:`scene_table`."""
+    o1 = counts["n_sph"] * SPH_COLS
+    o2 = o1 + counts["n_rct"] * RCT_COLS
+    return table[:o1], table[o1:o2], table[o2:o2 + counts["n_box"] * BOX_COLS]
+
+
+def walks_bvh(scn: SceneArrays, cfg: TraceConfig) -> bool:
+    """Whether the kernel's launches of ``cfg`` on ``scn`` walk a BVH: the
+    table :func:`tracer_table` gives them has a node block (found without
+    building it)."""
+    return uses_bvh(cfg) and bvh_fits(*_prim_blocks(*scene_table(scn.host_copy())))
+
+
 def tracer_table(host: SceneArrays, cfg: TraceConfig) -> tuple[np.ndarray, dict]:
     """The kernel's table for ``cfg``: :func:`scene_table`, and for a
     configuration that walks the BVH (:func:`bendy_tpu_torch.ops.bvh.uses_bvh`)
@@ -209,9 +236,7 @@ def tracer_table(host: SceneArrays, cfg: TraceConfig) -> tuple[np.ndarray, dict]
     table, counts = scene_table(host)
     if not uses_bvh(cfg):
         return table, counts
-    o1 = counts["n_sph"] * SPH_COLS
-    o2 = o1 + counts["n_rct"] * RCT_COLS
-    blocks = (table[:o1], table[o1:o2], table[o2:o2 + counts["n_box"] * BOX_COLS])
+    blocks = _prim_blocks(table, counts)
     if not bvh_fits(*blocks):
         return table, counts
     block = build_bvh(*blocks)
@@ -245,7 +270,16 @@ def table_in_global(nbytes: int, bvh: bool = False) -> bool:
     """Whether a scene table of ``nbytes`` (node block included) stays in
     global memory (the GTAB instantiations) instead of being staged in
     shared memory, where a BVH launch also keeps its walk stacks."""
-    return nbytes + (BVH_STACK_BYTES if bvh else 0) > MAX_TABLE_BYTES
+    return nbytes + (bvh_stack_bytes() if bvh else 0) > MAX_TABLE_BYTES
+
+
+def bvh_stack_bytes() -> int:
+    """A BVH launch's walk stacks: uint16 node indices, ``BVH_STACK`` per
+    thread of a block of the build's ``_build.TRACE_BLOCK`` threads, in
+    shared memory after the staged table."""
+    from bendy_tpu_torch import _build
+
+    return 2 * BVH_STACK * _build.TRACE_BLOCK
 
 
 def _check_launch(entry: str, dev: torch.device, rc: int) -> None:
@@ -402,8 +436,8 @@ def item_occupancy(cfg: TraceConfig, table_floats: int) -> tuple[int, int, int]:
     SM holds, SMs) of the instantiation without looped masses or the BVH
     that a launch of ``cfg`` with a table of ``table_floats`` runs on the
     current card: the item instantiation of geodesics or media, or the
-    surface one, one thread per lane (the last two give the warps per
-    SM)."""
+    surface one, one thread per lane; blocks of the build's
+    ``_build.TRACE_BLOCK`` threads (the last two give the warps per SM)."""
     from bendy_tpu_torch import _build
 
     out = (ctypes.c_int * 3)()
@@ -622,7 +656,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     """Build the tracer for one compiled scene.
 
     Returns ``fn(cam_packed [1,32] f32, seed, pass_idx, pix [B], sub [B],
-    sample0=0, count_tests=False, count_steps=False) -> TraceSums``: on
+    sample0=0, count_tests=False, count_steps=False, count_items=False) ->
+    TraceSums``: on
     CUDA lane tensors the
     kernel (:func:`trace_volume` for a configuration with volumes, else
     :func:`trace_geodesic` for a geodesic one, else :func:`trace_surface`),
@@ -639,7 +674,10 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     at the first call on a card (:func:`tracer_table`); ``count_tests``
     then adds each lane's node and primitive tests to ``lane_counts``
     (``node_tests``, ``prim_tests``). The CPU route sweeps every primitive,
-    the image the walk is held to, and builds no table.
+    the image the walk is held to, and builds no table. ``count_items``
+    adds, on a kernel launch that runs per (lane, sample) item
+    (:func:`per_item`), each item's rays and iterations (``item_rays``,
+    ``item_iters``: [B, spp] int32, the counts of the launch's threads).
 
     ``fn.words(cam_packed, seed, pass_idx, pix, sub, sample0=0)`` traces
     the same lanes and returns only the per-lane words a render pass
@@ -654,9 +692,9 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     grids: dict = {}
 
     def launch(cam_packed, seed, pass_idx, pix, sub, sample0, count_tests=False,
-               count_steps=False):
+               count_steps=False, count_items=False):
         """The kernel route: (out, rays, iters, vol_events or None, bvh
-        tests or None, RK4 steps or None), per lane."""
+        tests or None, RK4 steps or None, item counts or None), per lane."""
         dev = pix.device
         if dev not in tables:
             table_np, counts = host_table()
@@ -667,7 +705,10 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         kw = dict(width=width, height=height, spp=spp, spp_total=spp_total,
                   subsample=subsample, key=render_key(seed, pass_idx), sample0=sample0,
                   cfg=cfg)
-        tests = near = None
+        tests = near = items = None
+        if count_items and per_item(cfg, "bvh0" in counts):
+            items = kw["item_counts"] = torch.empty((N_COUNTS, pix.shape[0], spp),
+                                                    dtype=torch.int32, device=dev)
         if count_tests:
             tests = kw["bvh_tests"] = torch.empty((2, pix.shape[0]), dtype=torch.int32,
                                                   device=dev)
@@ -678,9 +719,9 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         if cfg.has_volumes:
             if dev not in grids:
                 grids[dev] = scn.vol_grid.to(dev).contiguous()
-            return (*trace_volume(*lanes, grids[dev], **kw), tests, near)
+            return (*trace_volume(*lanes, grids[dev], **kw), tests, near, items)
         launch_fn = trace_geodesic if cfg.geodesic else trace_surface
-        return (*launch_fn(*lanes, **kw), None, tests, near)
+        return (*launch_fn(*lanes, **kw), None, tests, near, items)
 
     def plain(cam_packed, seed, pass_idx, pix, sub, sample0):
         return trace_core(scn, unpack_camera(cam_packed), render_key(seed, pass_idx), pix, sub,
@@ -688,24 +729,29 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
                           sample0=sample0)
 
     def run(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0,
-            count_tests: bool = False, count_steps: bool = False) -> TraceSums:
+            count_tests: bool = False, count_steps: bool = False,
+            count_items: bool = False) -> TraceSums:
         dev = pix.device
         if count_tests and dev.type != "cuda":
             raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
+        if count_items and dev.type != "cuda":
+            raise ValueError("count_items: only the kernel's launches trace per item")
         if count_steps and not cfg.geodesic:
             raise ValueError("count_steps: only a geodesic trace takes RK4 steps")
         if dev.type == "cpu":
             return plain(cam_packed, seed, pass_idx, pix, sub, sample0)
         if dev.type != "cuda":
             raise ValueError(f"no tracer for device {dev}")
-        out, rays, iters, vol, tests, near = launch(cam_packed, seed, pass_idx, pix, sub, sample0,
-                                                    count_tests, count_steps)
+        out, rays, iters, vol, tests, near, items = launch(
+            cam_packed, seed, pass_idx, pix, sub, sample0, count_tests, count_steps, count_items)
         vol = torch.zeros_like(rays) if vol is None else vol
         lane_counts = dict(rays=rays, iters=iters, vol_events=vol)
         if tests is not None:
             lane_counts.update(node_tests=tests[0], prim_tests=tests[1])
         if near is not None:
             lane_counts["near_steps"] = near
+        if items is not None:
+            lane_counts.update(item_rays=items[0], item_iters=items[1])
         sums = (rays.sum(dtype=torch.int64), iters.sum(dtype=torch.int64),
                 vol.sum(dtype=torch.int64))
         rad = V3(out[0], out[1], out[2])
@@ -731,12 +777,90 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     return run
 
 
-def pass_lanes(width: int, rows: int, nn: int, y_offset: int, device):
+def tile_perm(width: int, rows: int, nn: int, lanes_per_block: int):
+    """Tile-major pixel order for blocks whose lanes end alike (the
+    reference's ``tile_perm``, ``bendy_tpu/ops/pallas_trace.py:279``, the
+    same permutation and tiling for the same arguments).
+
+    A block runs until its slowest lane is done, and in row-major order a
+    block spans a strip of a row; path lengths vary smoothly over the
+    image, so a square-ish tile of ``lanes_per_block // nn`` pixels is more
+    alike than a strip. Full tile-rows over the full tile-columns come
+    first; a ragged right edge (``width`` not a multiple of the tile width)
+    and trailing rows that do not fill a tile-row stay row-major after them.
+
+    Returns ``(perm, (tile_w, tile_h, rows_full, cols_full))`` over the
+    chunk's ``rows*width`` pixels (numpy int64), or ``(None, None)`` where
+    tiling would not change the order (a block holds less than a pixel's
+    ``nn`` lanes, or a tile as wide as the image)."""
+    pix_per_block = lanes_per_block // max(nn, 1)
+    if pix_per_block <= 0:
+        return None, None
+    tile_w = 1 << max(0, int(round(np.log2(max(1.0, np.sqrt(pix_per_block))))))
+    tile_w = min(tile_w, width)
+    tile_h = max(1, pix_per_block // tile_w)
+    rows_full = (rows // tile_h) * tile_h
+    cols_full = (width // tile_w) * tile_w
+    if tile_w >= width or tile_h <= 1 or rows_full == 0:
+        return None, None
+    full = np.arange(rows * width).reshape(rows, width)
+    head = full[:rows_full, :cols_full].reshape(
+        rows_full // tile_h, tile_h, cols_full // tile_w, tile_w
+    ).transpose(0, 2, 1, 3).ravel()
+    edge = full[:rows_full, cols_full:].ravel()  # ragged right edge
+    tail = full[rows_full:, :].ravel()  # ragged trailing rows
+    return np.concatenate([head, edge, tail]), (tile_w, tile_h, rows_full, cols_full)
+
+
+def lanes_per_block(cfg: TraceConfig, bvh: bool, lanes: int, spp: int) -> int:
+    """The lanes one block of a launch of ``cfg`` over ``lanes`` lanes at
+    ``spp`` holds (``bvh``: its table has a node block), the
+    ``lanes_per_block`` of :func:`tile_perm`: on the lane-loop
+    instantiations (surface, BVH) the build's threads per block
+    (``_build.TRACE_BLOCK``); on the per-item and LOOPM ones
+    (:func:`per_item`) the threads per block over the samples a launch
+    traces per lane (:func:`split_samples`). At 128 threads that is 2 lanes
+    at 64 spp (cloud, dense_cloud: fewer than a pixel's 4 subpixels, so
+    :func:`tile_perm` declines and the lanes stay row-major), 4 at 32 spp
+    and 8 at 16 spp with one subpixel (blackhole, blackhole_cloud,
+    mass_cluster: tiles of 2 x 2 and 4 x 2 pixels)."""
+    from bendy_tpu_torch import _build
+
+    if not per_item(cfg, bvh):
+        return _build.TRACE_BLOCK
+    return _build.TRACE_BLOCK // split_samples(lanes, spp, N_OUT if cfg.want_aovs else 3)
+
+
+def pass_lanes(width: int, rows: int, nn: int, y_offset: int, device, tile: bool = False,
+               lanes_per_block: int | None = None):
     """(pix, sub) int32 lanes of image rows [y_offset, y_offset+rows):
-    (pixel, subpixel) in row-major order with global pixel ids, so any row
-    chunking renders the same image."""
-    local = torch.arange(rows * width * nn, dtype=torch.int32, device=device)
-    return y_offset * width + local // nn, local % nn
+    (pixel, subpixel) with global pixel ids, each pixel's ``nn`` subpixels
+    contiguous and in order, so any row chunking and either order renders
+    the same image. Row-major, or with ``tile`` in the tile-major order of
+    :func:`tile_perm` for ``lanes_per_block`` (the launch's, as
+    :func:`lanes_per_block` gives it) where that does not decline."""
+    perm = None
+    if tile:
+        if lanes_per_block is None:
+            raise ValueError("tile: the tile-major order needs the launch's lanes_per_block")
+        perm, _ = tile_perm(width, rows, nn, lanes_per_block)
+    if perm is None:
+        local = torch.arange(rows * width * nn, dtype=torch.int32, device=device)
+        return y_offset * width + local // nn, local % nn
+    pix = np.repeat(perm + y_offset * width, nn).astype(np.int32)
+    sub = np.tile(np.arange(nn, dtype=np.int32), rows * width)
+    return torch.from_numpy(pix).to(device), torch.from_numpy(sub).to(device)
+
+
+def render_lanes(scn: SceneArrays, cfg: TraceConfig, width: int, rows: int, spp: int, nn: int,
+                 y_offset: int, device, tile: bool):
+    """(pix, sub, tiled) of a render pass of ``cfg`` over image rows
+    [y_offset, y_offset+rows): :func:`pass_lanes`, tile-major with
+    ``tile`` at the lanes per block of the launch (:func:`lanes_per_block`),
+    and whether the order is tile-major (else row-major)."""
+    per_block = lanes_per_block(cfg, walks_bvh(scn, cfg), rows * width * nn, spp) if tile else 0
+    pix, sub = pass_lanes(width, rows, nn, y_offset, device, tile, per_block)
+    return pix, sub, tile and tile_perm(width, rows, nn, per_block)[0] is not None
 
 
 def pixel_sums(res: TraceSums, output: str, rows: int, width: int, nn: int) -> torch.Tensor:
@@ -773,29 +897,41 @@ def _channel_rows(output: str, n_out: int) -> tuple[int, int]:
 
 
 def accumulate_plain(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int,
-                     dst: torch.Tensor, *, add: bool, ray_total: torch.Tensor) -> None:
-    """Plain version of :func:`accumulate`, with its subpixel order."""
+                     dst: torch.Tensor, *, add: bool, ray_total: torch.Tensor,
+                     pix: torch.Tensor | None = None, pix0: int = 0) -> None:
+    """Plain version of :func:`accumulate`, with its subpixel order; tiled
+    lanes (``pix``) go to their film rows by ``index_add_`` or
+    ``index_copy_``."""
     row0, step = _channel_rows(output, out.shape[0])
     words = out[[row0, row0 + step, row0 + 2 * step]].view(3, -1, nn)
     acc = words[:, :, 0]
     for s in range(1, nn):
         acc = acc + words[:, :, s]
-    acc = acc.t().reshape(dst.shape)
-    if add:
-        dst += acc
+    if pix is not None:
+        film, slots = dst.view(-1, 3), pix[::nn].long() - pix0
+        if add:
+            film.index_add_(0, slots, acc.t())
+        else:
+            film.index_copy_(0, slots, acc.t())
+    elif add:
+        dst += acc.t().reshape(dst.shape)
     else:
-        dst.copy_(acc)
+        dst.copy_(acc.t().reshape(dst.shape))
     ray_total += rays.sum(dtype=torch.int64)
 
 
 def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst: torch.Tensor,
-               *, add: bool, ray_total: torch.Tensor) -> None:
+               *, add: bool, ray_total: torch.Tensor, pix: torch.Tensor | None = None,
+               pix0: int = 0) -> None:
     """A render pass's subpixel sum, film add and ray count
     (``csrc/accumulate.cu``), in place on the current stream.
 
     ``out`` [n_out, B] f32 are the tracer's per-lane channel sums and
     ``rays`` [B] its per-lane ray counts, B = P·``nn`` lanes in row-major
-    (pixel, subpixel) order (:func:`pass_lanes`). For each of the P pixels
+    (pixel, subpixel) order (:func:`pass_lanes`), or, given the lanes'
+    pixel ids ``pix`` ([B] int32, each pixel's subpixels contiguous and in
+    order, as the tile-major order keeps them), the pixel of lane
+    p·``nn`` going to film row ``pix[p·nn] - pix0``. For each of the P pixels
     the three film channels of ``output`` (:data:`CHANNEL_ROWS`) are the sums
     of its ``nn`` subpixel words in subpixel order, ((s0 + s1) + s2) + ...,
     added to ``dst`` (the pixels' [..., 3] f32 film rows, contiguous) with
@@ -812,14 +948,16 @@ def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst:
             or dst.shape[-1:] != (3,) or out.shape[1] != pixels * nn or nn < 1
             or rays.shape != (out.shape[1],) or ray_total.shape != (1,)
             or ray_total.dtype != torch.int64 or rays.is_floating_point()
+            or (pix is not None and (pix.shape != rays.shape or pix.dtype != torch.int32))
             or any(t.device != dev or not t.is_contiguous()
-                   for t in (out, rays, dst, ray_total))):
+                   for t in (out, rays, dst, ray_total) + ((pix,) if pix is not None else ()))):
         raise ValueError(f"accumulate: expected contiguous out [n_out, P·nn] f32, rays [P·nn] "
-                         f"integers, dst [..., 3] f32 of P pixels and ray_total [1] int64 on "
-                         f"{dev}")
+                         f"integers, dst [..., 3] f32 of P pixels, ray_total [1] int64 and "
+                         f"optional pix [P·nn] int32 on {dev}")
     row0, step = _channel_rows(output, out.shape[0])
     if dev.type == "cpu":
-        return accumulate_plain(out, rays, output, nn, dst, add=add, ray_total=ray_total)
+        return accumulate_plain(out, rays, output, nn, dst, add=add, ray_total=ray_total,
+                                pix=pix, pix0=pix0)
     if dev.type != "cuda":
         raise ValueError(f"accumulate runs on CPU or CUDA tensors, got {dev}")
     if rays.dtype != torch.int32:
@@ -828,7 +966,8 @@ def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst:
         return None
     rc = _build.library().bendy_accumulate(
         out.data_ptr(), out.shape[0], out.shape[1], row0, step, rays.data_ptr(), pixels, nn,
-        dst.data_ptr(), int(add), ray_total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        None if pix is None else pix.data_ptr(), pix0, dst.data_ptr(), int(add),
+        ray_total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("bendy_accumulate", dev, rc)
     accumulate.launches += 1
     return None
@@ -838,34 +977,45 @@ accumulate.launches = 0
 
 
 def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
-                     spp: int, subsample: int, cfg: TraceConfig, output: str):
-    """Counterpart of ``render.render_pass`` on the tracer: returns
-    ``fn(cam_packed, seed, pass_idx, y_offset, dst=None, add=False,
-    rays=None) -> (dst, rays)`` over image rows [y_offset, y_offset+rows),
-    on ``cam_packed``'s device: one tracer call (:func:`make_tracer`'s
-    ``words``), then one :func:`accumulate` of its pixel sums into ``dst``
-    ([rows, W, 3] f32; allocated when None), added to it with ``add`` (a
-    film's rows) else stored, and of its rays into ``rays`` ([1] int64;
-    zeros allocated when None). The lanes of each (y_offset, device) are
-    built at its first pass and kept (8 bytes a lane), so a pass runs no
-    torch op besides the tracer's and the accumulate's allocations.
+                     spp: int, subsample: int, cfg: TraceConfig, output: str,
+                     tile: bool = TILE):
+    """Counterpart of ``render.render_pass`` on the tracer (the reference's
+    ``make_pallas_render_pass``): returns ``fn(cam_packed, seed, pass_idx,
+    y_offset, dst=None, add=False, rays=None) -> (dst, rays)`` over image
+    rows [y_offset, y_offset+rows), on ``cam_packed``'s device: one tracer
+    call (:func:`make_tracer`'s ``words``), then one :func:`accumulate` of
+    its pixel sums into ``dst`` ([rows, W, 3] f32; allocated when None),
+    added to it with ``add`` (a film's rows) else stored, and of its rays
+    into ``rays`` ([1] int64; zeros allocated when None). With ``tile`` the
+    lanes go in tile-major order (:func:`render_lanes`), which renders the
+    same film bit for bit. The lanes of each (y_offset, device) are built at
+    its first pass and kept (8 bytes a lane), so a pass runs no torch op
+    besides the tracer's and the accumulate's allocations;
+    ``fn.lanes(y_offset, device)`` gives them as (pix, sub).
     """
     nn = max(subsample, 1) ** 2
     tracer = make_tracer(scn, width, height, spp, subsample, cfg)
     lanes: dict = {}
 
+    def lanes_of(y_offset: int, dev: torch.device):
+        if (y_offset, dev) not in lanes:
+            lanes[y_offset, dev] = render_lanes(scn, cfg, width, rows, spp, nn, y_offset, dev,
+                                                tile)
+        return lanes[y_offset, dev]
+
     def run(cam_packed, seed, pass_idx, y_offset, dst=None, add=False, rays=None):
         dev = cam_packed.device
-        if (y_offset, dev) not in lanes:
-            lanes[y_offset, dev] = pass_lanes(width, rows, nn, y_offset, dev)
-        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, *lanes[y_offset, dev])
+        pix, sub, tiled = lanes_of(y_offset, dev)
+        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, pix, sub)
         if dst is None:
             if add:
                 raise ValueError("add: a pass adds into the film rows it is given")
             dst = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
         if rays is None:
             rays = torch.zeros(1, dtype=torch.int64, device=dev)
-        accumulate(out, lane_rays, output, nn, dst, add=add, ray_total=rays)
+        accumulate(out, lane_rays, output, nn, dst, add=add, ray_total=rays,
+                   pix=pix if tiled else None, pix0=y_offset * width)
         return dst, rays
 
+    run.lanes = lambda y_offset, device: lanes_of(y_offset, torch.device(device))[:2]
     return run

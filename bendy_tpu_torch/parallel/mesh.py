@@ -18,9 +18,10 @@ and every rank holds them.
 ``make_pallas_pass_sharded`` (mesh.py:146): each rank launches the CUDA
 tracer (``ops/trace_kernel.py``) on its lanes, which is the plain
 integrator on a CPU mesh. :func:`render_pass_sharded` is its plain
-version on any device, the one the kernel is timed against. Lanes are fed row-major; the reference's tile-major
-order changes no pixel and is left as scheduling work. :func:`spawn` runs
-a function on tiles·samples local ranks, each in its own process.
+version on any device, the one the kernel is timed against. Each rank
+feeds its lanes row-major or, with ``tile``, in the reference's tile-major
+order, which changes no pixel. :func:`spawn` runs a function on
+tiles·samples local ranks, each in its own process.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import torch
 import torch.distributed as dist
 
 from bendy_tpu_torch.ops.camera import CameraParams
-from bendy_tpu_torch.ops.trace_kernel import accumulate, make_tracer, pass_lanes, pixel_sums
+from bendy_tpu_torch.ops.trace_kernel import (TILE, accumulate, make_tracer, pass_lanes,
+                                              pixel_sums, render_lanes)
 from bendy_tpu_torch.ops.wavefront import TraceConfig, trace_core
 from bendy_tpu_torch.parallel.multihost import (
     DEFAULT_TIMEOUT_S,
@@ -137,8 +139,10 @@ def render_pass_sharded(scn: SceneArrays, cam: CameraParams, seed: int, pass_idx
 
 
 def make_kernel_pass_sharded(scn: SceneArrays, mesh: Mesh, width: int, height: int,
-                             spp_local: int, subsample: int, cfg: TraceConfig, output: str):
-    """Sharded render pass running the CUDA tracer on each rank.
+                             spp_local: int, subsample: int, cfg: TraceConfig, output: str,
+                             tile: bool = TILE):
+    """Sharded render pass running the CUDA tracer on each rank (the
+    reference's ``make_pallas_pass_sharded``).
 
     Returns ``fn(cam_packed [1,32], seed, pass_idx) -> (this tile's rows
     [rows_local, W, 3] f32, summed over its sample ranks, and the pass's
@@ -148,14 +152,17 @@ def make_kernel_pass_sharded(scn: SceneArrays, mesh: Mesh, width: int, height: i
     rank's pixel sums and counts its rays before the reduce; on a CPU mesh
     both run their plain versions and nothing is counted. On a (1, 1) mesh
     the film is bit-equal to the unsharded pass of
-    ``ops/trace_kernel.make_render_pass`` and to the Renderer's pass.
+    ``ops/trace_kernel.make_render_pass`` and to the Renderer's pass. With
+    ``tile`` each rank feeds its rows' lanes tile-major
+    (``ops/trace_kernel.render_lanes``), the same film bit for bit.
     """
     n = max(subsample, 1)
     nn = n * n
     rows = _local_rows(mesh, height)
     tracer = make_tracer(scn, width, height, spp_local, n, cfg,
                          spp_total=spp_local * mesh.samples)
-    pix, sub = pass_lanes(width, rows, nn, mesh.ti * rows, mesh.device)
+    y0 = mesh.ti * rows
+    pix, sub, tiled = render_lanes(scn, cfg, width, rows, spp_local, nn, y0, mesh.device, tile)
     sample0 = mesh.si * spp_local
 
     def run(cam_packed, seed, pass_idx):
@@ -165,7 +172,8 @@ def make_kernel_pass_sharded(scn: SceneArrays, mesh: Mesh, width: int, height: i
             make_kernel_pass_sharded.launches += 1
         sums = torch.empty((rows, width, 3), dtype=torch.float32, device=mesh.device)
         rays = torch.zeros(1, dtype=torch.int64, device=mesh.device)
-        accumulate(out, lane_rays, output, nn, sums, add=False, ray_total=rays)
+        accumulate(out, lane_rays, output, nn, sums, add=False, ray_total=rays,
+                   pix=pix if tiled else None, pix0=y0 * width)
         return _reduce(sums, rays, mesh)
 
     return run

@@ -7,6 +7,10 @@
                         replaces tools/mxu_shape_probe.py:110)
     fidelity.py         MSE-vs-spp of the port's renders against the C++
                         oracle (docs/fidelity_torch.json)
+    perf_report.py      the tracer's FP32 utilisation per scene class
+                        (docs/perf_report_torch.json)
+    block_sweep.py      the render pass per threads per block and lane
+                        order (docs/block_sweep_torch.json)
     checkout_ab.py      one card call over several checkouts, in turns
 
 The probes have a plain PyTorch version of their function, ``measure(...)``
@@ -15,9 +19,12 @@ and a ``main()`` that prints one JSON line:
     python3 -m bendy_tpu_torch.tools.vpu_peak [--rows R] [--iters N]
     python3 -m bendy_tpu_torch.tools.mxu_shape_probe [--iters N] [--ns 1024,2048]
     python3 -m bendy_tpu_torch.tools.fidelity [--scenes cornell ...] [--device cpu]
+    python3 -m bendy_tpu_torch.tools.perf_report [scene ...] [--write]
+    python3 -m bendy_tpu_torch.tools.block_sweep [scene ...] [--threads 64 128 256]
 
-The probes measure on the card and raise without one; the fidelity tool
-renders on the card unless ``--device cpu``. Below: the timing helpers
+The probes, perf_report and block_sweep measure on the card and raise
+without one; the fidelity tool renders on the card unless ``--device
+cpu``. Below: the timing helpers
 they and ``chip_smoke.py`` share, the occupancy arithmetic and the
 provenance a result file records.
 """

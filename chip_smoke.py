@@ -136,16 +136,25 @@ Phases, one line each (any failure exits non-zero):
      share of its peak also at that clock).
  16. the bench: python3 -m bendy_tpu_torch.bench --full in this process into
      smoke_out/benches_results_torch.json (its headline JSON line printed on
-     a line of its own): every reference row but vpu_utilization_cornell
-     with a finite Mrays/s, its tracer launched in every timed pass, the
-     headline's cornell median within 25 % of phase 4's Mrays/s, and each
-     row's occupancy equal to the rays per warp issue slot phases 4-12
-     print for the same path at the bench's seed; each row joins its main
-     path's tracer entry in the kernel line as a "bench" field,
+     a line of its own): every reference row with a finite Mrays/s, its
+     tracer launched in every timed pass, the headline's cornell median
+     within 25 % of phase 4's Mrays/s, each row's occupancy equal to the
+     rays per warp issue slot phases 4-12 print for the same path at the
+     bench's seed, and the vpu_utilization_cornell row's FP32 shares in
+     (0, 1]; each row joins its main path's tracer entry in the kernel line
+     as a "bench" field,
  17. fidelity: python3 -m bendy_tpu_torch.tools.fidelity at its defaults on
      all 12 scenes into smoke_out/fidelity_torch.json (the port on the card,
      the C++ oracle on the host's cores), each entry held to
-     docs/fidelity.json by check_against, its worst ratio printed.
+     docs/fidelity.json by check_against, its worst ratio printed,
+ 18. the lane order and the perf tools: (a) every main path of phases 4-12
+     and the (1,1) sharded cornell pass rendered one pass with row-major
+     lanes and one tile-major at the same key, bit-equal films and equal
+     rays; (b) tools/perf_report.report on cornell and blackhole (FP32
+     utilisation, every share in (0, 1]); (c) tools/block_sweep on cornell
+     and cloud at 128 and 256 threads a block, tiled and not, 2 repeats,
+     the 256-thread build (started beside phase 2's) first held to the
+     plain version on phase 3's cornell and cloud cases.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -164,6 +173,7 @@ import subprocess
 import sys
 import time
 
+from bendy_tpu_torch._build import ptxas_report, trace_label
 from bendy_tpu_torch.tools import (card, cuda_ms, cuda_ms_median, graph_ms,
                                    rays_per_warp_issue_slot)
 
@@ -227,39 +237,6 @@ def sm_clock() -> str:
     return f"{c['clocks.sm']}, {c['power.draw']}"
 
 
-def trace_label(aovs: int, geo: int, vol: int, loopm: int, gtab: int, bvh: int) -> str:
-    """A tracer instantiation's name: its flags, and ITEM for the item
-    instantiations (one thread per (lane, sample) without LOOPM: geodesics,
-    and media without the BVH; the kernel's PER_ITEM)."""
-    item = " ITEM" if not loopm and (geo or (vol and not bvh)) else ""
-    return (f"trace_kernel<AOVS={aovs},GEO={geo},VOL={vol},LOOPM={loopm},GTAB={gtab},"
-            f"BVH={bvh}>{item}")
-
-
-def ptxas_report(log: str) -> list[str]:
-    """One line per kernel instantiation: registers, stack frame, spills."""
-    lines, name, frame = [], None, ""
-    for ln in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
-            frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
-            p = re.search(r"fp32_chain_kernelILb(\d)E", name)
-            d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
-            label = (trace_label(*(int(g) for g in t.groups())) if t else
-                     f"fp32_chain_kernel<FMA={p.group(1)}>" if p else
-                     f"bf16_dot_chain_kernel<BN={d.group(1)},KS={d.group(2)}>" if d else
-                     "fold_kernel" if "fold_kernel" in name else
-                     "accumulate_kernel" if "accumulate_kernel" in name else name)
-            lines.append(f"{label}: {m.group(1)} registers, {frame}")
-    return lines
-
-
 def wgmma_warnings(log: str) -> list[str]:
     """ptxas's warnings about wgmma (a pipeline it serialized), each once."""
     return sorted({ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()
@@ -272,6 +249,7 @@ def item_budgets() -> str:
     4 KiB table in shared memory and with the table in global memory
     (GTAB); the same of the surface instantiation (no budget: minBlocks
     0)."""
+    from bendy_tpu_torch._build import TRACE_BLOCK
     from bendy_tpu_torch.ops.trace_kernel import MAX_TABLE_BYTES, item_occupancy
     from bendy_tpu_torch.ops.wavefront import TraceConfig
 
@@ -282,7 +260,8 @@ def item_budgets() -> str:
                 cfg = TraceConfig(geodesic=geo, has_volumes=vol, want_aovs=aovs)
                 min_blocks, per_sm, sms = item_occupancy(cfg, floats)
                 parts.append(f"{trace_label(int(aovs), int(geo), int(vol), 0, gtab, 0)}: minBlocks "
-                             f"{min_blocks}, {per_sm} blocks of 128 per SM ({4 * per_sm} warps) "
+                             f"{min_blocks}, {per_sm} blocks of {TRACE_BLOCK} per SM "
+                             f"({per_sm * TRACE_BLOCK // 32} warps) "
                              f"x {sms} SMs")
     return " | ".join(parts)
 
@@ -334,10 +313,13 @@ def warp_stats(rays, iters, what: str = "lane") -> str:
             f"{rays_per_warp_issue_slot(rays, iters):.3f}")
 
 
-def block_tail(iters, threads: int = 128) -> float:
+def block_tail(iters, threads: int | None = None) -> float:
     """The slowest block's loop length over the mean block's, a block's
     length being its slowest thread's (blocks of ``threads`` consecutive
-    threads)."""
+    threads, default the build's ``TRACE_BLOCK``)."""
+    from bendy_tpu_torch import _build
+
+    threads = _build.TRACE_BLOCK if threads is None else threads
     n = iters.numel() // threads * threads
     blocks = iters[:n].view(-1, threads).max(dim=1).values.double()
     return float(blocks.max() / blocks.mean())
@@ -581,13 +563,17 @@ def accumulate_vs_plain(dev) -> float:
     """Phase 3: the accumulate kernel against its plain version on seeded
     words of 37x29 pixels (blocks of 128 pixels with a ragged last one):
     every output at nn = 1 and 4, in add mode (onto a seeded film) and in
-    store mode, bit for bit, with equal int64 ray counts. Returns the
-    largest |diff| (0 when they agree)."""
+    store mode, with row-major lanes and with tile-major ones (rows 5-41 of
+    the image, ``pass_lanes(tile=True)`` at 128 lanes a block: tiles of 16
+    x 8 and 4 x 8 pixels with a ragged right edge and trailing rows), bit
+    for bit, with equal int64 ray counts. Returns the largest |diff| (0
+    when they agree)."""
     import torch
 
-    from bendy_tpu_torch.ops.trace_kernel import accumulate, accumulate_plain
+    from bendy_tpu_torch.ops.trace_kernel import (accumulate, accumulate_plain, pass_lanes,
+                                                  tile_perm)
 
-    rows, W = 37, 29
+    rows, W, y0 = 37, 29, 5
     g = torch.Generator(device=dev).manual_seed(23)
     worst = 0.0
     for nn in (1, 4):
@@ -596,22 +582,28 @@ def accumulate_vs_plain(dev) -> float:
             -4, 4, (10, B), generator=g, device=dev)
         rays = torch.randint(0, 500, (B,), generator=g, device=dev, dtype=torch.int32)
         film = torch.rand((rows, W, 3), generator=g, device=dev)
-        for output in OUTPUTS:
-            for add in (True, False):
-                got, want = film.clone(), film.clone()
-                rk = torch.full((1,), 5, dtype=torch.int64, device=dev)
-                rp = rk.clone()
-                accumulate(out, rays, output, nn, got, add=add, ray_total=rk)
-                accumulate_plain(out, rays, output, nn, want, add=add, ray_total=rp)
-                torch.cuda.synchronize()
-                equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                print(f"phase 3: accumulate {output} nn {nn} {'add' if add else 'store'} at "
-                      f"{rows}x{W} pixels: bit-equal to its plain version {equal}, rays "
-                      f"{int(rk)} vs {int(rp)}")
-                if not equal or int(rk) != int(rp):
-                    fail(f"accumulate disagrees with its plain version ({output}, nn {nn})")
+        tiled, _ = pass_lanes(W, rows, nn, y0, dev, tile=True, lanes_per_block=128)
+        tiling = tile_perm(W, rows, nn, 128)[1]
+        for order, pix in (("row-major", None), (f"tile-major {tiling}", tiled)):
+            for output in OUTPUTS:
+                for add in (True, False):
+                    got, want = film.clone(), film.clone()
+                    rk = torch.full((1,), 5, dtype=torch.int64, device=dev)
+                    rp = rk.clone()
+                    accumulate(out, rays, output, nn, got, add=add, ray_total=rk, pix=pix,
+                               pix0=y0 * W)
+                    accumulate_plain(out, rays, output, nn, want, add=add, ray_total=rp,
+                                     pix=pix, pix0=y0 * W)
+                    torch.cuda.synchronize()
+                    equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+                    err = float((got - want).abs().max())
+                    worst = max(worst, err)
+                    print(f"phase 3: accumulate {output} nn {nn} {'add' if add else 'store'} "
+                          f"at {rows}x{W} pixels, {order} lanes: bit-equal to its plain version "
+                          f"{equal}, rays {int(rk)} vs {int(rp)}")
+                    if not equal or int(rk) != int(rp):
+                        fail(f"accumulate disagrees with its plain version ({output}, nn {nn}, "
+                             f"{order})")
     return worst
 
 
@@ -900,7 +892,9 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     power read after them; per launch, the call's time over its launches,
     on a per-item path each with its fold), then one kernel pass (timed
     the same way) and one plain pass at ``pass_spp`` over the first
-    ``plain_rows`` rows, compared per pixel and by ray count. It prints the
+    ``plain_rows`` rows, compared per pixel and by ray count. The kernel
+    alone runs on the lanes in the Renderer's order (``render_lanes`` at
+    the pass's default ``TILE``). It prints the
     per-lane loop lengths and block tail; a per-item path
     (:func:`is_per_item`) also its per-item ones, the blocks per SM (the
     item instantiations) and the fold kernel alone (:func:`fold_alone`),
@@ -912,8 +906,8 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
 
     from bendy_tpu_torch import _build
     from bendy_tpu_torch.bench import OCCUPANCY_SEED
-    from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_render_pass, pass_lanes,
-                                                  tracer_table)
+    from bendy_tpu_torch.ops.trace_kernel import (TILE, item_occupancy, make_render_pass,
+                                                  render_lanes, tracer_table)
     from bendy_tpu_torch.render import render_pass
     from bendy_tpu_torch.utils.rng import render_key
 
@@ -925,7 +919,7 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     table_s = time.perf_counter() - t0
     bvh = "bvh0" in counts
     table = torch.from_numpy(table_np).to(dev)
-    pix, sub = pass_lanes(W, H, nn, 0, dev)
+    pix, sub, tiled = render_lanes(r.arrays, cfg, W, H, spp, nn, 0, dev, TILE)
     lanes = (table, counts, r._cam_packed.reshape(-1), pix, sub)
     grid = r.arrays.vol_grid.contiguous() if cfg.has_volumes else None
     if grid is not None:
@@ -974,9 +968,10 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     bound_ms /= chunks
     if not items and not bvh:  # the surface lane loop: its waves, warps per SM, ptxas lines
         min_blocks, per_sm, sms = item_occupancy(cfg, table.numel())
-        blocks = -(-pix.numel() // 128)
-        print(f"phase {phase}: one thread per lane: {blocks} blocks of 128, {per_sm} per SM "
-              f"({4 * per_sm} warps) x {sms} SMs, {blocks / (per_sm * sms):.2f} waves, minBlocks "
+        blocks = -(-pix.numel() // _build.TRACE_BLOCK)
+        print(f"phase {phase}: one thread per lane: {blocks} blocks of {_build.TRACE_BLOCK}, "
+              f"{per_sm} per SM ({per_sm * _build.TRACE_BLOCK // 32} warps) x {sms} SMs, "
+              f"{blocks / (per_sm * sms):.2f} waves, minBlocks "
               f"{min_blocks}; ptxas of the surface instantiations: " + " | ".join(
                   ln for ln in ptxas_report(_build.build_log()) if "GEO=0,VOL=0" in ln))
     tests = None
@@ -995,8 +990,9 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
         budget = ""
         if not cfg.looped_masses:
             min_blocks, per_sm, sms = item_occupancy(cfg, table.numel())
-            budget = (f"; {-(-item_iters.numel() // 128)} blocks of 128, {per_sm} per SM "
-                      f"({4 * per_sm} warps) x {sms} SMs, minBlocks {min_blocks}")
+            blk = _build.TRACE_BLOCK
+            budget = (f"; {-(-item_iters.numel() // blk)} blocks of {blk}, {per_sm} per SM "
+                      f"({per_sm * blk // 32} warps) x {sms} SMs, minBlocks {min_blocks}")
         print(f"phase {phase}: one thread per (lane, sample): "
               f"{warp_stats(item_rays, item_iters, 'item')}, slowest block over the mean block "
               f"{block_tail(item_iters):.3f}; one thread per lane (the parent design, the same "
@@ -1023,7 +1019,7 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     print(f"phase {phase}: the main path's pass wall minus the kernel alone {glue_ms:.3f} ms "
           f"({run['dt'] / 4 * 1e3:.3f} - {call_ms:.3f}); host ms per pass "
           f"{run['host_s'] / 4 * 1e3:.3f}")
-    acc = accumulate_alone(phase, res[0], res[1], n * n, H, W, dev)
+    acc = accumulate_alone(phase, res[0], res[1], n * n, H, W, dev, pix if tiled else None)
     if share < 0.999 or mean_rel > 1e-4:
         fail(f"kernel pass disagrees with the plain pass at {W}x{plain_rows}")
     if int(k_rays) != int(p_rays):
@@ -1040,9 +1036,10 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
                 occupancy=occupancy)
 
 
-def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev) -> dict:
+def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev, pix=None) -> dict:
     """The accumulate kernel alone at a main path's shape, on the tracer's
-    words of the kernel-alone call (FULL output): add mode into a seeded
+    words of the kernel-alone call (FULL output) and, where they are
+    tile-major, the lanes' pixel ids ``pix``: add mode into a seeded
     film, held bit for bit to its plain version, then timed on the device
     as 20 launches captured in a CUDA graph (:func:`graph_ms`, the median
     of 7 replays: a launch of a few microseconds is shorter than the
@@ -1063,9 +1060,9 @@ def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev) -> dic
                       device=dev)
     got, want = film.clone(), film.clone()
     rk, rp = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
-    accumulate(out, rays, "full", nn, got, add=True, ray_total=rk)
+    accumulate(out, rays, "full", nn, got, add=True, ray_total=rk, pix=pix)
     (_, plain_ms) = cuda_ms(lambda: accumulate_plain(out, rays, "full", nn, want, add=True,
-                                                     ray_total=rp))
+                                                     ray_total=rp, pix=pix))
     equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32))) and \
         int(rk) == int(rp)
     err = float((got - want).abs().max())
@@ -1073,7 +1070,7 @@ def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev) -> dic
     res = TraceSums(V3(out[0], out[1], out[2]), None, None, None, zero, zero, zero)
 
     def kernel():
-        accumulate(out, rays, "full", nn, got, add=True, ray_total=rk)
+        accumulate(out, rays, "full", nn, got, add=True, ray_total=rk, pix=pix)
 
     def parent_route():
         got.add_(pixel_sums(res, "full", H, W, nn))  # DeviceFilm.add_pass's +=
@@ -1084,7 +1081,8 @@ def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev) -> dic
     _, call_ms, _, _ = cuda_ms_median(lambda i: kernel(), REPEATS)
     _, route_call_ms, _, _ = cuda_ms_median(lambda i: parent_route(), REPEATS)
     lanes = out.shape[1]
-    bound_ms = (4 * (3 * lanes + lanes + 2 * H * W * 3) + 8) / PEAK_BYTES_S * 1e3
+    ids = 0 if pix is None else H * W  # a tiled pixel's id, read once
+    bound_ms = (4 * (3 * lanes + lanes + ids + 2 * H * W * 3) + 8) / PEAK_BYTES_S * 1e3
     print(f"phase {phase}: accumulate alone {ms:.4f} ms a launch on the device (20 launches "
           f"in a CUDA graph, median of 7 replays, min {lo:.4f}, max {hi:.4f}) at {H * W} pixels "
           f"x {nn} subpixels, add mode (bound "
@@ -1656,19 +1654,32 @@ BENCH_PATH = {
     "kernel_sharded_1x1": "sharded", "blackhole_1080p_256spp": "blackhole",
 }
 HEADLINE_BAND = 0.25  # the headline median against phase 4's Mrays/s, relative
+UTILIZATION_ROW = "vpu_utilization_cornell"  # tools/perf_report.report("cornell")
+UTILIZATION_SHARES = ("fp32_utilization_lo", "fp32_utilization_hi", "fp32_util_vs_measured_peak")
+
+
+def utilization_ok(row: dict) -> bool:
+    """A perf_report row's shares lie in (0, 1] and its rates are finite
+    and positive (a share above 1 means the count or the rate is wrong)."""
+    import math
+
+    rates = ("ops_per_lane_iter", "sustained_ops_per_sec", "mrays_per_sec", "occupancy")
+    return (all(0.0 < row.get(k, -1.0) <= 1.0 for k in UTILIZATION_SHARES)
+            and all(math.isfinite(row.get(k, math.nan)) and row[k] > 0 for k in rates))
 
 
 def bench_phase(paths: dict) -> dict:
     """Phase 16: ``python3 -m bendy_tpu_torch.bench --full`` in this
     process, into ``smoke_out/benches_results_torch.json``; it prints the
-    headline JSON line. Fails unless every reference row but
-    vpu_utilization_cornell is there with a finite Mrays/s above 0, its
+    headline JSON line. Fails unless every reference row is there, each
+    scene row with a finite Mrays/s above 0, its
     tracer launched its kernel in every timed pass (the launch counts the
     row records, as main_path reads them; the sharded row: the pass, the
     tracer and the accumulate 12 times), the headline's cornell median lies
-    within HEADLINE_BAND of phase 4's Mrays/s, and each row's occupancy is
+    within HEADLINE_BAND of phase 4's Mrays/s, each row's occupancy is
     the number phases 4-12 printed for the same path (scene and shape) at
-    the same seed.
+    the same seed, and the ``vpu_utilization_cornell`` row
+    (``tools/perf_report``) passes :func:`utilization_ok`.
     ``paths``: {main path name: (Mrays/s, occupancy)} of the phases run.
     Returns the rows."""
     import math
@@ -1682,7 +1693,13 @@ def bench_phase(paths: dict) -> dict:
     secs = time.perf_counter() - t0
     with open(out) as f:
         rows = json.load(f)
-    bad = sorted(set(BENCH_PATH) ^ (set(rows) - {"_meta"}))
+    bad = sorted(set(BENCH_PATH) ^ (set(rows) - {"_meta", UTILIZATION_ROW}))
+    util = rows.get(UTILIZATION_ROW, {})
+    print(f"phase 16: {UTILIZATION_ROW}: " + ", ".join(
+        f"{k} {util.get(k)!r}" for k in ("ops_per_lane_iter", "occupancy", "mrays_per_sec",
+                                         "sustained_ops_per_sec", *UTILIZATION_SHARES)))
+    if not utilization_ok(util):
+        bad.append(UTILIZATION_ROW)
     for name in BENCH_PATH:
         r = rows.get(name, {})
         mrays, launches, tracer = r.get("mrays"), r.get("launches", {}), r.get("tracer")
@@ -1770,6 +1787,100 @@ def fidelity_phase() -> dict:
     return worst
 
 
+SWEEP_SCENES = ("cornell", "cloud")  # phase 18(c): block_sweep's scenes and threads
+SWEEP_THREADS = (128, 256)
+REPORT_SCENES = ("cornell", "blackhole")  # phase 18(b)
+
+
+def tiled_passes(dev) -> None:
+    """Phase 18(a): every main path of phases 4-12 at its full size, one
+    pass with row-major lanes and one tile-major (``make_render_pass(tile=
+    ...)``) at the same key, and the (1,1) sharded cornell pass likewise
+    (an NCCL world of one in this process): films bit-equal, rays equal.
+    Prints the tiling each path's launch gets (``tile_perm`` at its lanes
+    per block; the per-item paths at 64 spp decline)."""
+    import torch
+    import torch.distributed as dist
+
+    from bendy_tpu_torch import Config
+    from bendy_tpu_torch.ops.trace_kernel import (lanes_per_block, make_render_pass, tile_perm,
+                                                  walks_bvh)
+    from bendy_tpu_torch.parallel import initialize, make_kernel_pass_sharded, make_mesh
+    from bendy_tpu_torch.parallel.multihost import free_port
+
+    seed = 18
+    for (_, name, kw, W, H, spp, n, *_) in MAIN_PATHS:
+        r, cam = renderer(name, Config(**kw), W, H, dev)
+        r.camera_params(cam)
+        cfg = r.trace_config(r.config, cam)
+        per_block = lanes_per_block(cfg, walks_bvh(r.arrays, cfg), W * H * n * n, spp)
+        outs = [make_render_pass(r.arrays, W, H, H, spp, n, cfg, "full", tile=tile)(
+            r._cam_packed, seed, 0, 0) for tile in (False, True)]
+        equal = bool(torch.equal(outs[0][0], outs[1][0]))
+        rays = (int(outs[0][1]), int(outs[1][1]))
+        print(f"phase 18: (a) {name} {W}x{H} {spp} spp {n}x{n}: {per_block} lanes a block, "
+              f"tiling {tile_perm(W, H, n * n, per_block)[1]}; tiled film bit-equal to "
+              f"row-major {equal}, rays {rays[0]} vs {rays[1]}")
+        if not equal or rays[0] != rays[1]:
+            fail(f"the tiled {name} pass differs from the row-major one")
+    r, cam = renderer("cornell", Config(), 256, 256, dev)
+    r.camera_params(cam)
+    cfg = r.trace_config(r.config, cam)
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device="cuda",
+               timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        outs = [make_kernel_pass_sharded(r.arrays, mesh, 256, 256, 64, 2, cfg, "full",
+                                         tile=tile)(r._cam_packed, seed, 0)
+                for tile in (False, True)]
+        equal = bool(torch.equal(outs[0][0], outs[1][0])) and int(outs[0][1]) == int(outs[1][1])
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 18: (a) the (1,1) sharded cornell pass, tiled against row-major: bit-equal "
+          f"{equal}, rays {int(outs[0][1])} vs {int(outs[1][1])}")
+    if not equal:
+        fail("the tiled sharded pass differs from the row-major one")
+
+
+def tools_phase(dev, sweep_builds=()) -> dict:
+    """Phase 18: (a) :func:`tiled_passes`; (b) ``tools/perf_report.report``
+    on REPORT_SCENES against one measurement of kernel 2's FMA ceiling,
+    each row printed and held to :func:`utilization_ok`; (c)
+    ``tools/block_sweep`` on SWEEP_SCENES at SWEEP_THREADS threads a block,
+    tiled and not, 2 repeats, into smoke_out/block_sweep.json, each
+    variant but the default build (phase 3's) first held to the plain
+    version by phase 3's cases of those scenes at 16x16 (``sweep_builds``:
+    the futures of the variants' builds, started beside phase 2's).
+    Returns the report's rows."""
+    from bendy_tpu_torch import _build
+    from bendy_tpu_torch.tools import block_sweep, perf_report, vpu_peak
+
+    t0 = time.perf_counter()
+    tiled_passes(dev)
+    t1 = time.perf_counter()
+    peak = vpu_peak.measure("fma")
+    rows = {}
+    for name in REPORT_SCENES:
+        row = rows[name] = perf_report.report(name, peak["ops_per_s"])
+        print(f"phase 18: (b) perf_report {name}: " + ", ".join(
+            f"{k} {v!r}" for k, v in row.items() if k != "count") + f"; counted {row['count']}")
+        if not utilization_ok(row):
+            fail(f"the perf_report row of {name} has a share outside (0, 1] or a bad rate")
+    t2 = time.perf_counter()
+    for build in sweep_builds:
+        print(f"phase 18: (c) built {build.result()}")  # raises where nvcc failed
+    for threads in (t for t in SWEEP_THREADS if t != _build.TRACE_BLOCK):  # phase 3: the default
+        with _build.trace_block(threads):
+            print(f"phase 18: (c) the {threads}-thread build against the plain version")
+            kernel_vs_plain(dev, set(SWEEP_SCENES))
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    block_sweep.main([*SWEEP_SCENES, "--threads", *map(str, SWEEP_THREADS), "--repeats", "2",
+                      "--out", os.path.join(SMOKE_DIR, "block_sweep.json")])
+    print(f"phase 18: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s")
+    return rows
+
+
 def run(phases=None, phase3_names=None) -> int:
     """Run the phases in ``phases`` (all when None; the card and the build
     always run), phase 3 on the cases of ``phase3_names`` only when given."""
@@ -1787,9 +1898,17 @@ def run(phases=None, phase3_names=None) -> int:
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}; {smi}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from bendy_tpu_torch import Config, _build
     from bendy_tpu_torch.ops import trace_kernel
 
+    sweep_builds = []
+    if phases is None or 18 in phases:  # phase 18's variants build beside the default
+        pool = ThreadPoolExecutor()
+        sweep_builds = [pool.submit(_build.build, t) for t in SWEEP_THREADS
+                        if t != _build.TRACE_BLOCK]
+        pool.shutdown(wait=False)
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
           + " | ".join(ptxas_report(_build.build_log())))
@@ -1888,6 +2007,9 @@ def run(phases=None, phase3_names=None) -> int:
         kernels += probes(dev)
     if phases is None or 16 in phases:
         rows = bench_phase(paths)
+        cornell = next((e for e in kernels if e.get("path", "").startswith("cornell ")), None)
+        if cornell is not None:
+            cornell["fp32_utilization"] = rows[UTILIZATION_ROW]
         for row_name, row in rows.items():
             path = BENCH_PATH.get(row_name)
             for entry in kernels:  # the row joins its main path's tracer entry
@@ -1902,6 +2024,12 @@ def run(phases=None, phase3_names=None) -> int:
             if entry is not None:  # each scene's worst ratio on the first entry of its tracer
                 entry["fidelity_worst_ratio"] = {
                     name: ratio for name, (ratio, t) in worst.items() if t == tracer}
+
+    if phases is None or 18 in phases:
+        util = tools_phase(dev, sweep_builds)
+        entry = next((e for e in kernels if e.get("path", "").startswith("cornell ")), None)
+        if entry is not None:
+            entry.setdefault("fp32_utilization", util["cornell"])
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

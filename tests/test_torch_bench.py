@@ -94,7 +94,11 @@ def test_bench_rows_cover_bundled_scenes():
     for row_key in list(scene_to_row.values()) + ["kernel_sharded_1x1"]:
         med = rows[row_key].get("mrays")
         assert med is not None and math.isfinite(med) and med > 0, (row_key, rows[row_key])
-    assert set(rows) - {"_meta"} == {r[0] for r in REF_ROWS}
+    # the reference's rows, and its FP32 utilisation row (bench.py:315-334)
+    assert set(rows) - {"_meta"} == {r[0] for r in REF_ROWS} | {"vpu_utilization_cornell"}
+    util = rows["vpu_utilization_cornell"]
+    assert all(0 < util[k] <= 1 for k in ("fp32_utilization_lo", "fp32_utilization_hi",
+                                          "fp32_util_vs_measured_peak"))
     assert "W" in rows["_meta"]["card"] and rows["_meta"]["device"].startswith("cuda")
 
 

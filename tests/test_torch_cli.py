@@ -181,3 +181,172 @@ def test_cli_default_device_raises_without_a_card(tmp_path):
         main(argv)
     with pytest.raises(RuntimeError, match="cuda"):
         main(argv + ["--mesh", "1x1"])
+
+
+# ---------------------------------------------------------------------------
+# The live loop's control commands and the preview server, held to the
+# reference's (tests/test_preview.py:35-92, 113-210) on the same arguments.
+
+COMMANDS = [
+    ("reload-scene", {}),
+    ("resize", {"width": "16", "height": "8"}),
+    ("checkpoint", {"path": "film.npz"}),
+    ("camera", {"x": "1.5", "y": "2.0"}),
+    ("camera", {"x": "0", "y": "0", "z": "5", "tx": "0", "ty": "0", "tz": "0"}),
+    ("save-scene", {"path": "saved.json.gz"}),
+    ("save-scene", {}),
+    ("screenshot", {}),
+    ("stop", {}),
+    ("format-disk", {}),  # unknown: nothing changes
+]
+
+
+def _side(tmp_path, port: bool):
+    """(handle_command, scene, renderer, camera, film, args, dumps) of one
+    CLI: the port's on the CPU, or the reference's; the cornell scene saved
+    to its own file, an 8x8 film holding one pass."""
+    import argparse
+
+    if port:
+        from bendy_tpu_torch.cli import handle_command
+        from bendy_tpu_torch.render import Config, Renderer
+        from bendy_tpu_torch.scene.io import dumps_scene, load_scene, save_scene
+    else:
+        from bendy_tpu.cli import handle_command
+        from bendy_tpu.film import Film as RefFilm
+        from bendy_tpu.render import Config, Renderer
+        from bendy_tpu.scene import dumps_scene, load_scene, save_scene
+    d = tmp_path / ("port" if port else "ref")
+    d.mkdir()
+    scene = load_scene("scenes/cornell.json.gz")
+    camera = scene.find_by_tag("camera")
+    scene.get_object(camera).as_camera().aspect_ratio = 1.0
+    renderer = (Renderer(scene, Config(max_bounces=1), device="cpu") if port
+                else Renderer(scene, Config(max_bounces=1), use_pallas=False))
+    film = Film(8, 8) if port else RefFilm(8, 8)
+    film.add_pass(np.random.default_rng(0).random((8, 8, 3)).astype(np.float32), 1)
+    scene_path = str(d / "scene.json.gz")
+    save_scene(scene_path, scene)
+    args = argparse.Namespace(scene=scene_path, screenshot=str(d / "shot.png"),
+                              save_scene=None, checkpoint=None, seed=4)
+    return handle_command, scene, renderer, camera, film, args, dumps_scene, d
+
+
+@pytest.mark.parametrize("name,cargs", COMMANDS,
+                         ids=[f"{n}-{i}" for i, (n, _) in enumerate(COMMANDS)])
+def test_command_handler_matches_reference(tmp_path, monkeypatch, name, cargs):
+    """Each control command through the port's handle_command leaves the
+    scene, renderer, camera, film and written files as the reference's
+    handler does on the same arguments (relative paths land in each side's
+    own directory)."""
+    import gzip
+
+    sides = []
+    for handle, scene, renderer, camera, film, args, dumps, d in [_side(tmp_path, port)
+                                                                  for port in (True, False)]:
+        monkeypatch.chdir(d)
+        s2, r2, cam2, stopped = handle(name, dict(cargs), args, scene, renderer, camera, film)
+        sides.append(dict(scene=s2, renderer=r2, camera=cam2, stopped=stopped, film=film,
+                          dumps=dumps(s2), d=d, replaced=(s2 is not scene, r2 is not renderer),
+                          world=np.array(s2.get_object(cam2).transform.world),
+                          aspect=s2.get_object(cam2).as_camera().aspect_ratio))
+    ours, ref = sides
+    assert ours["stopped"] == ref["stopped"] == (name == "stop")
+    assert ours["replaced"] == ref["replaced"] == ((True, True) if name == "reload-scene"
+                                                   else (False, False))
+    if name == "reload-scene":
+        assert ours["renderer"].device == torch.device("cpu")
+    assert ours["dumps"] == ref["dumps"]
+    assert np.array_equal(ours["world"], ref["world"]) and ours["aspect"] == ref["aspect"]
+    f, g = ours["film"], ref["film"]
+    assert (f.width, f.height, f.samples, f.passes) == (g.width, g.height, g.samples, g.passes)
+    assert np.array_equal(np.asarray(f.sum), np.asarray(g.sum))
+    files = sorted(p.name for p in ours["d"].iterdir())
+    assert files == sorted(p.name for p in ref["d"].iterdir())
+    for fname in files:
+        a, b = ours["d"] / fname, ref["d"] / fname
+        if fname.endswith(".npz"):
+            (fa, sa), (fb, sb) = Film.load_checkpoint(str(a)), Film.load_checkpoint(str(b))
+            assert sa == sb == 4 and np.array_equal(fa.sum, fb.sum)
+            assert (fa.samples, fa.passes) == (fb.samples, fb.passes) == (1, 1)
+        elif fname.endswith(".png"):
+            assert np.array_equal(_png(a), _png(b))
+        else:
+            assert gzip.decompress(a.read_bytes()) == gzip.decompress(b.read_bytes())
+
+
+def _post(port, path):
+    req = urllib.request.Request(f"http://localhost:{port}{path}", method="POST")
+    return json.load(urllib.request.urlopen(req, timeout=10))
+
+
+def test_preview_commands_match_reference():
+    """The same POSTs queue the same commands on both servers; an unknown
+    command is a 404 and a path leaving the working directory a 400 on both,
+    and neither queues anything."""
+    import urllib.error
+
+    from bendy_tpu.preview import PreviewServer as RefServer
+    from bendy_tpu_torch.preview import PreviewServer
+
+    posts = ["/screenshot", "/reload-scene", "/resize?width=32&height=16",
+             "/camera?x=1&tx=0", "/checkpoint?path=a.npz", "/save-scene", "/stop"]
+    drained = []
+    for cls in (PreviewServer, RefServer):
+        srv = cls(0)
+        try:
+            assert [_post(srv.port, p) for p in posts] == [{"queued": True}] * len(posts)
+            codes = []
+            for bad in ("/format-disk", "/checkpoint?path=../x.npz", "/save-scene?path=/etc/x"):
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    _post(srv.port, bad)
+                codes.append(e.value.code)
+            drained.append((srv.drain_commands(), codes, srv.drain_commands()))
+        finally:
+            srv.close()
+    assert drained[0] == drained[1]
+    cmds, codes, again = drained[0]
+    assert [c[0] for c in cmds] == [p[1:].split("?")[0] for p in posts]
+    assert cmds[2][1] == {"width": "32", "height": "16"} and codes == [404, 400, 400]
+    assert again == []
+
+
+def test_preview_fetches_frame_and_stats_only_on_demand():
+    """As the reference's server: the film is fetched and encoded on the
+    first publish and then only after a /frame.png request, and the lazy
+    stats run only after a /stats request, their last value kept."""
+    from bendy_tpu_torch.preview import PreviewServer
+
+    film = Film(8, 8)
+    film.add_pass(np.ones((8, 8, 3), np.float32), 1)
+    fetches, calls = [], []
+    orig = Film.preview
+
+    class Counting(Film):
+        def preview(self):
+            fetches.append(1)
+            return orig(self)
+
+    film.__class__ = Counting
+
+    def lazy():
+        calls.append(1)
+        return {"mrays": float(len(calls))}
+
+    srv = PreviewServer(0)
+    try:
+        srv.publish(film, lazy=lazy)
+        srv.publish(film, lazy=lazy)
+        assert (len(fetches), calls) == (1, [])
+        png = urllib.request.urlopen(f"http://localhost:{srv.port}/frame.png", timeout=10).read()
+        assert png[:4] == b"\x89PNG"
+        stats = json.load(urllib.request.urlopen(f"http://localhost:{srv.port}/stats", timeout=10))
+        assert stats["passes"] == 1 and "mrays" not in stats
+        srv.publish(film, lazy=lazy)  # both asked for: fetch and compute
+        assert (len(fetches), len(calls)) == (2, 1)
+        srv.publish(film, lazy=lazy)  # consumed: idle again
+        assert (len(fetches), len(calls)) == (2, 1)
+        stats = json.load(urllib.request.urlopen(f"http://localhost:{srv.port}/stats", timeout=10))
+        assert stats["mrays"] == 1.0
+    finally:
+        srv.close()
