@@ -16,6 +16,13 @@ The tracer's threads per block are a build parameter
 hashed directory, and the host side (the launch glue's walk stacks, lanes
 per block and occupancy) reads the same ``TRACE_BLOCK``, which
 ``tools/block_sweep.py`` sets per variant (:func:`trace_block`).
+
+The phase probe (``tools/phase_probe.py``) runs a second build of the
+tracer's source alone, ``-DBENDY_PHASE_STUBS``, whose instantiations replace
+phases of the loop with stand-ins (the stub build, ``stubs=True``, in a
+hashed directory of its own). While :func:`phase_stubs` holds a stub mask,
+:func:`library` gives that build and the tracer's launches carry the mask in
+their flags (``STUB_SHIFT``); the default build refuses such a launch.
 """
 
 from __future__ import annotations
@@ -43,6 +50,14 @@ NVCC_FLAGS = [
 LIB_NAME = "libbendy_kernels.so"
 # the tracer's threads per block that launches run (csrc/trace_surface.cu BLOCK)
 TRACE_BLOCK = 128
+# the stub build: its source, the entry points it has, and the place of the
+# stub mask in a launch's flags (csrc/trace_surface.cu STUB_SHIFT); the mask
+# the tracer's launches run while :func:`phase_stubs` holds one, else None
+STUB_SOURCES = ("trace_surface.cu",)
+STUB_ENTRIES = ("bendy_trace_surface", "bendy_trace_volume", "bendy_fold_samples",
+                "bendy_cuda_error_string")
+STUB_SHIFT = 9
+PHASE_STUBS: int | None = None
 
 c_void_p, c_int, c_uint, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
@@ -104,44 +119,49 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def sources() -> list[Path]:
+def sources(stubs: bool = False) -> list[Path]:
+    """The sources of a build: every ``csrc/*.cu``, or the stub build's."""
+    if stubs:
+        return [CSRC / name for name in STUB_SOURCES]
     return sorted(CSRC.glob("*.cu"))
 
 
-def nvcc_flags(block: int) -> list[str]:
-    """The flags of a build whose tracer runs ``block`` threads a block."""
+def nvcc_flags(block: int, stubs: bool = False) -> list[str]:
+    """The flags of a build whose tracer runs ``block`` threads a block
+    (``stubs``: the stub build's)."""
     if block % 32 or not 32 <= block <= 1024:
         raise ValueError(f"the tracer's block is whole warps, 32 to 1024 threads, not {block}")
-    return [*NVCC_FLAGS, f"-DBENDY_TRACE_BLOCK={block}"]
+    return [*NVCC_FLAGS, f"-DBENDY_TRACE_BLOCK={block}", *(["-DBENDY_PHASE_STUBS"] * stubs)]
 
 
 def _block(block: int | None) -> int:
     return TRACE_BLOCK if block is None else block
 
 
-def source_hash(block: int | None = None) -> str:
-    h = hashlib.sha256(" ".join(nvcc_flags(_block(block))).encode())
-    for src in sources():
+def source_hash(block: int | None = None, stubs: bool = False) -> str:
+    h = hashlib.sha256(" ".join(nvcc_flags(_block(block), stubs)).encode())
+    for src in sources(stubs):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(block: int | None = None) -> tuple[Path, float]:
+def build(block: int | None = None, stubs: bool = False) -> tuple[Path, float]:
     """Compile the kernels, the tracer at ``block`` threads a block (default
-    ``TRACE_BLOCK``), if this source hash has no library yet: one ``nvcc
-    -c`` per source, all started together, then one link.
+    ``TRACE_BLOCK``; ``stubs``: the stub build), if this source hash has no
+    library yet: one ``nvcc -c`` per source, all started together, then one
+    link.
 
     Returns (library path, seconds spent compiling; 0.0 when it was built
     before). Raises if nvcc fails, with its output.
     """
-    return _build(_block(block))
+    return _build(_block(block), stubs)
 
 
 @functools.cache
-def _build(block: int) -> tuple[Path, float]:
-    flags_all = nvcc_flags(block)
-    out_dir = BUILD_ROOT / source_hash(block)
+def _build(block: int, stubs: bool = False) -> tuple[Path, float]:
+    flags_all = nvcc_flags(block, stubs)
+    out_dir = BUILD_ROOT / source_hash(block, stubs)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0
@@ -150,9 +170,10 @@ def _build(block: int) -> tuple[Path, float]:
     tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))  # private to this build
     try:
         nvcc = find_nvcc()
-        objs = [str(tmp_dir / f"{src.stem}.o") for src in sources()]
+        srcs = sources(stubs)
+        objs = [str(tmp_dir / f"{src.stem}.o") for src in srcs]
         flags = [f for f in flags_all if f != "-shared"]
-        cmds = [[nvcc, *flags, "-c", "-o", o, str(src)] for o, src in zip(objs, sources())]
+        cmds = [[nvcc, *flags, "-c", "-o", o, str(src)] for o, src in zip(objs, srcs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
@@ -173,23 +194,46 @@ def _build(block: int) -> tuple[Path, float]:
 
 def library(block: int | None = None) -> ctypes.CDLL:
     """The built kernel library, its tracer at ``block`` threads a block
-    (default ``TRACE_BLOCK``), with every entry point's signature set."""
-    return _library(_block(block))
+    (default ``TRACE_BLOCK``), with every entry point's signature set; the
+    stub build while :func:`phase_stubs` holds a mask."""
+    return _library(_block(block), PHASE_STUBS is not None)
 
 
 @functools.cache
-def _library(block: int) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build(block)[0]))
+def _library(block: int, stubs: bool = False) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build(block, stubs)[0]))
     for name, (argtypes, restype) in SIGNATURES.items():
+        if stubs and name not in STUB_ENTRIES:
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
 
 
-def build_log(block: int | None = None) -> str:
+def build_log(block: int | None = None, stubs: bool = False) -> str:
     """nvcc's output of a build (ptxas register/spill report)."""
-    return (BUILD_ROOT / source_hash(block) / "build.log").read_text()
+    return (BUILD_ROOT / source_hash(block, stubs) / "build.log").read_text()
+
+
+def stub_flags() -> int:
+    """The flag bits of the stub mask :func:`phase_stubs` holds (0 without)."""
+    return 0 if PHASE_STUBS is None else PHASE_STUBS << STUB_SHIFT
+
+
+@contextlib.contextmanager
+def phase_stubs(mask: int):
+    """The tracer's launches in one block of code run the stub build's
+    instantiation of ``mask`` (csrc/trace_surface.cu STUB_*; 0: no phase
+    stubbed), built at first use."""
+    global PHASE_STUBS
+    if not 0 <= mask < 1 << 6:
+        raise ValueError(f"a stub mask is 6 bits, not {mask}")
+    old, PHASE_STUBS = PHASE_STUBS, mask
+    try:
+        yield
+    finally:
+        PHASE_STUBS = old
 
 
 @contextlib.contextmanager
@@ -206,13 +250,16 @@ def trace_block(block: int):
         TRACE_BLOCK = old
 
 
-def trace_label(aovs: int, geo: int, vol: int, loopm: int, gtab: int, bvh: int) -> str:
-    """A tracer instantiation's name: its flags, and ITEM for the item
-    instantiations (one thread per (lane, sample) without LOOPM: geodesics,
-    and media without the BVH; the kernel's PER_ITEM)."""
+def trace_label(aovs: int, geo: int, vol: int, loopm: int, gtab: int, bvh: int,
+                stub: int | None = None) -> str:
+    """A tracer instantiation's name: its flags (and its stub mask in the
+    stub build), and ITEM for the item instantiations (one thread per (lane,
+    sample) without LOOPM: geodesics, and media without the BVH; the
+    kernel's PER_ITEM)."""
     item = " ITEM" if not loopm and (geo or (vol and not bvh)) else ""
+    mask = "" if stub is None else f",STUB={stub}"
     return (f"trace_kernel<AOVS={aovs},GEO={geo},VOL={vol},LOOPM={loopm},GTAB={gtab},"
-            f"BVH={bvh}>{item}")
+            f"BVH={bvh}{mask}>{item}")
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -227,10 +274,12 @@ def ptxas_report(log: str) -> list[str]:
             frame = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B spill st/ld"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+            t = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E"
+                          r"(?:Li(\d+)E)?", name)
             p = re.search(r"fp32_chain_kernelILb(\d)E", name)
             d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
-            label = (trace_label(*(int(g) for g in t.groups())) if t else
+            label = (trace_label(*(int(g) for g in t.groups()[:6]),
+                                 None if t.group(7) is None else int(t.group(7))) if t else
                      f"fp32_chain_kernel<FMA={p.group(1)}>" if p else
                      f"bf16_dot_chain_kernel<BN={d.group(1)},KS={d.group(2)}>" if d else
                      "fold_kernel" if "fold_kernel" in name else

@@ -1074,6 +1074,67 @@ __device__ __forceinline__ float depth_n(float d, float clip_min, float dep_den)
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
+// ---- phase stubs (bendy_tpu_torch/tools/phase_probe.py) -------------------
+//
+// The phase probe times the loop with one phase at a time replaced by a cheap
+// stand-in: the reference's tools/phase_probe.py::_stubs, whose plain
+// counterparts are bendy_tpu_torch/tools/phase_probe.py::stubs, the same
+// arithmetic. A build with -DBENDY_PHASE_STUBS (_build.py, stubs=True) gives
+// trace_kernel one more template parameter, STUB, a mask of the STUB_*
+// phases below, and compiles only what the probe runs (the surface, BVH and
+// volume item instantiations, FULL output, table in shared memory; the
+// masks of STUB_MASKS). Each stand-in derives from a live lane value, so that
+// nvcc drops the phase and nothing downstream of it (a constant would let it
+// fold the consumers too). Each sits in an `if constexpr` block with
+// production in its `else`: STUB_CASE before a production statement, or an
+// #ifdef pair where the production code declares what later code reads. A
+// stub that leaves a pure computation unread (the density lookup under the
+// volume stub) lets nvcc drop it. The default build has neither the blocks
+// nor the `else`: it compiles the tokens it compiled before the probe
+// existed, so ptxas prints the same lines for it.
+#ifdef BENDY_PHASE_STUBS
+constexpr int STUB_LIGHT = 1, STUB_SHADE = 2, STUB_SWEEP = 4, STUB_RNG = 8, STUB_CAMERA = 16,
+              STUB_VOLUME = 32;
+#define STUB_CASE(phase, ...) if constexpr ((STUB & (phase)) != 0) { __VA_ARGS__ } else
+#define STUB_PARAM , int STUB = 0
+
+// stub_uniforms: slot i of lane_uniforms is ((sid >> i) & 1)·0.25 + 0.27
+// (slots 4·block to 4·block + 3 here), a few operations where pcg4d takes ~40
+__device__ __forceinline__ void stub_uniforms4(uint32_t sid, uint32_t block, float u[4]) {
+#pragma unroll
+  for (uint32_t j = 0; j < 4; ++j)
+    u[j] = (float)((sid >> (4u * block + j)) & 1u) * 0.25f + (float)0.27;
+}
+
+// stub_hit: t = 1 at org + dir, a hit where dir.x > 0 (a mixed mask) and a
+// miss elsewhere, normal -dir, a diffuse surface of albedo 0.6 that also
+// emits 0.1 (added where it is shaded: the merged color cannot hold both)
+template <bool VOL>
+__device__ __forceinline__ HitT<VOL> stub_hit(V3 org, V3 dir) {
+  const float zf = org.x * 0.0f;
+  HitT<VOL> h;
+  h.t = zf + 1.0f;
+  h.face = dir.x > 0.0f ? FACE_FRONT : -1;
+  h.mtype = MAT_DIFFUSE;
+  h.position = org + dir;
+  h.normal = -dir;
+  h.color = {zf + 0.6f, zf + 0.6f, zf + 0.6f};
+  h.rough = zf;
+  h.ior = zf + 1.4f;
+  if constexpr (VOL) {
+    h.vgrid = -1;
+    h.srow = -1;
+    h.vsize = {zf + 1.0f, zf + 1.0f, zf + 1.0f};
+    h.center = org;
+    h.radius = zf + 1.0f;
+  }
+  return h;
+}
+#else
+#define STUB_CASE(phase, ...)
+#define STUB_PARAM
+#endif
+
 // the routing (ops/trace_kernel.per_item): geodesics (LOOPM among them)
 // and media without the BVH trace one thread per (lane, sample) item; the
 // surface and BVH instantiations one thread per lane
@@ -1095,7 +1156,7 @@ constexpr int MIN_BLOCKS =
 
 // The tracer: one thread per lane, or with PER_ITEM one per (lane, sample)
 // item.
-template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH>
+template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH STUB_PARAM>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
     trace_kernel(Params P) {
   constexpr bool SPLIT = PER_ITEM<GEO, VOL, BVH>;
@@ -1178,6 +1239,15 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
       path_step = 0;
       const uint32_t sample0 = SPLIT ? P.sample0 + (uint32_t)(item % P.spp) : P.sample0;
       sid = (pixv * P.spp_total + (sample0 + (uint32_t)sample)) * nn + subv;
+#ifdef BENDY_PHASE_STUBS
+      if constexpr ((STUB & STUB_CAMERA) != 0) {
+        // stub_camera: one ray from (0, 0, 14) down -z, live through sid,
+        // in place of the ray generation and its camera draws
+        const float zf = (float)(int32_t)sid * 0.0f;
+        org = {zf, zf, zf + 14.0f};
+        dir = {zf, zf, zf - 1.0f};
+      } else {
+#endif
       float uj[4];
       uniforms4(sid, CAMERA_TAG, 0u, P.key0, P.key1, uj);
       float u = u_base + (uj[0] - 0.5f) * P.pw_n;
@@ -1213,6 +1283,9 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
         org = cam_t + off;
         dir = normalize(d_world * frac - off);
       }
+#ifdef BENDY_PHASE_STUBS
+      }
+#endif
       thr = {1.0f, 1.0f, 1.0f};
       rad = {0.0f, 0.0f, 0.0f};
       bounce = 0;
@@ -1326,8 +1399,18 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
       }
     }
     ++rays;
+#ifdef BENDY_PHASE_STUBS
+    HitT<VOL> h;
+    if constexpr ((STUB & STUB_SWEEP) != 0) {
+      h = stub_hit<VOL>(org, tdir);  // the sweep, or the BVH walk
+    } else {
+      h = nearest_hit<VOL, BVH>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir, march,
+                                last_sph, walk);
+    }
+#else
     HitT<VOL> h = nearest_hit<VOL, BVH>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
                                         march, last_sph, walk);
+#endif
     if (GEO && is_near) ++geo_steps;
     if constexpr (SPLIT) n_near += is_near;
     if (GEO && is_near && h.face < 0) {
@@ -1357,6 +1440,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
         // (a volume face or the interior event is always a sphere with a grid)
         ++vev;
         float u[4];
+        STUB_CASE(STUB_RNG, stub_uniforms4(sid, 0u, u);)
         uniforms4(sid, (uint32_t)path_step, 0u, P.key0, P.key1, u);
         const V3 bmin = {h.center.x - h.radius, h.center.y - h.radius, h.center.z - h.radius};
         const float bsize = 2.0f * h.radius;
@@ -1364,6 +1448,17 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
                           (h.position.z - bmin.z) / bsize};
         const float density = P.volume_step * density_sample(P, h.vgrid, h.vsize, coord);
         V3 new_org = h.position, new_dir = tdir;
+        // stub_volume_shade: a scatter where u2 < 0.3 (a live mixed mask), in
+        // place and straight on, weight 0.8; the lookup above goes unread
+        STUB_CASE(STUB_VOLUME, if (u[2] < 0.3f) {
+          thr = thr * (h.t * 0.0f + 0.8f);
+          if (AOVS && aov_open) {
+            aov_alb = {SCATTER_ALBEDO, SCATTER_ALBEDO, SCATTER_ALBEDO};
+            aov_nrm = h.normal;
+            aov_dep = h.t;
+            aov_open = false;
+          }
+        })
         if (u[0] < density) {
           // scatter: isotropic, albedo 0.8; interior events jitter the
           // origin up to one step back (volume.rs:38-53)
@@ -1394,13 +1489,42 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
       march = false;  // a surface event: shaded below, then surface mode or dead
     }
     // === shade the surface (ops/materials.py::shade_surface) =============
+#ifdef BENDY_PHASE_STUBS
+    if constexpr ((STUB & STUB_SHADE) != 0) {
+      // stub_shade: emits 0.1, scatters where u1 < 0.5 (a live mixed mask),
+      // straight on with weight 0.5
+      float u[4];
+      STUB_CASE(STUB_RNG, stub_uniforms4(sid, 0u, u);)
+      uniforms4(sid, (uint32_t)path_step, 0u, P.key0, P.key1, u);
+      const bool scatter = u[1] < 0.5f;
+      rad = rad + thr * 0.1f;
+      if (AOVS && aov_open) {
+        aov_alb = {0.5f, 0.5f, 0.5f};
+        aov_nrm = h.normal;
+        aov_dep = h.t;
+        aov_open = false;
+      }
+      if (GEO) fresh = true;
+      if (scatter) {
+        thr = thr * 0.5f;
+        org = h.position;
+        dir = tdir;
+        ++bounce;
+      } else {
+        alive = false;
+      }
+      ++path_step;
+    } else {
+#endif
     float u[4];
+    STUB_CASE(STUB_RNG, stub_uniforms4(sid, 0u, u);)
     uniforms4(sid, (uint32_t)path_step, 0u, P.key0, P.key1, u);
     const V3 n = h.normal;
     bool scatter = false;
     V3 weight = h.color, new_dir = tdir;
     if (h.mtype == MAT_DIFFUSE && (P.flags & FLAG_DIFFUSE)) {
       float u45[4];
+      STUB_CASE(STUB_RNG, stub_uniforms4(sid, 1u, u45);)
       uniforms4(sid, (uint32_t)path_step, 1u, P.key0, P.key1, u45);
       const int nl = P.n_light;
       float scaled = u[0] * (float)nl;
@@ -1409,11 +1533,30 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
       float u_face = scaled - floorf(scaled);
       const float* lrow = lights + li * lstride;
       V3 d_cos = cosine_hemisphere(n, u[2], u[3]);
+#ifdef BENDY_PHASE_STUBS
+      V3 lp;
+      if constexpr ((STUB & STUB_LIGHT) != 0) {
+        // stub_light_point: live through u4, one multiply-add a component
+        lp = {u45[0] * 0.5f + 1.0f, u45[0] * 0.5f + 2.0f, u45[0] * 0.5f + 0.5f};
+      } else {
+        lp = sample_light_point(lrow, P.n_face, u45[0], u45[1], u_face);
+      }
+#else
       V3 lp = sample_light_point(lrow, P.n_face, u45[0], u45[1], u_face);
+#endif
       V3 d_light = normalize(lp - h.position);
       V3 d_diff = u[1] < 0.5f ? d_light : d_cos;
       float pdf_cos = dot(n, d_diff) * (float)(1.0 / 3.14159265358979323846);
+#ifdef BENDY_PHASE_STUBS
+      float pdf_light;
+      if constexpr ((STUB & STUB_LIGHT) != 0) {
+        pdf_light = h.position.x * 0.0f + d_diff.x * 0.1f + 0.3f;  // stub_light_pdf
+      } else {
+        pdf_light = light_pdf(lrow, P.n_face, h.position, d_diff, P.clip_min, P.clip_max);
+      }
+#else
       float pdf_light = light_pdf(lrow, P.n_face, h.position, d_diff, P.clip_min, P.clip_max);
+#endif
       float pdf_mix = pdf_cos + (pdf_light - pdf_cos) * 0.5f;
       scatter = !(fabsf(pdf_mix) <= EPS_PAR);  // |shader_pdf| <= 1e-5 absorbs
       weight = h.color * (pdf_cos / (scatter ? pdf_mix : 1.0f));
@@ -1435,6 +1578,9 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
     }
     const bool emitting = h.mtype == MAT_FLAT || h.mtype == MAT_EMISSIVE;
     if (emitting) rad = rad + thr * h.color;
+#ifdef BENDY_PHASE_STUBS
+    if constexpr ((STUB & STUB_SWEEP) != 0) rad = rad + thr * (h.t * 0.0f + 0.1f);  // stub_hit emits
+#endif
     if (AOVS && aov_open) {
       aov_alb = scatter ? h.color : (emitting ? h.color : V3{0.0f, 0.0f, 0.0f});
       aov_nrm = scatter ? n : V3{0.0f, 0.0f, 0.0f};
@@ -1451,6 +1597,9 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
       alive = false;
     }
     ++path_step;
+#ifdef BENDY_PHASE_STUBS
+    }
+#endif
   }
 
   // fold in the lane's last completed path
@@ -1630,19 +1779,60 @@ size_t dynamic_smem(const Params& P, bool bvh) {
          (bvh ? BVH_STACK_BYTES : 0);
 }
 
-template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
-int launch(const Params& P, bool want_aovs, cudaStream_t s) {
-  const size_t smem = dynamic_smem(P, BVH);
-  const int items = PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n;
-  const int blocks = (items + BLOCK - 1) / BLOCK;
-  auto kernel = instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0);
+// launch `kernel` over `items` threads with `smem` bytes of dynamic shared
+// memory
+int launch_kernel(void (*kernel)(Params), int items, size_t smem, const Params& P,
+                  cudaStream_t s) {
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kernel<<<blocks, BLOCK, smem, s>>>(P);
+  kernel<<<(items + BLOCK - 1) / BLOCK, BLOCK, smem, s>>>(P);
   // a launch refused for registers or shared memory never runs, and a later
   // synchronize() does not report it: the wrapper raises on this code
   return (int)cudaGetLastError();
 }
+
+template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
+int launch(const Params& P, bool want_aovs, cudaStream_t s) {
+  return launch_kernel(instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0),
+                       PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n, dynamic_smem(P, BVH), P, s);
+}
+
+// the phase stubs' mask rides in a launch's flags above the FLAG_* bits; the
+// default build refuses a launch that carries one
+constexpr int STUB_SHIFT = 9;
+
+#ifdef BENDY_PHASE_STUBS
+// the masks the stub build instantiates: each phase alone, and the floor
+// (shade, sweep, rng and camera); the volume one only with media
+constexpr int STUB_MASKS[] = {0, STUB_LIGHT, STUB_SHADE, STUB_SWEEP, STUB_RNG, STUB_CAMERA,
+                              STUB_SHADE | STUB_SWEEP | STUB_RNG | STUB_CAMERA, STUB_VOLUME};
+constexpr int N_STUB_MASKS = sizeof(STUB_MASKS) / sizeof(STUB_MASKS[0]);
+
+// a launch's mask as the build instantiates it: the light stubs sit inside
+// the shade (marchspec, shade + light, runs shade's), and a surface
+// instantiation has no volume event to stub
+int stub_mask(int flags, bool vol) {
+  int mask = flags >> STUB_SHIFT;
+  if (mask & STUB_SHADE) mask &= ~STUB_LIGHT;
+  if (!vol) mask &= ~STUB_VOLUME;
+  return mask;
+}
+
+// launch the instantiation of `mask` (one of STUB_MASKS, else refused)
+template <bool VOL, bool BVH, int I = 0>
+int launch_stub(const Params& P, int mask, cudaStream_t s) {
+  if constexpr (I == N_STUB_MASKS) {
+    return (int)cudaErrorInvalidValue;
+  } else if constexpr (!VOL && STUB_MASKS[I] == STUB_VOLUME) {
+    return launch_stub<VOL, BVH, I + 1>(P, mask, s);
+  } else {
+    if (mask != STUB_MASKS[I]) return launch_stub<VOL, BVH, I + 1>(P, mask, s);
+    return launch_kernel(trace_kernel<false, false, VOL, false, false, BVH, STUB_MASKS[I]>,
+                         PER_ITEM<false, VOL, BVH> ? P.n * P.spp : P.n, dynamic_smem(P, BVH),
+                         P, s);
+  }
+}
+#endif
 
 Params make_params(const void* table, int table_floats, const void* cam, const void* pix,
                    const void* sub, void* out, void* rays, void* iters, int n, int width,
@@ -1721,12 +1911,22 @@ extern "C" {
 // With FLAG_BVH it walks the node block at float `bvh0` of `table`
 // (ops/bvh.py) and, when `bvh_tests` is not null, writes each lane's node
 // and primitive test counts to it ([2, n] int32); without, both are ignored.
+// The stub build launches the instantiation of the stub mask in `flags`
+// (FULL output, table in shared memory only).
 int bendy_trace_surface(TRACE_ARGS, void* stream) {
   if ((flags & (FLAG_GEO | FLAG_LOOPM)) || !bvh_args_ok(flags, bvh0, table_floats))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
+#ifdef BENDY_PHASE_STUBS
+  if (want_aovs || (flags & FLAG_GTAB)) return (int)cudaErrorInvalidValue;
+  const int mask = stub_mask(flags, false);
+  return (flags & FLAG_BVH) ? launch_stub<false, true>(TRACE_PARAMS, mask, s)
+                            : launch_stub<false, false>(TRACE_PARAMS, mask, s);
+#else
+  if (flags >> STUB_SHIFT) return (int)cudaErrorInvalidValue;
   if (flags & FLAG_BVH) return launch<false, false, false, true>(TRACE_PARAMS, want_aovs != 0, s);
   return launch<false, false>(TRACE_PARAMS, want_aovs != 0, s);
+#endif
 }
 
 // Launch the geodesic instantiation (1 <= n_mass <= 8 unrolled masses, or
@@ -1735,13 +1935,15 @@ int bendy_trace_surface(TRACE_ARGS, void* stream) {
 // sample) (the LOOPM or the item instantiation): out, rays and iters are
 // per item, [n_out, n·spp] and [n·spp] (item = lane·spp + s, at most
 // INT_MAX items), for bendy_fold_samples to fold, and a non-null
-// `near_steps` [n·spp] int32 receives each item's RK4 step count.
+// `near_steps` [n·spp] int32 receives each item's RK4 step count. Not in the
+// stub build.
+#ifndef BENDY_PHASE_STUBS
 int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                          float far, int max_steps, float growth, void* near_steps,
                          void* stream) {
   const bool loopm = (flags & FLAG_LOOPM) != 0;
   if (!(flags & FLAG_GEO) || (flags & FLAG_BVH) || n_mass < 1 ||
-      (!loopm && n_mass > MAX_MASSES) || !items_ok(true, n, spp))
+      (!loopm && n_mass > MAX_MASSES) || !items_ok(true, n, spp) || (flags >> STUB_SHIFT))
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
   P.n_mass = n_mass;
@@ -1756,6 +1958,7 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
   return loopm ? launch<true, false, true>(P, want_aovs != 0, s)
                : launch<true, false>(P, want_aovs != 0, s);
 }
+#endif
 
 // Launch the volume instantiation on `stream`: the density-grid stack
 // `grid` [G,D,H,W] f32, march step and volume-bounce cap, trilinear or
@@ -1764,7 +1967,9 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
 // and the GeoParams as for bendy_trace_geodesic); without, n_mass is
 // ignored, and FLAG_BVH walks the node block as for bendy_trace_surface,
 // one thread per lane, or else the item instantiation runs. Per item,
-// `vevents` is per item too.
+// `vevents` is per item too. The stub build launches the item instantiation
+// of the stub mask in `flags` (no geodesics, no BVH, FULL output, table in
+// shared memory only).
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                        float far, int max_steps, float growth, void* near_steps,
                        const void* grid, int G, int D, int H, int W, float volume_step,
@@ -1795,12 +2000,18 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
   P.max_volume_bounces = max_volume_bounces;
   P.nearest = nearest;
   const auto s = static_cast<cudaStream_t>(stream);
+#ifdef BENDY_PHASE_STUBS
+  if (geo || bvh || want_aovs || (flags & FLAG_GTAB)) return (int)cudaErrorInvalidValue;
+  return launch_stub<true, false>(P, stub_mask(flags, true), s);
+#else
+  if (flags >> STUB_SHIFT) return (int)cudaErrorInvalidValue;
   if (!geo) {
     return bvh ? launch<false, true, false, true>(P, want_aovs != 0, s)
                : launch<false, true>(P, want_aovs != 0, s);
   }
   return loopm ? launch<true, true, true>(P, want_aovs != 0, s)
                : launch<true, true>(P, want_aovs != 0, s);
+#endif
 }
 
 // Fold one per-item launch's words on `stream` (fold_kernel): `samp`
@@ -1836,7 +2047,8 @@ int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_
 // FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its register budget
 // asks for (__launch_bounds__; 0: none), the blocks one SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of the
-// current device. Returns a CUDA error code.
+// current device. Returns a CUDA error code. Not in the stub build.
+#ifndef BENDY_PHASE_STUBS
 int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats, void* out) {
   const bool geo = (flags & FLAG_GEO) != 0, aovs = want_aovs != 0, gtab = (flags & FLAG_GTAB) != 0;
   if (out == nullptr || table_floats < 0) return (int)cudaErrorInvalidValue;
@@ -1861,6 +2073,7 @@ int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&o[2], cudaDevAttrMultiProcessorCount, dev);
   return (int)e;
 }
+#endif
 
 const char* bendy_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

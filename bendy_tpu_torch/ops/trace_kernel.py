@@ -304,9 +304,10 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
     the loop cap (default ``cfg.max_iters(spp)``). A table with a node
     block (``bvh0`` in ``counts``) launches the BVH instantiation, which
     writes each lane's node and primitive test counts to ``bvh_tests``
-    ([2, B] int32) when it is given. Each launch adds one to
-    ``counter.launches`` (the calling wrapper's count). Returns (out, rays,
-    iters)."""
+    ([2, B] int32) when it is given. While ``_build.phase_stubs`` holds a
+    stub mask, the launch runs that mask's instantiation of the stub build.
+    Each launch adds one to ``counter.launches`` (the calling wrapper's
+    count). Returns (out, rays, iters)."""
     from bendy_tpu_torch import _build
 
     dev = pix.device
@@ -338,7 +339,7 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
     if B == 0:
         return out, rays, iters
     flags = (_flags(cfg) | (FLAG_GTAB if table_in_global(table.numel() * 4, bvh0 >= 0) else 0)
-             | (FLAG_BVH if bvh0 >= 0 else 0))
+             | (FLAG_BVH if bvh0 >= 0 else 0) | _build.stub_flags())
     rc = getattr(_build.library(), entry)(
         table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
         sub.data_ptr(), out.data_ptr(), rays.data_ptr(), iters.data_ptr(),

@@ -11,6 +11,13 @@
                         (docs/perf_report_torch.json)
     block_sweep.py      the render pass per threads per block and lane
                         order (docs/block_sweep_torch.json)
+    phase_probe.py      the tracer's time split by phase, through a stub
+                        build of csrc/trace_surface.cu
+                        (docs/phase_probe_torch.json)
+    prim_scaling.py     Mrays/s against primitive count on the sweep and
+                        the BVH walk (docs/prim_scaling_torch.json)
+    dispatch_probe.py   chained passes against one CUDA graph of them
+                        (docs/dispatch_probe_torch.json)
     checkout_ab.py      one card call over several checkouts, in turns
 
 The probes have a plain PyTorch version of their function, ``measure(...)``
@@ -21,17 +28,21 @@ and a ``main()`` that prints one JSON line:
     python3 -m bendy_tpu_torch.tools.fidelity [--scenes cornell ...] [--device cpu]
     python3 -m bendy_tpu_torch.tools.perf_report [scene ...] [--write]
     python3 -m bendy_tpu_torch.tools.block_sweep [scene ...] [--threads 64 128 256]
+    python3 -m bendy_tpu_torch.tools.phase_probe [--scene cornell ...] [--write]
+    python3 -m bendy_tpu_torch.tools.prim_scaling [--counts 8 16 ...]
+    python3 -m bendy_tpu_torch.tools.dispatch_probe [--scene cornell ...]
 
-The probes, perf_report and block_sweep measure on the card and raise
-without one; the fidelity tool renders on the card unless ``--device
-cpu``. Below: the timing helpers
-they and ``chip_smoke.py`` share, the occupancy arithmetic and the
+The probes, perf_report, block_sweep, phase_probe, prim_scaling and
+dispatch_probe measure on the card and raise without one; the fidelity
+tool renders on the card unless ``--device cpu``. Below: the timing
+helpers they and ``chip_smoke.py`` share, the occupancy arithmetic and the
 provenance a result file records.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import statistics
 import subprocess
@@ -214,3 +225,11 @@ def provenance(device) -> dict:
         out["kind"] = torch.cuda.get_device_name(dev)
     out["commit"] = commit()
     return out
+
+
+def write_json(path: str, body: dict, device, **meta) -> None:
+    """``body`` as JSON at ``path``, with ``_meta``: :func:`provenance`
+    of ``device`` (the card's name and power limit) and ``meta``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({**body, "_meta": {**provenance(device), **meta}}, f, indent=2)

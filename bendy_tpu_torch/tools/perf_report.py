@@ -223,7 +223,7 @@ def loop_body_ops(scene_name: str, width: int = 256, height: int = 256, spp: int
         return counter, min(cfg.max_iters(samples), -(-longest // PENDING_CHECK) * PENDING_CHECK)
 
     (a, n_a) = run(1)
-    for samples in (2, 4, 8):
+    for samples in (2, 4, 8, 16, 32):
         (b, n_b) = run(samples)
         if n_b > n_a:
             break

@@ -155,6 +155,20 @@ Phases, one line each (any failure exits non-zero):
      and cloud at 128 and 256 threads a block, tiled and not, 2 repeats,
      the 256-thread build (started beside phase 2's) first held to the
      plain version on phase 3's cornell and cloud cases.
+ 19. the probes of tools/: (a) the stub build of csrc/trace_surface.cu
+     (-DBENDY_PHASE_STUBS, started beside phase 2's) prints its ptxas lines,
+     its unstubbed instantiations' registers beside the default build's,
+     and every instantiation it has, at every phase, is held to the plain
+     trace with the same phase stubbed (tools/phase_probe.stubbed) on
+     phase 3's cornell case (also forced onto the BVH) and cloud case, as
+     phase 3 holds production; (b) tools/phase_probe on cornell (every
+     phase), cloud (volume, marchspec, floor) and prim_grid_256 (sweep,
+     floor), and cloud's march share; (c) tools/prim_scaling over both
+     routes at 8-512 primitives, and the crossover; (d)
+     tools/dispatch_probe on cornell and light_field_200, a captured
+     graph's film bit-equal to the chain's. Each writes its JSON into
+     smoke_out/; the phase split joins its main path's tracer entry in the
+     kernel line.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -163,6 +177,7 @@ oracle.
     python3 -c "import chip_smoke as c; c.run(phases=(2, 3))"   # a subset
     python3 -c "import chip_smoke as c; c.run(phases=(2, 15))"  # the probes alone
     python3 -c "import chip_smoke as c; c.run(phases=(4, 16, 17))"  # bench, fidelity
+    python3 -c "import chip_smoke as c; c.run(phases=(2, 19))"  # the probes of tools/
 """
 
 import contextlib
@@ -388,11 +403,11 @@ def renderer(name: str, config, width: int, height: int, dev):
     return Renderer(scene, config, device=dev), cam
 
 
-def compare_lanes(tag: str, kern, plain, cfg) -> float:
+def compare_lanes(tag: str, kern, plain, cfg, phase: int = 3) -> float:
     """Fail unless the kernel's TraceSums equal the plain version's per lane
     (rtol/atol) with equal int64 ray counts and equal per-lane rays,
     iterations, volume events and (geodesics) RK4 steps; returns the
-    largest |diff|."""
+    largest |diff|. Prints one line under ``phase``."""
     import torch
 
     fields = [("radiance", "xyz")]
@@ -412,7 +427,7 @@ def compare_lanes(tag: str, kern, plain, cfg) -> float:
                      for k in keys)
     chords = (f", RK4 steps kernel {int(kern.lane_counts['near_steps'].sum())} plain "
               f"{int(plain.lane_counts['near_steps'].sum())}" if "near_steps" in keys else "")
-    print(f"phase 3: {tag}: lanes off {bad}, max |diff| {err:.3e}, rays kernel {rays_k} "
+    print(f"phase {phase}: {tag}: lanes off {bad}, max |diff| {err:.3e}, rays kernel {rays_k} "
           f"plain {rays_p}, lane iterations kernel {iters_k} plain {iters_p}, volume events "
           f"kernel {vol_k} plain {vol_p}{chords}, per-lane counts off {counts_off} "
           f"({', '.join(keys)})")
@@ -1881,6 +1896,134 @@ def tools_phase(dev, sweep_builds=()) -> dict:
     return rows
 
 
+# phase 19: the phase probe's scenes and phases (None: every phase with
+# something to stub), the stub build's cases against the plain stubbed trace
+# at 16x16 (phase 3's cornell, forced onto the BVH too, and cloud: the
+# surface, BVH and volume item instantiations), and dispatch_probe's scenes
+# with their main paths' shapes
+PROBE_PHASES = {"cornell": None, "cloud": ("volume", "marchspec", "floor"),
+                "prim_grid_256": ("sweep", "floor")}
+STUB_CASES = (("cornell", 4, 7, {}), ("cornell", 4, 7, BVH), ("cloud", 2, 11, {}))
+DISPATCH_CASES = (("cornell", {}),
+                  ("light_field_200", dict(spp=16, subsample=1, max_bounces=3)))
+
+
+def stub_build_vs_plain(dev, stub_build) -> float:
+    """Phase 19(a): the stub build (``stub_build``: the future of its
+    build, started beside phase 2's) prints its ptxas lines and its
+    unstubbed instantiations' registers beside the default build's; then
+    every instantiation it has, at every phase of the probe, held to the
+    plain trace with the same phase stubbed (``tools/phase_probe.stubbed``)
+    on STUB_CASES, as phase 3 holds production. Returns the largest |diff|."""
+    import torch
+
+    from bendy_tpu_torch import Config, _build
+    from bendy_tpu_torch.ops.trace_kernel import make_tracer
+    from bendy_tpu_torch.ops.wavefront import trace_core
+    from bendy_tpu_torch.tools import phase_probe
+    from bendy_tpu_torch.utils.rng import render_key
+
+    lib, build_s = stub_build.result()  # raises where nvcc failed
+    lines = ptxas_report(_build.build_log(stubs=True))
+    print(f"phase 19: (a) built the stub build ({lib.parent.name}) in {build_s:.1f} s; ptxas: "
+          + " | ".join(lines))
+    default = {ln.split(":")[0]: ln.split(": ", 1)[1] for ln in ptxas_report(_build.build_log())}
+    for ln in lines:
+        label, regs = ln.split(": ", 1)
+        if ",STUB=0>" in label:
+            prod = label.replace(",STUB=0>", ">")
+            print(f"phase 19: (a) {label}: {regs}; the default build's {prod}: "
+                  f"{default.get(prod)}")
+    W = H = 16
+    pix = torch.arange(W * H, dtype=torch.int32, device=dev)
+    sub = torch.zeros(W * H, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for name, spp, seed, variant in STUB_CASES:
+        r, cam = renderer(name, Config(max_bounces=3), W, H, dev)
+        cfg = variant_config(r.trace_config(r.config, cam), variant)
+        params = r.camera_params(cam)
+        for phase in (None, *phase_probe.PHASES):
+            with phase_probe.stubbed(phase):
+                kern = make_tracer(r.arrays, W, H, spp, 1, cfg)(r._cam_packed, seed, 0, pix, sub)
+                plain = trace_core(r.arrays, params, render_key(seed, 0), pix, sub, W, H, spp, 1,
+                                   cfg)
+                torch.cuda.synchronize()
+            tag = (f"(a) {name} spp {spp}{' bvh' if variant else ''} {phase or 'full'} (stub mask "
+                   f"{phase_probe.stub_mask(phase)})")
+            worst = max(worst, compare_lanes(tag, kern, plain, cfg, phase=19))
+    return worst
+
+
+def probes_phase(dev, stub_build) -> dict:
+    """Phase 19: (a) :func:`stub_build_vs_plain`; (b) ``tools/phase_probe``
+    on PROBE_PHASES (each variant's time per warp-iteration and op count,
+    every number finite and positive) and the march share of cloud, into
+    smoke_out/phase_probe_torch.json; (c) ``tools/prim_scaling`` over both
+    routes at its counts into smoke_out/prim_scaling_torch.json (every row's
+    Mrays/s finite and positive, the BVH walked exactly on the bvh route);
+    (d) ``tools/dispatch_probe`` on DISPATCH_CASES into
+    smoke_out/dispatch_probe_torch.json (a captured graph's film bit-equal
+    to the chain's with equal rays; a pass that cannot be captured is
+    reported, not failed). Returns {"phase_split": {scene: split},
+    "march_share": ..., "prim_scaling": {...}, "dispatch": {scene: row}}."""
+    import math
+
+    from bendy_tpu_torch.tools import dispatch_probe, phase_probe, prim_scaling, write_json
+
+    t0 = time.perf_counter()
+    err = stub_build_vs_plain(dev, stub_build)
+    t1 = time.perf_counter()
+    split = {}
+    for name, phases in PROBE_PHASES.items():
+        split[name] = phase_probe.probe(name, phases)
+        for tag, row in split[name].items():
+            print(f"phase 19: (b) {name} {tag}: " + ", ".join(f"{k} {v!r}" for k, v in row.items()))
+            nums = [v for k, v in row.items() if k != "stub_mask" and not k.startswith("phase_")]
+            if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in nums):
+                fail(f"phase_probe {name} {tag}: a time, count or rate is not finite and positive")
+    share = phase_probe.march_share("cloud")
+    print(f"phase 19: (b) cloud march share (volume events over rays, 64x64, 4 spp): {share!r}")
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    write_json(os.path.join(SMOKE_DIR, "phase_probe_torch.json"), {"scenes": split}, dev,
+               seconds=time.perf_counter() - t1)
+    t2 = time.perf_counter()
+    out = os.path.join(SMOKE_DIR, "prim_scaling_torch.json")
+    prim_scaling.main(["--out", out])
+    with open(out) as f:
+        scaling = json.load(f)
+    for row in scaling["rows"]:
+        print(f"phase 19: (c) prim_grid({row['n_field_prims']}) {row['route']}: "
+              f"{row['mrays_median']!r} Mrays/s median ({row['mrays_best']!r} best), tracer alone "
+              f"{row['kernel_ms']!r} ms, first call {row['first_call_s']!r} s, bvh {row['bvh']}")
+        if not (math.isfinite(row["mrays_median"]) and row["mrays_median"] > 0
+                and row["bvh"] == (row["route"] == "bvh")):
+            fail(f"prim_scaling row {row['route']} {row['n_field_prims']} is wrong")
+    print(f"phase 19: (c) crossover by Mrays/s median at {scaling['crossover_mrays_median']}, by "
+          f"the tracer alone at {scaling['crossover_kernel_ms']} primitives (the threshold is "
+          f"192)")
+    t3 = time.perf_counter()
+    dispatch = {}
+    for name, kw in DISPATCH_CASES:
+        row = dispatch[name] = dispatch_probe.measure(name, **kw)
+        if row["captured"]:
+            print(f"phase 19: (d) {row['scene']}: chain {row['chain_s_median']!r} s, graph "
+                  f"{row['graph_s_median']!r} s for {row['passes']} passes: "
+                  f"{row['dispatch_ms_per_pass']!r} ms a pass; films bit-equal "
+                  f"{row['films_bit_equal']}, rays equal {row['rays_equal']}")
+            if not (row["films_bit_equal"] and row["rays_equal"]):
+                fail(f"the graph of {row['scene']}'s passes differs from the chain")
+        else:
+            print(f"phase 19: (d) {row['scene']}: not captured ({row['capture_error']}) at "
+                  f"{row['stopped_at']}; chain {row['chain_s_median']!r} s")
+    write_json(os.path.join(SMOKE_DIR, "dispatch_probe_torch.json"),
+               {"rows": list(dispatch.values())}, dev, seconds=time.perf_counter() - t3)
+    print(f"phase 19: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
+          f"{time.perf_counter() - t3:.1f} s; stub build max |diff| {err:.3e}")
+    return {"phase_split": split, "march_share": share, "dispatch": dispatch,
+            "prim_scaling": {k: scaling[k] for k in ("crossover_mrays_median",
+                                                     "crossover_kernel_ms")}}
+
+
 def run(phases=None, phase3_names=None) -> int:
     """Run the phases in ``phases`` (all when None; the card and the build
     always run), phase 3 on the cases of ``phase3_names`` only when given."""
@@ -1903,11 +2046,14 @@ def run(phases=None, phase3_names=None) -> int:
     from bendy_tpu_torch import Config, _build
     from bendy_tpu_torch.ops import trace_kernel
 
-    sweep_builds = []
-    if phases is None or 18 in phases:  # phase 18's variants build beside the default
+    sweep_builds, stub_build = [], None
+    if phases is None or {18, 19} & set(phases):  # their builds start beside the default
         pool = ThreadPoolExecutor()
-        sweep_builds = [pool.submit(_build.build, t) for t in SWEEP_THREADS
-                        if t != _build.TRACE_BLOCK]
+        if phases is None or 18 in phases:
+            sweep_builds = [pool.submit(_build.build, t) for t in SWEEP_THREADS
+                            if t != _build.TRACE_BLOCK]
+        if phases is None or 19 in phases:
+            stub_build = pool.submit(_build.build, None, True)
         pool.shutdown(wait=False)
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
@@ -2030,6 +2176,21 @@ def run(phases=None, phase3_names=None) -> int:
         entry = next((e for e in kernels if e.get("path", "").startswith("cornell ")), None)
         if entry is not None:
             entry.setdefault("fp32_utilization", util["cornell"])
+
+    if phases is None or 19 in phases:
+        res = probes_phase(dev, stub_build)
+        for entry in kernels:  # each scene's results join its main path's tracer entry
+            if entry["name"] not in ("trace_surface", "trace_volume"):
+                continue
+            scene = entry.get("path", "").split(" ")[0]
+            if scene in res["phase_split"]:
+                entry["phase_split"] = res["phase_split"][scene]
+            if scene in res["dispatch"]:
+                entry["dispatch"] = res["dispatch"][scene]
+            if scene == "cloud":
+                entry["march_share_events"] = res["march_share"]
+            if scene == "prim_grid_256":
+                entry["prim_scaling"] = res["prim_scaling"]
 
     print(smi)
     print(json.dumps({"kernels": kernels}))
