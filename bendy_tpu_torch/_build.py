@@ -20,9 +20,10 @@ per block and occupancy) reads the same ``TRACE_BLOCK``, which
 The phase probe (``tools/phase_probe.py``) runs a second build of the
 tracer's source alone, ``-DBENDY_PHASE_STUBS``, whose instantiations replace
 phases of the loop with stand-ins (the stub build, ``stubs=True``, in a
-hashed directory of its own). While :func:`phase_stubs` holds a stub mask,
-:func:`library` gives that build and the tracer's launches carry the mask in
-their flags (``STUB_SHIFT``); the default build refuses such a launch.
+hashed directory of its own). The tracer's launches take their library
+from :func:`tracer`: while :func:`phase_stubs` holds a stub mask, that is
+the stub build, with the mask for their flags (``STUB_SHIFT``; the default
+build refuses such a launch). :func:`library` is always the default build.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ LIB_NAME = "libbendy_kernels.so"
 TRACE_BLOCK = 128
 # the stub build: its source, the entry points it has, and the place of the
 # stub mask in a launch's flags (csrc/trace_surface.cu STUB_SHIFT); the mask
-# the tracer's launches run while :func:`phase_stubs` holds one, else None
+# :func:`phase_stubs` holds for :func:`tracer`, else None
 STUB_SOURCES = ("trace_surface.cu",)
 STUB_ENTRIES = ("bendy_trace_surface", "bendy_trace_volume", "bendy_fold_samples",
                 "bendy_cuda_error_string")
@@ -194,9 +195,16 @@ def _build(block: int, stubs: bool = False) -> tuple[Path, float]:
 
 def library(block: int | None = None) -> ctypes.CDLL:
     """The built kernel library, its tracer at ``block`` threads a block
-    (default ``TRACE_BLOCK``), with every entry point's signature set; the
-    stub build while :func:`phase_stubs` holds a mask."""
-    return _library(_block(block), PHASE_STUBS is not None)
+    (default ``TRACE_BLOCK``), with every entry point's signature set."""
+    return _library(_block(block))
+
+
+def tracer() -> tuple[ctypes.CDLL, int]:
+    """The library whose tracer entry points the launches run now, and the
+    bits their flags carry: the default build at ``TRACE_BLOCK`` and 0, or,
+    while :func:`phase_stubs` holds a mask, the stub build and
+    :func:`stub_flags`."""
+    return _library(TRACE_BLOCK, PHASE_STUBS is not None), stub_flags()
 
 
 @functools.cache

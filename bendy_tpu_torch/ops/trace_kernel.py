@@ -282,12 +282,13 @@ def bvh_stack_bytes() -> int:
     return 2 * BVH_STACK * _build.TRACE_BLOCK
 
 
-def _check_launch(entry: str, dev: torch.device, rc: int) -> None:
-    """Raise on a refused launch (``rc``, the C entry's cudaGetLastError())."""
+def _check_launch(entry: str, dev: torch.device, rc: int, lib=None) -> None:
+    """Raise on a refused launch (``rc``, the C entry's cudaGetLastError();
+    ``lib``: the library launched from, default ``_build.library()``)."""
     from bendy_tpu_torch import _build
 
     if rc != 0:
-        msg = _build.library().bendy_cuda_error_string(rc).decode()
+        msg = (lib or _build.library()).bendy_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed on {dev}: CUDA error {rc} ({msg})")
 
 
@@ -338,9 +339,10 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
     out, rays, iters = outs
     if B == 0:
         return out, rays, iters
+    lib, stub = _build.tracer()
     flags = (_flags(cfg) | (FLAG_GTAB if table_in_global(table.numel() * 4, bvh0 >= 0) else 0)
-             | (FLAG_BVH if bvh0 >= 0 else 0) | _build.stub_flags())
-    rc = getattr(_build.library(), entry)(
+             | (FLAG_BVH if bvh0 >= 0 else 0) | stub)
+    rc = getattr(lib, entry)(
         table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
         sub.data_ptr(), out.data_ptr(), rays.data_ptr(), iters.data_ptr(),
         B, width, height, spp, subsample, spp_total & 0xFFFFFFFF,
@@ -352,7 +354,7 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
         *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_launch(entry, dev, rc)
+    _check_launch(entry, dev, rc, lib)
     counter.launches += 1
     return out, rays, iters
 

@@ -15,18 +15,18 @@ its two accumulations: the films bit-equal and the ray counts equal.
 Then ``repeats`` rounds of one chain and one replay, each timed on the
 host's clock to its synchronize, give the medians and the dispatch cost
 per pass, (chain − graph) / N. Nothing on the render path changes for
-this: where a pass cannot be captured (a host sync, a host read), the row
-says which call stopped the capture (``capture_error``, ``stopped_at``)
-and times the chain alone.
+this: where CUDA refuses a call inside the capture (a host sync, a host
+read), the row says which call stopped it (``capture_error``,
+``stopped_at``) and times the chain alone; any other fault raises.
 
     python3 -m bendy_tpu_torch.tools.dispatch_probe [--scene cornell ...]
-        [--passes 4] [--repeats 5] [--res 256] [--spp 64] [--subsample 2]
-        [--max-bounces N] [--out docs/dispatch_probe_torch.json]
+        [--passes 4] [--repeats 5] [--out docs/dispatch_probe_torch.json]
 
-Each scene renders at res², ``subsample``² subpixels and ``spp`` samples
-in the reference's configuration (``tools/perf_report.SCENE_CONFIG_KW``),
-its bounce cap replaced by ``--max-bounces`` when given. The rows go to
-``--out`` with the card's name and power limit. It raises without a card.
+Each scene of SCENES renders its main path's pass (``chip_smoke.py``
+phases 4 and 12): RES², its subpixels and samples, in the reference's
+configuration (``tools/perf_report.SCENE_CONFIG_KW``) with the bounce cap
+given there. The rows go to ``--out`` with the card's name and power
+limit. It raises without a card.
 """
 
 from __future__ import annotations
@@ -42,6 +42,17 @@ import traceback
 PASSES = 4
 REPEATS = 5
 OUT_JSON = "docs/dispatch_probe_torch.json"
+RES = 256
+# each scene's pass: (samples, subsample, the bounce cap where the main path
+# replaces its Config's)
+SCENES = {"cornell": (64, 2, None), "light_field_200": (16, 1, 3)}
+
+
+def capture_stopped(exc: RuntimeError) -> bool:
+    """Whether ``exc`` is CUDA's refusal of a call inside a stream capture
+    (the cudaErrorStreamCapture* family, each of whose messages names the
+    capture), not another fault."""
+    return "captur" in str(exc)
 
 
 def stopped_at(exc: BaseException) -> str:
@@ -55,8 +66,7 @@ def stopped_at(exc: BaseException) -> str:
     return f"{f.filename[f.filename.rfind('bendy_tpu_torch'):]}:{f.lineno} {f.name}: {f.line}"
 
 
-def measure(name: str, passes: int = PASSES, repeats: int = REPEATS, res: int = 256,
-            spp: int = 64, subsample: int = 2, max_bounces: int | None = None) -> dict:
+def measure(name: str, passes: int = PASSES, repeats: int = REPEATS) -> dict:
     """One scene's row on the card (the module docstring's protocol)."""
     from dataclasses import replace
 
@@ -65,7 +75,10 @@ def measure(name: str, passes: int = PASSES, repeats: int = REPEATS, res: int = 
     from bendy_tpu_torch.ops.trace_kernel import make_render_pass
     from bendy_tpu_torch.tools.perf_report import scene_config, scene_renderer
 
-    W = H = res
+    if name not in SCENES:
+        raise ValueError(f"unknown scene {name!r}: one of {sorted(SCENES)}")
+    W = H = RES
+    spp, subsample, max_bounces = SCENES[name]
     config = scene_config(name)
     if max_bounces is not None:
         config = replace(config, max_bounces=max_bounces)
@@ -94,6 +107,8 @@ def measure(name: str, passes: int = PASSES, repeats: int = REPEATS, res: int = 
         with torch.cuda.graph(graph):
             chain(film_g, rays_g)
     except RuntimeError as exc:
+        if not capture_stopped(exc):
+            raise
         torch.cuda.synchronize()
         row.update(captured=False, capture_error=str(exc).splitlines()[0],
                    stopped_at=stopped_at(exc))
@@ -130,21 +145,16 @@ def main(argv=None) -> int:
     from bendy_tpu_torch.utils.device import resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", nargs="+", default=["cornell"])
+    ap.add_argument("--scene", nargs="+", choices=sorted(SCENES), default=["cornell"])
     ap.add_argument("--passes", type=int, default=PASSES)
     ap.add_argument("--repeats", type=int, default=REPEATS)
-    ap.add_argument("--res", type=int, default=256)
-    ap.add_argument("--spp", type=int, default=64)
-    ap.add_argument("--subsample", type=int, default=2)
-    ap.add_argument("--max-bounces", type=int, default=None)
     ap.add_argument("--out", default=OUT_JSON)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")  # raises without a card
     t0 = time.time()
     rows = []
     for name in args.scene:
-        rows.append(measure(name, args.passes, args.repeats, args.res, args.spp,
-                            args.subsample, args.max_bounces))
+        rows.append(measure(name, args.passes, args.repeats))
         print(json.dumps(rows[-1]), flush=True)
     write_json(args.out, {"rows": rows}, dev, seconds=time.time() - t0,
                argv=sys.argv[1:] if argv is None else argv)

@@ -46,7 +46,8 @@ full one is the residual (``floor_residual_frac``).
 
 :func:`march_share` is the share of traced iterations that were volume
 events, read from the kernel's own per-thread counters (volume events over
-rays); the reference toggled a counter knob of its loop instead.
+rays) at MARCH_GEOMETRY, one lane a pixel; the reference toggled a counter
+knob of its loop instead.
 
     python3 -m bendy_tpu_torch.tools.phase_probe [--scene cornell ...]
         [--phases light,shade] [--repeats 5] [--march-share] [--write]
@@ -54,7 +55,8 @@ rays); the reference toggled a counter knob of its loop instead.
 
 Without ``--phases`` a scene runs every phase that has something to stub
 (``volume`` and ``marchspec`` only with media). ``--write`` writes the
-results with the card's name and power limit. It raises without a card.
+split and, for each scene with media, its march share, with the card's
+name and power limit. It raises without a card.
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ import time
 import torch
 
 PHASES = ("light", "shade", "sweep", "rng", "camera", "volume", "marchspec", "floor")
+# march_share's film and samples
+MARCH_GEOMETRY = {"width": 64, "height": 64, "spp": 4}
 # each phase's stand-ins, and their bits in the kernel's stub mask
 # (csrc/trace_surface.cu STUB_*)
 PHASE_PARTS = {"light": ("light",), "shade": ("shade",), "sweep": ("sweep",), "rng": ("rng",),
@@ -307,7 +311,8 @@ def probe(scene_name: str, phases=None, repeats: int = 5) -> dict:
     return phase_split(rows)
 
 
-def march_share(scene_name: str, width: int = 64, height: int = 64, spp: int = 4,
+def march_share(scene_name: str, width: int = MARCH_GEOMETRY["width"],
+                height: int = MARCH_GEOMETRY["height"], spp: int = MARCH_GEOMETRY["spp"],
                 device="cuda") -> float:
     """Volume events over rays of one production tracer call (the
     kernel's per-thread counters on a card; the plain loop's on the CPU)
@@ -324,6 +329,12 @@ def march_share(scene_name: str, width: int = 64, height: int = 64, spp: int = 4
     seed = int.from_bytes(os.urandom(4), "little") & 0x3FFFFFFF
     res = make_tracer(r.arrays, width, height, spp, 1, cfg)(r._cam_packed, seed, 0, pix, sub)
     return int(res.vol_events) / max(int(res.rays), 1)
+
+
+def march_record(scene_name: str) -> dict:
+    """:func:`march_share` of ``scene_name`` on the card with its geometry:
+    the written entry."""
+    return {"march_share": march_share(scene_name), **MARCH_GEOMETRY, "lanes": "one a pixel"}
 
 
 def main(argv=None) -> int:
@@ -351,7 +362,10 @@ def main(argv=None) -> int:
         results[name] = probe(name, phases, args.repeats)
         print(json.dumps({"scene": name, "phases": results[name]}), flush=True)
     if args.write:
-        write_json(args.out, {"scenes": results}, dev, seconds=time.time() - t0)
+        shares = {name: march_record(name) for name in args.scene
+                  if "volume" in default_phases(name)}
+        write_json(args.out, {"scenes": results, "march_share": shares}, dev,
+                   seconds=time.time() - t0)
         print(f"wrote {args.out}", file=sys.stderr)
     return 0
 

@@ -1899,13 +1899,11 @@ def tools_phase(dev, sweep_builds=()) -> dict:
 # phase 19: the phase probe's scenes and phases (None: every phase with
 # something to stub), the stub build's cases against the plain stubbed trace
 # at 16x16 (phase 3's cornell, forced onto the BVH too, and cloud: the
-# surface, BVH and volume item instantiations), and dispatch_probe's scenes
-# with their main paths' shapes
+# surface, BVH and volume item instantiations); dispatch_probe runs its own
+# SCENES at their main paths' shapes
 PROBE_PHASES = {"cornell": None, "cloud": ("volume", "marchspec", "floor"),
                 "prim_grid_256": ("sweep", "floor")}
 STUB_CASES = (("cornell", 4, 7, {}), ("cornell", 4, 7, BVH), ("cloud", 2, 11, {}))
-DISPATCH_CASES = (("cornell", {}),
-                  ("light_field_200", dict(spp=16, subsample=1, max_bounces=3)))
 
 
 def stub_build_vs_plain(dev, stub_build) -> float:
@@ -1961,10 +1959,9 @@ def probes_phase(dev, stub_build) -> dict:
     smoke_out/phase_probe_torch.json; (c) ``tools/prim_scaling`` over both
     routes at its counts into smoke_out/prim_scaling_torch.json (every row's
     Mrays/s finite and positive, the BVH walked exactly on the bvh route);
-    (d) ``tools/dispatch_probe`` on DISPATCH_CASES into
-    smoke_out/dispatch_probe_torch.json (a captured graph's film bit-equal
-    to the chain's with equal rays; a pass that cannot be captured is
-    reported, not failed). Returns {"phase_split": {scene: split},
+    (d) ``tools/dispatch_probe`` on its SCENES into
+    smoke_out/dispatch_probe_torch.json (every scene's passes captured, the
+    graph's film bit-equal to the chain's with equal rays). Returns {"phase_split": {scene: split},
     "march_share": ..., "prim_scaling": {...}, "dispatch": {scene: row}}."""
     import math
 
@@ -1981,10 +1978,13 @@ def probes_phase(dev, stub_build) -> dict:
             nums = [v for k, v in row.items() if k != "stub_mask" and not k.startswith("phase_")]
             if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in nums):
                 fail(f"phase_probe {name} {tag}: a time, count or rate is not finite and positive")
-    share = phase_probe.march_share("cloud")
-    print(f"phase 19: (b) cloud march share (volume events over rays, 64x64, 4 spp): {share!r}")
+    share = phase_probe.march_record("cloud")
+    print(f"phase 19: (b) cloud march share (volume events over rays): {share!r}")
+    if not 0.0 < share["march_share"] < 1.0:
+        fail(f"cloud's march share {share['march_share']!r} is not in (0, 1)")
     os.makedirs(SMOKE_DIR, exist_ok=True)
-    write_json(os.path.join(SMOKE_DIR, "phase_probe_torch.json"), {"scenes": split}, dev,
+    write_json(os.path.join(SMOKE_DIR, "phase_probe_torch.json"),
+               {"scenes": split, "march_share": {"cloud": share}}, dev,
                seconds=time.perf_counter() - t1)
     t2 = time.perf_counter()
     out = os.path.join(SMOKE_DIR, "prim_scaling_torch.json")
@@ -2003,18 +2003,17 @@ def probes_phase(dev, stub_build) -> dict:
           f"192)")
     t3 = time.perf_counter()
     dispatch = {}
-    for name, kw in DISPATCH_CASES:
-        row = dispatch[name] = dispatch_probe.measure(name, **kw)
-        if row["captured"]:
-            print(f"phase 19: (d) {row['scene']}: chain {row['chain_s_median']!r} s, graph "
-                  f"{row['graph_s_median']!r} s for {row['passes']} passes: "
-                  f"{row['dispatch_ms_per_pass']!r} ms a pass; films bit-equal "
-                  f"{row['films_bit_equal']}, rays equal {row['rays_equal']}")
-            if not (row["films_bit_equal"] and row["rays_equal"]):
-                fail(f"the graph of {row['scene']}'s passes differs from the chain")
-        else:
-            print(f"phase 19: (d) {row['scene']}: not captured ({row['capture_error']}) at "
-                  f"{row['stopped_at']}; chain {row['chain_s_median']!r} s")
+    for name in dispatch_probe.SCENES:
+        row = dispatch[name] = dispatch_probe.measure(name)
+        if not row["captured"]:
+            fail(f"{name}'s passes were not captured ({row['capture_error']}) at "
+                 f"{row['stopped_at']}")
+        print(f"phase 19: (d) {name}: chain {row['chain_s_median']!r} s, graph "
+              f"{row['graph_s_median']!r} s for {row['passes']} passes: "
+              f"{row['dispatch_ms_per_pass']!r} ms a pass; films bit-equal "
+              f"{row['films_bit_equal']}, rays equal {row['rays_equal']}")
+        if not (row["films_bit_equal"] and row["rays_equal"]):
+            fail(f"the graph of {name}'s passes differs from the chain")
     write_json(os.path.join(SMOKE_DIR, "dispatch_probe_torch.json"),
                {"rows": list(dispatch.values())}, dev, seconds=time.perf_counter() - t3)
     print(f"phase 19: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
@@ -2188,7 +2187,7 @@ def run(phases=None, phase3_names=None) -> int:
             if scene in res["dispatch"]:
                 entry["dispatch"] = res["dispatch"][scene]
             if scene == "cloud":
-                entry["march_share_events"] = res["march_share"]
+                entry["march_share_events"] = res["march_share"]["march_share"]
             if scene == "prim_grid_256":
                 entry["prim_scaling"] = res["prim_scaling"]
 

@@ -124,16 +124,23 @@ def test_stubs_bind():
     assert attrs["sweep"] == {"nearest_hit", "nearest_hit_bvh_plain"}
 
 
-def test_stubbed_restores_and_selects_the_stub_build():
+def test_stubbed_restores_and_selects_the_stub_build(monkeypatch):
+    """The tracer's launches, and they alone, take the stub build and its
+    mask while a phase is stubbed (``_library`` stands in for the build:
+    (block, stubs))."""
     import bendy_tpu_torch.ops.wavefront as wavefront
 
+    monkeypatch.setattr(_build, "_library", lambda block, stubs=False: (block, stubs))
     orig = wavefront.nearest_hit
     with phase_probe.stubbed("floor"):
         assert wavefront.nearest_hit is phase_probe.stub_hit
         assert _build.PHASE_STUBS == phase_probe.stub_mask("floor") == 2 + 4 + 8 + 16
         assert _build.stub_flags() == 30 << _build.STUB_SHIFT
+        assert _build.tracer() == ((128, True), 30 << _build.STUB_SHIFT)
+        assert _build.library() == (128, False)
     assert wavefront.nearest_hit is orig and _build.PHASE_STUBS is None
     assert _build.stub_flags() == 0
+    assert _build.tracer() == ((128, False), 0)
     with phase_probe.stubbed(None):
         assert _build.PHASE_STUBS == 0 and wavefront.nearest_hit is orig
     with pytest.raises(ValueError, match="6 bits"):

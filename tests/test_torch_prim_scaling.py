@@ -9,7 +9,7 @@ CPU route sweeps either way; the plain walk through the loop,
 kernel's walk is on the card). Also: the forced route in the trace
 configuration and the launches' table, the crossover's arithmetic, unknown
 routes refused, and the dispatch probe's report of the call that stops a
-capture.
+capture, its scenes and what it takes for a stopped capture.
 """
 
 import pytest
@@ -107,3 +107,25 @@ def test_dispatch_probe_names_the_call_that_stops_a_capture():
         where = dispatch_probe.stopped_at(exc)
     assert where.startswith("bendy_tpu_torch/ops/trace_kernel.py:") and " accumulate: " in where
     assert dispatch_probe.stopped_at(ValueError("no traceback")) == "outside bendy_tpu_torch"
+
+
+def test_dispatch_probe_catches_only_a_stopped_capture():
+    assert dispatch_probe.capture_stopped(RuntimeError(
+        "CUDA error: operation not permitted when stream is capturing"))
+    assert dispatch_probe.capture_stopped(RuntimeError(
+        "bendy_accumulate launch failed on cuda:0: CUDA error 901 (operation failed due to a "
+        "previous error during capture)"))
+    assert not dispatch_probe.capture_stopped(RuntimeError(
+        "bendy_trace_surface launch failed on cuda:0: CUDA error 1 (invalid argument)"))
+
+
+def test_dispatch_probe_scenes_and_refusals():
+    """Each scene's pass is its main path's; no other scene is taken."""
+    assert dispatch_probe.SCENES == {"cornell": (64, 2, None), "light_field_200": (16, 1, 3)}
+    assert dispatch_probe.RES == 256
+    with pytest.raises(ValueError, match="unknown scene"):
+        dispatch_probe.measure("cloud")
+    with pytest.raises(SystemExit):
+        dispatch_probe.main(["--scene", "cloud"])
+    with pytest.raises(SystemExit):
+        dispatch_probe.main(["--res", "64"])
