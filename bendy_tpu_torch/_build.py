@@ -56,7 +56,7 @@ TRACE_BLOCK = 128
 # :func:`phase_stubs` holds for :func:`tracer`, else None
 STUB_SOURCES = ("trace_surface.cu",)
 STUB_ENTRIES = ("bendy_trace_surface", "bendy_trace_volume", "bendy_fold_samples",
-                "bendy_cuda_error_string")
+                "bendy_staged_floats", "bendy_cuda_error_string")
 STUB_SHIFT = 9
 PHASE_STUBS: int | None = None
 
@@ -86,8 +86,10 @@ SIGNATURES = {
                        c_int, c_void_p, c_void_p],
         c_int,
     ),
-    # flags, volumes, want_aovs, table_floats, out [3] int32 (host)
-    "bendy_item_occupancy": ([c_int, c_int, c_int, c_int, c_void_p], c_int),
+    # flags, volumes, table_floats, n_sph, n_rct, n_box
+    "bendy_staged_floats": ([c_int] * 6, c_int),
+    # flags, volumes, want_aovs, table_floats, n_sph, n_rct, n_box, out [3] int32 (host)
+    "bendy_item_occupancy": ([c_int] * 7 + [c_void_p], c_int),
     # samp, cnt, n, spp, n_out, first, max_iters, out, rays, iters, vevents,
     #   near_steps, over_cap, stream
     "bendy_fold_samples": (

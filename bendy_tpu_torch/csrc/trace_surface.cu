@@ -54,7 +54,8 @@
 //
 // What bounds it on the H100: FP32 issue and warp divergence across paths of
 // unequal length, not bytes (the scene is a few KB, each lane reads 8 bytes
-// and writes 12 or 40). In the geodesic instantiation the FP32 issue of the
+// and writes 12 or 40); on the surface paths also the sweep's shared loads
+// and IEEE divisions (below). In the geodesic instantiation the FP32 issue of the
 // four RK4 stages (each a sweep over the masses with a divide and a sqrt)
 // dominates every chord step, and divergence grows: photon-ring lanes that
 // graze the critical impact parameter run to hundreds of chord steps
@@ -93,6 +94,36 @@
 //     lanes that are near a mass (a far-field lane traces straight and never
 //     reads the chord), and reads the GeoParams as launch arguments, so
 //     editing a scene's "geodesic" block rebuilds nothing.
+//
+// The surface sweep (kernel 1a: the SWEEP_ROWS instantiations, nearest_hit_rows):
+//   - What bounds it: cornell's primitive sweep was 0.68 of a warp-iteration
+//     (PERF.md §5, tools/phase_probe.py). In SASS (tools/sweep_sass.py) an
+//     iteration of the flat sweep took a rect 87 instructions, 14 of them
+//     32-bit shared loads (a row is 21 floats, so no load was wider), and an
+//     IEEE division; a box 208, with 21 loads, 41 selects (the oriented
+//     normals and signs it carried) and three IEEE reciprocals. cornell
+//     sweeps 6 rects and 2 boxes a segment.
+//   - Design: (a) float4 rows of the fields a test reads, staged by the
+//     block in front of the table (4 LDS.128 a rect or box, 1 a sphere); a
+//     box carries the index and sign of its winning slab, and its sgn_lo /
+//     sgn_hi, its normal and every shading field come from the winner's flat
+//     row after the sweep. (b) A rect divides and tests containment only
+//     where quotient_may_win says its t may still win (ptxas shares the
+//     division's MUFU.RCP with it). (c) The FULL-output instantiation holds 8
+//     blocks of 128 an SM (64 registers, 16 B spilled). An iteration now
+//     takes a rect 81.5 instructions and a box 163 (15 FSEL).
+//   - Measured on an NVIDIA H100 80GB HBM3 at 700.00 W in one run of
+//     tools/checkout_ab.py (the previous design, this, this, the previous
+//     design; medians of 7 seeds): cornell's tracer 4.192 / 4.191 -> 3.643
+//     / 3.628 ms, cornell2 4.496 / 4.514 -> 3.872 / 3.921, scene.json 1.918
+//     / 1.883 -> 1.847 / 1.813, films and rays bit-equal. cornell's bound
+//     (chip_smoke.trace_bound, a rect counted at its reject alone) is
+//     0.194 ms. Each lever against the one before (PERF.md §6):
+//     the rows 4.23-4.26 -> 4.08 ms; the rect reject 3.72-3.74, although a
+//     whole warp could skip only 2.7 % of its rect tests (a lane 62 %); the
+//     box reject lost (3.77-3.80: its approximate slabs cost 76 instructions
+//     a box, more than the 57 % of box tests that whole warps skipped
+//     saved); 256 threads lost; 8 blocks won 2 % on cornell and cornell2.
 //
 // Numerics (held per lane to the plain version at rtol 5e-4, atol 1e-5):
 //   - Trig: the same range-free polynomials as ops/distr.py::sin_cos_tau and
@@ -634,6 +665,205 @@ __device__ __forceinline__ HitT<VOL> hit_record(const float* tab, float t_best, 
   return h;
 }
 
+// ---- the surface sweep over float4 rows (kernel 1a) -----------------------
+//
+// The surface instantiations that stage the table (SWEEP_ROWS: no
+// geodesics, media, BVH or GTAB) sweep rows of their own, built by the
+// block's staging loop in front of the staged table: only the fields a test
+// reads, each row a run of float4s, so that a row is read with 16-byte
+// shared loads (every lane of a warp reads the same row: a broadcast) where
+// the flat rows, 15, 21 and 28 floats wide, take one 32-bit load a field:
+//   sphere [4]:  center xyz, radius
+//   rect  [16]:  center xyz, hw | zb xyz, hh | xb xyz, 0 | yb xyz, 0
+//   box   [16]:  n0 xyz, dlo0 | n1 xyz, dlo1 | n2 xyz, dlo2 | dhi xyz, 0
+// A box's sgn_lo / sgn_hi and every shading field are read from the flat
+// row of the winner alone, after the sweep. The arithmetic is the flat
+// sweep's, operation for operation, so the winner, its t and its manifold
+// are bit for bit the same.
+template <bool GEO, bool VOL, bool GTAB, bool BVH>
+constexpr bool SWEEP_ROWS = !GEO && !VOL && !GTAB && !BVH;
+constexpr int SPH_ROW = 4, RCT_ROW = 16, BOX_ROW = 16;
+
+__host__ __device__ __forceinline__ int sweep_rows_floats(int n_sph, int n_rct, int n_box) {
+  return SPH_ROW * n_sph + RCT_ROW * n_rct + BOX_ROW * n_box;
+}
+
+// whether t = p / q, correctly rounded, may still pass t >= cmin, t <= cmax
+// and t < t_best; false only where it cannot. a = p · rcp.approx(q) lies
+// within 2^-21.4·|p/q| + 2^-149 of the rounded t (rcp.approx.f32: 1 ulp,
+// taken as 2; the product and the rounding of p / q: half an ulp each), and
+// the margin m = |a|·2^-20 + 2^-126 covers that and the rounding of a ± m;
+// an a that overflows makes a - m NaN, which rejects nothing
+__device__ __forceinline__ float rcp_approx(float q) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(q));
+  return r;
+}
+constexpr float REJECT_REL = (float)(1.0 / 1048576.0), REJECT_ABS = (float)1.1754943508222875e-38;
+__device__ __forceinline__ bool quotient_may_win(float a, float cmin, float cmax, float t_best) {
+  const float m = fabsf(a) * REJECT_REL + REJECT_ABS;
+  return !(a + m < cmin || a - m > cmax || a - m >= t_best);
+}
+
+#ifdef BENDY_SWEEP_STATS
+// the measuring build (tools/sweep_sass.py, -DBENDY_SWEEP_STATS): the lane
+// rect tests, the tests whose lane could skip its division (`may` false)
+// and the tests whose whole warp could
+__device__ unsigned long long sweep_stats[3];
+__device__ __forceinline__ void sweep_count(bool may) {
+  const unsigned active = __activemask();
+  const unsigned want = __ballot_sync(active, may);
+  if ((threadIdx.x & 31) == __ffs(active) - 1) {
+    const unsigned long long lanes = __popc(active);
+    atomicAdd(&sweep_stats[0], lanes);
+    atomicAdd(&sweep_stats[1], lanes - __popc(want));
+    if (want == 0) atomicAdd(&sweep_stats[2], lanes);
+  }
+}
+#endif
+
+// word e of the sweep rows, from the flat table
+__device__ __forceinline__ float sweep_row_word(const float* table, int n_sph, int n_rct, int e) {
+  if (e < SPH_ROW * n_sph) return table[(e / SPH_ROW) * SPH_COLS + e % SPH_ROW];
+  e -= SPH_ROW * n_sph;
+  const float* flat = table + n_sph * SPH_COLS;
+  int cols = RCT_COLS, k = e / RCT_ROW;
+  const int w = (e % RCT_ROW) / 4, i = e % 4;
+  int col;  // the flat column of float i of row word w; -1: the pad
+  if (k < n_rct) {  // center 0-2, hw 12 | zb 9-11, hh 13 | xb 3-5 | yb 6-8
+    const int xyz = w == 0 ? 0 : w == 1 ? 9 : w == 2 ? 3 : 6;
+    col = i < 3 ? xyz + i : w == 0 ? 12 : w == 1 ? 13 : -1;
+  } else {  // slab w's normal 3w..3w+2 and dlo 9+w | dhi 12-14
+    flat += n_rct * RCT_COLS;
+    cols = BOX_COLS;
+    k -= n_rct;
+    col = i < 3 ? (w < 3 ? 3 * w : 12) + i : w < 3 ? 9 + w : -1;
+  }
+  return col < 0 ? 0.0f : flat[k * cols + col];
+}
+
+// box_t over a row: t (+INF on miss), and for the manifold the slab whose
+// plane gives t, the sign of its q and whether it is the near plane
+__device__ __forceinline__ float box_t_row(V3 org, V3 dir, float cmin, float cmax, const float4* r,
+                                           int& slab, bool& pos, bool& near) {
+  float tnear = -INF, tfar = INF;
+  int i_near = 0, i_far = 0;
+  bool q_near = false, q_far = false;
+  const float4 hi = r[3];
+  const float dhis[3] = {hi.x, hi.y, hi.z};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float4 v = r[i];
+    const float dlo = v.w, dhi = dhis[i];
+    float q = dot(dir, V3{v.x, v.y, v.z});
+    float p = dot(org, V3{v.x, v.y, v.z});
+    bool par = fabsf(q) <= EPS_PAR;
+    float inv = 1.0f / (par ? 1.0f : q);
+    float t1 = (dlo - p) * inv;
+    float t2 = (dhi - p) * inv;
+    float tno = fminf(t1, t2);
+    float tfo = fmaxf(t1, t2);
+    if (par) {
+      bool inside = p >= dlo && p <= dhi;
+      tno = inside ? -INF : INF;
+      tfo = inside ? INF : -INF;
+    }
+    bool pos_q = q > 0.0f;
+    if (tno > tnear) {
+      tnear = tno;
+      i_near = i;
+      q_near = pos_q;
+    }
+    if (tfo < tfar) {
+      tfar = tfo;
+      i_far = i;
+      q_far = pos_q;
+    }
+  }
+  bool nonempty = tnear <= tfar;
+  bool near_ok = nonempty && tnear >= cmin && tnear <= cmax;
+  bool far_ok = nonempty && tfar >= cmin && tfar <= cmax;
+  near = near_ok;
+  slab = near_ok ? i_near : i_far;
+  pos = near_ok ? q_near : q_far;
+  return near_ok ? tnear : (far_ok ? tfar : INF);
+}
+
+// nearest_hit over the sweep rows in front of `tab`: spheres, rects, then
+// boxes, a later primitive winning only on a strictly smaller t
+__device__ __forceinline__ Hit nearest_hit_rows(const float* tab, int n_sph, int n_rct, int n_box,
+                                                float cmin, float cmax, V3 org, V3 dir) {
+  const float4* r = reinterpret_cast<const float4*>(tab - sweep_rows_floats(n_sph, n_rct, n_box));
+  float t_best = INF;
+  int kind = -1, win = 0;  // the winner: 0 sphere, 1 rect, 2 box, and its row
+  float c_p = 0.0f;
+  V3 c_zb = {0.0f, 0.0f, 0.0f};
+  int w_slab = 0;
+  bool w_pos = false, w_near = false;
+  for (int k = 0; k < n_sph; ++k, ++r) {
+    const float4 s = *r;
+    const float t = sphere_t(org, dir, cmin, cmax, V3{s.x, s.y, s.z}, s.w);
+    if (t < t_best) {
+      t_best = t;
+      kind = 0;
+      win = k;
+    }
+  }
+  for (int k = 0; k < n_rct; ++k, r += RCT_ROW / 4) {
+    const float4 a = r[0], b = r[1];
+    const V3 center = {a.x, a.y, a.z}, zb = {b.x, b.y, b.z};
+    // rect_t in its order, its division and containment test only where t
+    // may still win
+    const float q = dot(dir, zb);
+    const float p = dot(center - org, zb);
+    const bool may = fabsf(q) > EPS_PAR && quotient_may_win(p * rcp_approx(q), cmin, cmax, t_best);
+#ifdef BENDY_SWEEP_STATS
+    sweep_count(may);
+#endif
+    if (may) {
+      const float4 c = r[2], d = r[3];
+      const float t = p / q;
+      const V3 local = (org + dir * t) - center;
+      const float lx = dot(local, V3{c.x, c.y, c.z});
+      const float ly = dot(local, V3{d.x, d.y, d.z});
+      if (t >= cmin && t <= cmax && lx * lx <= a.w * a.w && ly * ly <= b.w * b.w && t < t_best) {
+        t_best = t;
+        kind = 1;
+        win = k;
+        c_p = p;
+      }
+    }
+  }
+  for (int k = 0; k < n_box; ++k, r += BOX_ROW / 4) {
+    int slab;
+    bool pos, near;
+    const float t = box_t_row(org, dir, cmin, cmax, r, slab, pos, near);
+    if (t < t_best) {
+      t_best = t;
+      kind = 2;
+      win = k;
+      w_slab = slab;
+      w_pos = pos;
+      w_near = near;
+    }
+  }
+  const float* row = nullptr;
+  if (kind == 0) row = tab + win * SPH_COLS;
+  if (kind == 1) {
+    row = tab + n_sph * SPH_COLS + win * RCT_COLS;
+    c_zb = ld3(row + 9);
+  }
+  if (kind == 2) {
+    // box_t's p_sign and zb_like from the winning slab's row fields
+    row = tab + n_sph * SPH_COLS + n_rct * RCT_COLS + win * BOX_COLS;
+    const float slo = row[15 + w_slab], shi = row[18 + w_slab];
+    c_p = w_near ? (w_pos ? slo : -shi) : (w_pos ? shi : -slo);
+    c_zb = (ld3(row + 3 * w_slab) * (w_pos ? -1.0f : 1.0f)) * (-c_p);
+  }
+  return hit_record<false>(tab, t_best, row, kind < 0 ? 0 : kind, c_p, c_zb, cmax, org, dir,
+                           false, -1);
+}
+
 // ---- the BVH walk (ops/bvh.py) -------------------------------------------
 //
 // The BVH instantiations (FLAG_BVH: the looped-sweep scenes, past
@@ -857,8 +1087,9 @@ struct BvhState<true> {
 // at t = cmax while the step's end point is still inside it; every volume
 // addition sits in an `if constexpr (VOL)` block, so the other
 // instantiations compile as before media existed. BVH: the walk instead
-// (nearest_hit_bvh), with the same winner.
-template <bool VOL, bool BVH = false>
+// (nearest_hit_bvh), with the same winner. ROWS: the sweep over the float4
+// rows (nearest_hit_rows), with the same winner.
+template <bool VOL, bool BVH = false, bool ROWS = false>
 __device__ __forceinline__ HitT<VOL> nearest_hit(const float* tab, int n_sph, int n_rct,
                                                  int n_box, float cmin, float cmax, V3 org,
                                                  V3 dir, bool march, int last_sph,
@@ -867,6 +1098,7 @@ __device__ __forceinline__ HitT<VOL> nearest_hit(const float* tab, int n_sph, in
     return nearest_hit_bvh<VOL>(tab, n_sph, n_rct, walk.bvh, walk.stack, cmin, cmax, org, dir,
                                 march, last_sph, walk.node_tests, walk.prim_tests);
   }
+  if constexpr (ROWS) return nearest_hit_rows(tab, n_sph, n_rct, n_box, cmin, cmax, org, dir);
   float t_best = INF;
   const float* win = nullptr;
   int kind = 0;  // 0 sphere, 1 rect, 2 box
@@ -1147,23 +1379,38 @@ constexpr bool PER_ITEM = GEO || (VOL && !BVH);
 // geodesics and media (96); at 128 threads a block 6 and 5 blocks. Where
 // BLOCK does not divide the count the blocks round down (256: 3 and 2, that
 // is 768 and 512 threads; 512: 1 and 1), so a budget is never tighter than
-// the 128-thread build's. Every other instantiation gets 0 and keeps
-// __launch_bounds__(BLOCK) alone: a minimum of 0 blocks emits none (a
-// minimum of 1 moves their registers).
-template <bool GEO, bool VOL, bool LOOPM, bool BVH>
+// the 128-thread build's. The surface instantiation of the main paths
+// (SWEEP_ROWS, FULL output) holds 1,024 threads an SM: 8 blocks of 128, 64
+// registers (ptxas spills 16 B), which ran cornell and cornell2 2 % faster
+// than its own 72 registers (7 blocks) and scene.json within its spread;
+// its AOV and GTAB siblings would spill 60-226 B under it (PERF.md §6).
+// Every other instantiation gets 0 and keeps __launch_bounds__(BLOCK)
+// alone: a minimum of 0 blocks emits none (a minimum of 1 moves their
+// registers).
+template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH>
 constexpr int MIN_BLOCKS =
-    !LOOPM && PER_ITEM<GEO, VOL, BVH> ? (GEO && VOL ? 640 : 768) / BLOCK : 0;
+    !LOOPM && PER_ITEM<GEO, VOL, BVH>           ? (GEO && VOL ? 640 : 768) / BLOCK
+    : !AOVS && SWEEP_ROWS<GEO, VOL, GTAB, BVH> ? 1024 / BLOCK
+                                               : 0;
 
 // The tracer: one thread per lane, or with PER_ITEM one per (lane, sample)
 // item.
 template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH STUB_PARAM>
-__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB, BVH>)
     trace_kernel(Params P) {
   constexpr bool SPLIT = PER_ITEM<GEO, VOL, BVH>;
   extern __shared__ __align__(16) float smem_tab[];  // float4 node loads (BVH)
   const float* tab = smem_tab;
   if constexpr (GTAB) {
     tab = P.table;  // past shared memory: read in place
+  } else if constexpr (SWEEP_ROWS<GEO, VOL, GTAB, BVH>) {
+    // the sweep rows, then the table
+    const int rows = sweep_rows_floats(P.n_sph, P.n_rct, P.n_box);
+    for (int i = threadIdx.x; i < rows; i += blockDim.x)
+      smem_tab[i] = sweep_row_word(P.table, P.n_sph, P.n_rct, i);
+    for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) smem_tab[rows + i] = P.table[i];
+    __syncthreads();
+    tab = smem_tab + rows;
   } else {
     for (int i = threadIdx.x; i < P.table_floats; i += blockDim.x) smem_tab[i] = P.table[i];
     __syncthreads();
@@ -1404,12 +1651,12 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<GEO, VOL, LOOPM, BVH>)
     if constexpr ((STUB & STUB_SWEEP) != 0) {
       h = stub_hit<VOL>(org, tdir);  // the sweep, or the BVH walk
     } else {
-      h = nearest_hit<VOL, BVH>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir, march,
-                                last_sph, walk);
+      h = nearest_hit<VOL, BVH, SWEEP_ROWS<GEO, VOL, GTAB, BVH>>(
+          tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir, march, last_sph, walk);
     }
 #else
-    HitT<VOL> h = nearest_hit<VOL, BVH>(tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir,
-                                        march, last_sph, walk);
+    HitT<VOL> h = nearest_hit<VOL, BVH, SWEEP_ROWS<GEO, VOL, GTAB, BVH>>(
+        tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir, march, last_sph, walk);
 #endif
     if (GEO && is_near) ++geo_steps;
     if constexpr (SPLIT) n_near += is_near;
@@ -1772,11 +2019,26 @@ auto instance(bool want_aovs, bool gtab) {
                            : trace_kernel<false, GEO, VOL, LOOPM, false, BVH>);
 }
 
-// the dynamic shared memory of a launch: the staged table (unless
-// FLAG_GTAB) and the BVH's walk stacks
-size_t dynamic_smem(const Params& P, bool bvh) {
-  return ((P.flags & FLAG_GTAB) ? 0 : (size_t)P.table_floats * sizeof(float)) +
+// the floats a launch stages unless FLAG_GTAB: its table and, for a
+// SWEEP_ROWS instantiation (`rows`), the sweep rows in front of it
+size_t staged_floats(const Params& P, bool rows) {
+  return (size_t)P.table_floats + (rows ? sweep_rows_floats(P.n_sph, P.n_rct, P.n_box) : 0);
+}
+
+// the dynamic shared memory of a launch: what it stages (unless FLAG_GTAB)
+// and the BVH's walk stacks
+size_t dynamic_smem(const Params& P, bool bvh, bool rows) {
+  return ((P.flags & FLAG_GTAB) ? 0 : sizeof(float) * staged_floats(P, rows)) +
          (bvh ? BVH_STACK_BYTES : 0);
+}
+
+// the register budget (MIN_BLOCKS) of the instance<GEO, VOL>(aovs, gtab) runs
+template <bool GEO, bool VOL>
+int min_blocks(bool aovs, bool gtab) {
+  return gtab ? (aovs ? MIN_BLOCKS<true, GEO, VOL, false, true, false>
+                      : MIN_BLOCKS<false, GEO, VOL, false, true, false>)
+              : (aovs ? MIN_BLOCKS<true, GEO, VOL, false, false, false>
+                      : MIN_BLOCKS<false, GEO, VOL, false, false, false>);
 }
 
 // launch `kernel` over `items` threads with `smem` bytes of dynamic shared
@@ -1794,7 +2056,8 @@ int launch_kernel(void (*kernel)(Params), int items, size_t smem, const Params& 
 template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
   return launch_kernel(instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0),
-                       PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n, dynamic_smem(P, BVH), P, s);
+                       PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n,
+                       dynamic_smem(P, BVH, SWEEP_ROWS<GEO, VOL, false, BVH>), P, s);
 }
 
 // the phase stubs' mask rides in a launch's flags above the FLAG_* bits; the
@@ -1828,8 +2091,8 @@ int launch_stub(const Params& P, int mask, cudaStream_t s) {
   } else {
     if (mask != STUB_MASKS[I]) return launch_stub<VOL, BVH, I + 1>(P, mask, s);
     return launch_kernel(trace_kernel<false, false, VOL, false, false, BVH, STUB_MASKS[I]>,
-                         PER_ITEM<false, VOL, BVH> ? P.n * P.spp : P.n, dynamic_smem(P, BVH),
-                         P, s);
+                         PER_ITEM<false, VOL, BVH> ? P.n * P.spp : P.n,
+                         dynamic_smem(P, BVH, SWEEP_ROWS<false, VOL, false, BVH>), P, s);
   }
 }
 #endif
@@ -2039,23 +2302,42 @@ int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_
   return (int)cudaGetLastError();
 }
 
+// The floats that a launch of bendy_trace_surface (neither FLAG_GEO nor
+// `volumes`), bendy_trace_geodesic (FLAG_GEO without `volumes`) or
+// bendy_trace_volume (`volumes`) with a table of `table_floats` and these
+// primitive counts stages in shared memory unless FLAG_GTAB: the table and,
+// for a surface launch without FLAG_BVH, the sweep rows. The wrapper's
+// choice of FLAG_GTAB reads it.
+int bendy_staged_floats(int flags, int volumes, int table_floats, int n_sph, int n_rct,
+                        int n_box) {
+  Params P = {};
+  P.table_floats = table_floats;
+  P.n_sph = n_sph;
+  P.n_rct = n_rct;
+  P.n_box = n_box;
+  return (int)staged_floats(P, !volumes && !(flags & (FLAG_GEO | FLAG_BVH)));
+}
+
 // The instantiation without LOOPM or the BVH that a launch of
-// bendy_trace_surface (neither FLAG_GEO nor `volumes`: the surface one, one
-// thread per lane), bendy_trace_geodesic (FLAG_GEO without `volumes`) or
-// bendy_trace_volume (`volumes`, with or without FLAG_GEO; these two the
-// item instantiations) with a table of `table_floats` (staged unless
-// FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its register budget
-// asks for (__launch_bounds__; 0: none), the blocks one SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of the
-// current device. Returns a CUDA error code. Not in the stub build.
+// bendy_trace_surface (the surface one, one thread per lane),
+// bendy_trace_geodesic or bendy_trace_volume (these two the item
+// instantiations) with a table of `table_floats` and these primitive counts
+// (staged unless FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its
+// register budget asks for (__launch_bounds__; 0: none), the blocks one SM
+// holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of
+// the current device. Returns a CUDA error code. Not in the stub build.
 #ifndef BENDY_PHASE_STUBS
-int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats, void* out) {
+int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats, int n_sph,
+                         int n_rct, int n_box, void* out) {
   const bool geo = (flags & FLAG_GEO) != 0, aovs = want_aovs != 0, gtab = (flags & FLAG_GTAB) != 0;
   if (out == nullptr || table_floats < 0) return (int)cudaErrorInvalidValue;
   Params P = {};
   P.flags = flags;
   P.table_floats = table_floats;
-  const size_t smem = dynamic_smem(P, false);
+  P.n_sph = n_sph;
+  P.n_rct = n_rct;
+  P.n_box = n_box;
+  const size_t smem = dynamic_smem(P, false, !geo && !volumes);
   void (*kernel)(Params) = volumes ? (geo ? instance<true, true>(aovs, gtab)
                                           : instance<false, true>(aovs, gtab))
                                    : (geo ? instance<true, false>(aovs, gtab)
@@ -2063,14 +2345,23 @@ int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int* o = static_cast<int*>(out);
-  o[0] = volumes ? (geo ? MIN_BLOCKS<true, true, false, false>
-                        : MIN_BLOCKS<false, true, false, false>)
-                 : (geo ? MIN_BLOCKS<true, false, false, false>
-                        : MIN_BLOCKS<false, false, false, false>);
+  o[0] = volumes ? (geo ? min_blocks<true, true>(aovs, gtab) : min_blocks<false, true>(aovs, gtab))
+                 : (geo ? min_blocks<true, false>(aovs, gtab) : min_blocks<false, false>(aovs, gtab));
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], kernel, BLOCK, smem);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&o[2], cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
+}
+#endif
+
+#ifdef BENDY_SWEEP_STATS
+// Copy the measuring build's sweep counts (3 uint64: rect tests, lane
+// skips, warp skips) to host `out` and zero them.
+int bendy_sweep_stats(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, sweep_stats, sizeof(sweep_stats));
+  static const unsigned long long zero[3] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(sweep_stats, zero, sizeof(zero));
   return (int)e;
 }
 #endif

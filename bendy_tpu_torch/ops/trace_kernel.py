@@ -273,6 +273,24 @@ def table_in_global(nbytes: int, bvh: bool = False) -> bool:
     return nbytes + (bvh_stack_bytes() if bvh else 0) > MAX_TABLE_BYTES
 
 
+def staged_floats(lib, cfg: TraceConfig, table_floats: int, counts: dict) -> int:
+    """The floats that a launch of ``cfg`` with a table of ``table_floats``
+    and the ``counts`` of :func:`tracer_table` stages in shared memory
+    unless its table stays in global memory, as the library ``lib`` counts
+    them (``bendy_staged_floats``): the table and, for a surface launch
+    without the BVH, the sweep rows that the kernel builds in front of it."""
+    flags = _flags(cfg) | (FLAG_BVH if counts.get("bvh0", -1) >= 0 else 0)
+    return lib.bendy_staged_floats(flags, int(cfg.has_volumes), table_floats,
+                                   *(counts.get(k, 0) for k in ("n_sph", "n_rct", "n_box")))
+
+
+def stays_in_global(lib, cfg: TraceConfig, table_floats: int, counts: dict) -> bool:
+    """Whether that launch keeps its table in global memory (the GTAB
+    instantiations): :func:`table_in_global` of what it would stage."""
+    return table_in_global(4 * staged_floats(lib, cfg, table_floats, counts),
+                           counts.get("bvh0", -1) >= 0)
+
+
 def bvh_stack_bytes() -> int:
     """A BVH launch's walk stacks: uint16 node indices, ``BVH_STACK`` per
     thread of a block of the build's ``_build.TRACE_BLOCK`` threads, in
@@ -340,7 +358,7 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
     if B == 0:
         return out, rays, iters
     lib, stub = _build.tracer()
-    flags = (_flags(cfg) | (FLAG_GTAB if table_in_global(table.numel() * 4, bvh0 >= 0) else 0)
+    flags = (_flags(cfg) | (FLAG_GTAB if stays_in_global(lib, cfg, table.numel(), counts) else 0)
              | (FLAG_BVH if bvh0 >= 0 else 0) | stub)
     rc = getattr(lib, entry)(
         table.data_ptr(), table.numel(), cam_packed.data_ptr(), pix.data_ptr(),
@@ -434,19 +452,24 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
     return out, rays, iters
 
 
-def item_occupancy(cfg: TraceConfig, table_floats: int) -> tuple[int, int, int]:
+def item_occupancy(cfg: TraceConfig, table_floats: int,
+                   counts: dict | None = None) -> tuple[int, int, int]:
     """(blocks per SM its register budget asks for, 0 for none, blocks one
     SM holds, SMs) of the instantiation without looped masses or the BVH
-    that a launch of ``cfg`` with a table of ``table_floats`` runs on the
+    that a launch of ``cfg`` with a table of ``table_floats`` and the
+    primitive ``counts`` of :func:`scene_table` (default none) runs on the
     current card: the item instantiation of geodesics or media, or the
     surface one, one thread per lane; blocks of the build's
     ``_build.TRACE_BLOCK`` threads (the last two give the warps per SM)."""
     from bendy_tpu_torch import _build
 
+    lib = _build.library()
     out = (ctypes.c_int * 3)()
-    flags = _flags(cfg) | (FLAG_GTAB if table_in_global(table_floats * 4) else 0)
-    rc = _build.library().bendy_item_occupancy(flags, int(cfg.has_volumes), int(cfg.want_aovs),
-                                               table_floats, ctypes.addressof(out))
+    counts = counts or {}
+    flags = _flags(cfg) | (FLAG_GTAB if stays_in_global(lib, cfg, table_floats, counts) else 0)
+    rc = lib.bendy_item_occupancy(flags, int(cfg.has_volumes), int(cfg.want_aovs), table_floats,
+                                  *(counts.get(k, 0) for k in ("n_sph", "n_rct", "n_box")),
+                                  ctypes.addressof(out))
     _check_launch("bendy_item_occupancy", torch.device("cuda"), rc)
     return tuple(out)
 

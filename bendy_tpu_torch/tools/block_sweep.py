@@ -54,15 +54,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def instantiation(cfg, table_floats: int, bvh: bool) -> str:
+def instantiation(cfg, table_floats: int, counts: dict) -> str:
     """The ptxas label (``_build.trace_label``) of the tracer instantiation
-    a FULL-output launch of ``cfg`` runs."""
-    from bendy_tpu_torch._build import trace_label
-    from bendy_tpu_torch.ops.trace_kernel import table_in_global
+    a FULL-output launch of ``cfg`` with a table of ``tracer_table`` (its
+    size and counts) runs."""
+    from bendy_tpu_torch import _build
+    from bendy_tpu_torch.ops.trace_kernel import stays_in_global
 
     loopm = cfg.geodesic and cfg.looped_masses
-    return trace_label(0, int(cfg.geodesic), int(cfg.has_volumes), int(loopm),
-                       int(table_in_global(table_floats * 4, bvh)), int(bvh))
+    gtab = stays_in_global(_build.library(), cfg, table_floats, counts)
+    return _build.trace_label(0, int(cfg.geodesic), int(cfg.has_volumes), int(loopm), int(gtab),
+                              int("bvh0" in counts))
 
 
 def sweep_one(name: str, threads: int, tile: bool, res: int, spp: int, repeats: int,
@@ -75,8 +77,7 @@ def sweep_one(name: str, threads: int, tile: bool, res: int, spp: int, repeats: 
 
     from bendy_tpu_torch import _build
     from bendy_tpu_torch.bench import OCCUPANCY_SEED
-    from bendy_tpu_torch.ops.trace_kernel import (make_render_pass, make_tracer, tracer_table,
-                                                  walks_bvh)
+    from bendy_tpu_torch.ops.trace_kernel import make_render_pass, make_tracer, tracer_table
     from bendy_tpu_torch.tools import cuda_ms_median, rays_per_warp_issue_slot
     from bendy_tpu_torch.tools.perf_report import scene_config, scene_renderer, thread_counts
 
@@ -112,8 +113,8 @@ def sweep_one(name: str, threads: int, tile: bool, res: int, spp: int, repeats: 
         t_rays, t_iters = thread_counts(res_occ, pix.numel(), spp, cfg)
         n = t_iters.numel() // threads * threads
         blocks = t_iters[:n].view(-1, threads).max(dim=1).values.double()
-        bvh = walks_bvh(r.arrays, cfg)
-        label = instantiation(cfg, tracer_table(r.arrays.host_copy(), cfg)[0].size, bvh)
+        table, counts = tracer_table(r.arrays.host_copy(), cfg)
+        label = instantiation(cfg, table.size, counts)
         ptxas = [ln for ln in _build.ptxas_report(_build.build_log()) if ln.startswith(label + ":")]
     return {
         "scene": name, "threads": threads, "tile": tile, "width": W, "height": H, "spp": spp,

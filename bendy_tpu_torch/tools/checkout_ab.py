@@ -15,15 +15,17 @@ then ``main_path`` (in FULL output only: its film check reads radiance),
 three times the host ms and the wall of 4 chained ``Renderer.render``
 calls (the host time before one synchronize, and the wall with it, over
 4; through the Renderer API alone, so every checkout is timed by the same
-code) and ``kernel_alone_and_passes`` of each phase asked for (its kernel and
-plain passes at no more than 4 spp), with the scene's ``Output`` from
-``--output``, the phase's scene replaced by ``--scene`` (scenes/NAME.json.gz
-at the phase's size and Config) and module settings of ``ops/trace_kernel``
-from ``--set``. With ``--module`` each run is ``python3 -m MODULE ARGS``
+code), the digest of that film and its rays (seeds 0-2, so that checkouts
+compare bit for bit) and ``kernel_alone_and_passes`` of each phase asked
+for (its kernel and plain passes at no more than 4 spp), with the scene's
+``Output`` from ``--output``, the phase's scene replaced by ``--scene``
+(scenes/NAME.json.gz at the phase's size and Config) and module settings
+of ``ops/trace_kernel`` from ``--set``. With ``--module`` each run is ``python3 -m MODULE ARGS``
 instead, and each entry of the JSON line it prints last that has an
 ``ms`` is printed (its ms, share of peak, SM clock and ``library_ms``).
 Each run's output goes to ``OUT/<index>_<dir>.txt``; the kernel-alone
-lines, the main-path lines and the host-time lines are printed. Needs one
+lines, the main-path lines, the host-time lines and the film digests are
+printed. Needs one
 card; a run that fails stops the rest.
 """
 
@@ -38,7 +40,7 @@ import time
 from pathlib import Path
 
 RUN = """
-import os, sys, time, torch
+import hashlib, os, sys, time, torch
 import chip_smoke as c
 from bendy_tpu_torch import Config, DeviceFilm, Output, RenderConfig, Subsample, _build
 from bendy_tpu_torch.ops import trace_kernel
@@ -56,6 +58,7 @@ for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, _) in c.MAIN_PATHS:
         if output == "full":
             path = c.main_path(phase, name, config, W, H, spp, n, dev, launch)
             rc, film = RenderConfig(samples=spp, subsample=Subsample(n)), DeviceFilm(W, H, device=dev)
+            rays0 = path["r"].rays_traced
             for rep in range(3):  # the Renderer API alone, so every checkout is timed alike
                 path["r"].render(path["cam"], rc, film, seed=rep)
                 film.synchronize()
@@ -67,6 +70,10 @@ for (phase, name, kw, W, H, spp, n, wrapper, pass_spp, rows, _) in c.MAIN_PATHS:
                 wall = time.perf_counter() - t0
                 print(f"phase {{phase}}: {{name}} host ms per pass {{host / 4 * 1e3:.3f}}, pass "
                       f"wall {{wall / 4 * 1e3:.3f}} ms (4 render calls, then one synchronize)")
+            digest = hashlib.sha256(film.sum.cpu().numpy().tobytes()).hexdigest()[:16]
+            rays = path["r"].rays_traced - rays0
+            print(f"phase {{phase}}: {{name}} film digest {{digest}}, {{rays}} rays "
+                  f"({{film.passes}} passes at seeds 0-2)")
         else:  # main_path's film check reads radiance: the kernel alone only
             r, cam = c.renderer(name, config, W, H, dev)
             r.camera_params(cam)
@@ -124,7 +131,8 @@ def main(argv=None) -> int:
         print(f"run {i} {label} ({time.perf_counter() - t0:.0f} s, exit {proc.returncode}):",
               flush=True)
         for ln in text.splitlines():
-            if any(k in ln for k in ("alone median", "FAIL", "main path", "host ms per pass")):
+            if any(k in ln for k in ("alone median", "FAIL", "main path", "host ms per pass",
+                                     "film digest")):
                 print(f"  {ln}", flush=True)
         if args.module and proc.returncode == 0:
             for key, m in json.loads(proc.stdout.strip().splitlines()[-1]).items():

@@ -17,7 +17,12 @@ Phases, one line each (any failure exits non-zero):
      each tile of the wgmma dot chain, and ptxas's warnings on wgmma, if
      any) and of the pass's accumulate kernel (csrc/accumulate.cu); then
      each item instantiation's register budget (minBlocks) and the blocks
-     of 128 an SM holds, and the surface instantiation's (no budget),
+     of 128 an SM holds, and the surface instantiations'; then the SASS
+     of the surface sweep per loop iteration (tools/sweep_sass.py, from a
+     -lineinfo build of trace_surface.cu started beside the default one,
+     held to the library's instructions): shared loads by width, FFMA,
+     FMUL, FADD, FSETP, FSEL, FMNMX, MUFU, CALL, BSSY/BSYNC and branches
+     of the sphere, rect and box loops and of light_pdf's face loop,
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output, with the table in
@@ -187,6 +192,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 
 from bendy_tpu_torch._build import ptxas_report, trace_label
 from bendy_tpu_torch.tools import (card, cuda_ms, cuda_ms_median, graph_ms,
@@ -210,6 +216,13 @@ PEAK_F32_S = 67e12
 # primitive kind, and per mass the capture/far/h² sweep that every
 # geodesic segment runs.
 SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
+# A rect of the row sweep (nearest_hit_rows: the surface launches without
+# the BVH, their table staged) first tests whether its t may still win: q 5,
+# p 8, the approximate reciprocal and the quotient 2, the margin 2 and a ± m
+# 2 (compares are not counted, as in the three above). Only the rects that
+# pass divide and test containment, and no counter of the default build
+# says how many, so the bound counts this test alone for each rect: a floor.
+RECT_REJECT_OPS = 19
 # FP32 operations of the cheapest scattering material's shading, metallic,
 # counted from csrc/trace_surface.cu: the four uniforms' scaling 4,
 # unit_hemisphere 61 (sin_cos_tau 27, the radius 4, frame 13, the sum 17,
@@ -262,8 +275,9 @@ def item_budgets() -> str:
     """Phase 2: each item instantiation's register budget (the blocks per
     SM its __launch_bounds__ asks for) and the blocks one SM holds, with a
     4 KiB table in shared memory and with the table in global memory
-    (GTAB); the same of the surface instantiation (no budget: minBlocks
-    0)."""
+    (GTAB); the same of the surface instantiations (a budget of 1,024
+    threads an SM in FULL output with the table staged, none with AOVs or
+    GTAB: minBlocks 0)."""
     from bendy_tpu_torch._build import TRACE_BLOCK
     from bendy_tpu_torch.ops.trace_kernel import MAX_TABLE_BYTES, item_occupancy
     from bendy_tpu_torch.ops.wavefront import TraceConfig
@@ -283,7 +297,7 @@ def item_budgets() -> str:
 
 def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int, samples: int,
                 vol_events: int = 0, grid_floats: int = 0, rk4_steps: int = 0,
-                sweep: bool = False) -> tuple[float, str]:
+                sweep: bool = False, rows: bool = False) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for one
     tracer launch of ``samples`` paths (lanes x spp): each input read once
     (lanes, camera, scene table, density grids), each output written once
@@ -295,11 +309,13 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int, sam
     (the sweep), except on a table with a BVH, where it counts one test of
     the cheapest kind the scene has: the least any nearest-hit search must
     do, whatever implements it (``sweep`` counts the sweep there too: the
-    sweep floor, printed beside it)."""
+    sweep floor, printed beside it). ``rows``: the launch sweeps the float4
+    rows (:func:`sweeps_rows`), where a rect counts ``RECT_REJECT_OPS``."""
     n_out = 10 if cfg.want_aovs else 3
     n_counts = 2 + cfg.has_volumes + cfg.geodesic
     nbytes = lanes * (8 + 4 * n_out + 4 * n_counts) + 4 * (table_floats + 32 + grid_floats)
-    kinds = [(SPHERE_OPS, counts["n_sph"]), (RECT_OPS, counts["n_rct"]), (BOX_OPS, counts["n_box"])]
+    kinds = [(SPHERE_OPS, counts["n_sph"]), (RECT_REJECT_OPS if rows else RECT_OPS,
+                                             counts["n_rct"]), (BOX_OPS, counts["n_box"])]
     if "bvh0" in counts and not sweep:
         per_ray = min((ops for ops, n in kinds if n), default=0)
     else:
@@ -316,6 +332,18 @@ def trace_bound(counts: dict, table_floats: int, cfg, rays: int, lanes: int, sam
     t_ops = (rays * per_ray + vol_events * DENSITY_OPS + rk4_ops + scatters * SCATTER_OPS
              ) / PEAK_F32_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sweeps_rows(cfg, table_floats: int, counts: dict) -> bool:
+    """Whether a launch of ``cfg`` with this table sweeps the float4 rows
+    (csrc/trace_surface.cu SWEEP_ROWS): the library stages rows for it and
+    its table is staged."""
+    from bendy_tpu_torch import _build
+    from bendy_tpu_torch.ops import trace_kernel
+
+    lib = _build.library()
+    return (trace_kernel.staged_floats(lib, cfg, table_floats, counts) > table_floats
+            and not trace_kernel.stays_in_global(lib, cfg, table_floats, counts))
 
 
 def warp_stats(rays, iters, what: str = "lane") -> str:
@@ -664,6 +692,7 @@ def sweep_past_the_walk(dev) -> float:
     largest |diff|."""
     import torch
 
+    from bendy_tpu_torch import _build
     from bendy_tpu_torch.ops import trace_kernel
     from bendy_tpu_torch.ops.trace_kernel import make_tracer, tracer_table, unpack_camera
     from bendy_tpu_torch.ops.wavefront import trace_core
@@ -685,7 +714,7 @@ def sweep_past_the_walk(dev) -> float:
     kern = make_tracer(arrays, W, H, 1, 1, cfg)(cam_packed, seed, 0, pix, sub)
     torch.cuda.synchronize()
     launches = trace_kernel.trace_surface.launches - before
-    gtab = trace_kernel.table_in_global(table_np.nbytes)
+    gtab = trace_kernel.stays_in_global(_build.library(), cfg, table_np.size, counts)
     print(f"phase 3: {SPHERE_FIELD} spheres: node block {'bvh0' in counts}, table "
           f"{table_np.nbytes} B in {'global' if gtab else 'shared'} memory (routed in "
           f"{table_s:.2f} s), trace_surface launches {launches}")
@@ -705,7 +734,7 @@ def kernel_vs_plain(dev, names=None) -> dict:
 
     from dataclasses import replace
 
-    from bendy_tpu_torch import Output
+    from bendy_tpu_torch import Output, _build
     from bendy_tpu_torch.ops import trace_kernel
     from bendy_tpu_torch.ops.trace_kernel import (make_tracer, over_cap_lanes, per_item,
                                                   split_samples)
@@ -737,7 +766,8 @@ def kernel_vs_plain(dev, names=None) -> dict:
                         count_steps=cfg_k.geodesic)
                     torch.cuda.synchronize()
                     over = int(over_cap_lanes(dev))
-                    gtab = trace_kernel.table_in_global(table_np.nbytes, bvh)
+                    gtab = trace_kernel.stays_in_global(_build.library(), cfg_k, table_np.size,
+                                                        counts)
                     chunks = -(-spp // split_samples(W * H, spp, 10 if cfg.want_aovs else 3))
                 loops = [f for f in ("looped_sweep", "looped_lights", "looped_masses")
                          if getattr(cfg_k, f)]
@@ -966,8 +996,9 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     n_rk4 = int(item_counts[3].sum(dtype=torch.int64)) if cfg.geodesic else 0
     bound_args = (counts, table.numel(), cfg, n_rays, pix.numel(), pix.numel() * spp, n_vol,
                   0 if grid is None else grid.numel(), n_rk4)
-    bound_ms, bound_by = trace_bound(*bound_args)
-    sweep_ms, _ = trace_bound(*bound_args, sweep=True)
+    rows = sweeps_rows(cfg, table.numel(), counts)
+    bound_ms, bound_by = trace_bound(*bound_args, rows=rows)
+    sweep_ms, _ = trace_bound(*bound_args, sweep=True, rows=rows)
     kernel_ms, kernel_lo, kernel_hi = (t / chunks for t in (call_ms, call_lo, call_hi))
     march = f", march share {n_vol / n_rays:.4f} ({n_vol} volume events)" if grid is not None else ""
     rk4 = f", {n_rk4} RK4 steps ({n_rk4 / n_rays:.4f} per ray)" if cfg.geodesic else ""
@@ -982,7 +1013,7 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
           f"{block_tail(iters):.3f}{march}{rk4}; SM clock, power after it {clock}")
     bound_ms /= chunks
     if not items and not bvh:  # the surface lane loop: its waves, warps per SM, ptxas lines
-        min_blocks, per_sm, sms = item_occupancy(cfg, table.numel())
+        min_blocks, per_sm, sms = item_occupancy(cfg, table.numel(), counts)
         blocks = -(-pix.numel() // _build.TRACE_BLOCK)
         print(f"phase {phase}: one thread per lane: {blocks} blocks of {_build.TRACE_BLOCK}, "
               f"{per_sm} per SM ({per_sm * _build.TRACE_BLOCK // 32} warps) x {sms} SMs, "
@@ -1300,7 +1331,8 @@ def sharded_pass(dev) -> dict:
         clock = sm_clock()
         table_np, counts = scene_table(r.arrays.host_copy())
         bound_ms, bound_by = trace_bound(counts, table_np.size, cfg, int(k_rays), W * H * n * n,
-                                         W * H * n * n * spp)
+                                         W * H * n * n * spp,
+                                         rows=sweeps_rows(cfg, table_np.size, counts))
         pass_spp = 4
         fn4 = make_kernel_pass_sharded(r.arrays, mesh, W, H, pass_spp, n, cfg, "full")
         k4, k4_rays = fn4(r._cam_packed, seed, 0)
@@ -1456,53 +1488,33 @@ def cli_on_card(dev) -> None:
 SASS_DOT_OPS = ("HGMMA", "F2FP", "FADD", "LDS", "LDG")
 
 
-def sass_loop(lines: list[str]) -> list[str]:
-    """The innermost loop of a function's SASS that holds an HGMMA: the
-    lines from a backward branch's target to the branch (targets as
-    ``.L_x_N`` labels or as addresses), or [] where there is none."""
-    at = {}
-    for i, ln in enumerate(lines):
-        m = re.match(r"\s*(\.L_x_\d+):", ln) or re.match(r"\s*/\*([0-9a-f]{4,})\*/", ln)
-        if m:
-            at.setdefault(m.group(1).lstrip("0") or "0", i)
-    spans = []
-    for i, ln in enumerate(lines):
-        m = re.search(r"\bBRA\b.*?(?:\(?(\.L_x_\d+)\)?|0x([0-9a-f]+))", ln)
-        if m:
-            start = at.get(m.group(1) or (m.group(2).lstrip("0") or "0"))
-            if start is not None and start < i:
-                spans.append(lines[start:i + 1])
-    spans = [sp for sp in spans if any("HGMMA" in ln for ln in sp)]
-    return min(spans, key=len) if spans else []
-
-
 def sass_counts() -> dict:
     """FFMA / FADD counts in the SASS of the two FP32-chain instantiations,
     and for each dot-chain instantiation the HGMMA, F2FP, FADD, LDS and LDG
-    of its loop and the HGMMA of the whole function (cuobjdump), or {}
-    where the toolkit has no cuobjdump."""
-    import shutil
-
+    of its innermost loop that holds an HGMMA and the HGMMA of the whole
+    function (``cuobjdump -sass`` of the library, read by
+    tools/sweep_sass.py's listing parser)."""
     from bendy_tpu_torch import _build
+    from bendy_tpu_torch.tools import sweep_sass
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return {}
-    sass = subprocess.run([tool, "-sass", str(_build.build()[0])], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
+    def ops(texts) -> Counter:
+        return Counter(sweep_sass.opcode(t).split(".")[0] for t in texts)
+
     out = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split("\n", 1)[0].strip()
+    listing = sweep_sass.library_listing(_build.build()[0])
+    for name, text in sweep_sass.functions(listing).items():
+        ins, labels = sweep_sass.instructions(text)
+        every = ops(t for _, t in ins)
         for tag, label in (("fp32_chain_kernelILb1E", "fma"), ("fp32_chain_kernelILb0E", "nofma")):
             if tag in name:
-                out[label] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ("FFMA", "FADD")}
+                out[label] = {op: every[op] for op in ("FFMA", "FADD")}
         d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
         if d:
-            loop = sass_loop(chunk.splitlines())
-            counts = {op: sum(bool(re.search(rf"\b{op}\b", ln)) for ln in loop)
-                      for op in SASS_DOT_OPS}
-            counts.update(loop_lines=len(loop),
-                          function_HGMMA=len(re.findall(r"\bHGMMA\b", chunk)))
+            bodies = [[ins[i][1] for i in idx] for idx, _ in sweep_sass.loops(ins, labels)]
+            bodies = [b for b in bodies if ops(b)["HGMMA"]]
+            loop = min(bodies, key=len) if bodies else []
+            counts = {op: ops(loop)[op] for op in SASS_DOT_OPS}
+            counts.update(loop_instructions=len(loop), function_HGMMA=every["HGMMA"])
             out[f"dot BN={d.group(1)} KS={d.group(2)}"] = counts
     return out
 
@@ -1519,15 +1531,16 @@ def probes(dev) -> list:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain dot in full f32
     counts = sass_counts()
     print(f"phase 15: SASS of the FP32 chains: "
-          f"{ {k: v for k, v in counts.items() if k in ('fma', 'nofma')} or 'not read'}")
+          f"{ {k: v for k, v in counts.items() if k in ('fma', 'nofma')} }")
     print(f"phase 15: SASS of the dot chain's loop (2 iterations, unrolled; {SASS_DOT_OPS}): "
-          f"{ {k: v for k, v in counts.items() if k.startswith('dot')} or 'not read'}")
-    if counts and (counts.get("fma", {}).get("FFMA", 0) < 32
-                   or counts.get("nofma", {}).get("FADD", 0) < 64):
+          f"{ {k: v for k, v in counts.items() if k.startswith('dot')} }")
+    if (counts.get("fma", {}).get("FFMA", 0) < 32
+            or counts.get("nofma", {}).get("FADD", 0) < 64):
         fail("the FP32 chain's loop does not hold the FFMA / FADD it should")
-    if counts and not all(v["function_HGMMA"] for k, v in counts.items() if k.startswith("dot")):
-        fail("a dot-chain instantiation holds no HGMMA")
-    if counts and not any(k.startswith("dot") for k in counts):
+    if not all(v["function_HGMMA"] and v["HGMMA"] for k, v in counts.items()
+               if k.startswith("dot")):
+        fail("a dot-chain instantiation holds no HGMMA, or no loop that holds one")
+    if not any(k.startswith("dot") for k in counts):
         fail("no dot-chain instantiation in the SASS")
     plain_iters = 16
     x = vpu.probe_input(vpu.ROWS, dev)
@@ -2044,21 +2057,28 @@ def run(phases=None, phase3_names=None) -> int:
 
     from bendy_tpu_torch import Config, _build
     from bendy_tpu_torch.ops import trace_kernel
+    from bendy_tpu_torch.tools import sweep_sass
 
+    # builds beside the default one: the sweep's lineinfo build, phase 18's and 19's
     sweep_builds, stub_build = [], None
-    if phases is None or {18, 19} & set(phases):  # their builds start beside the default
-        pool = ThreadPoolExecutor()
-        if phases is None or 18 in phases:
-            sweep_builds = [pool.submit(_build.build, t) for t in SWEEP_THREADS
-                            if t != _build.TRACE_BLOCK]
-        if phases is None or 19 in phases:
-            stub_build = pool.submit(_build.build, None, True)
-        pool.shutdown(wait=False)
+    pool = ThreadPoolExecutor()
+    listing = pool.submit(sweep_sass.lineinfo_listing)
+    if phases is None or 18 in phases:
+        sweep_builds = [pool.submit(_build.build, t) for t in SWEEP_THREADS
+                        if t != _build.TRACE_BLOCK]
+    if phases is None or 19 in phases:
+        stub_build = pool.submit(_build.build, None, True)
+    pool.shutdown(wait=False)
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
           + " | ".join(ptxas_report(_build.build_log())))
     print(f"phase 2: ptxas on wgmma: {wgmma_warnings(_build.build_log()) or 'no warning'}")
     print(f"phase 2: the item instantiations' register budgets: {item_budgets()}")
+    sweep = sweep_sass.sass_counts(lib=lib_path, listing=listing.result())
+    print(f"phase 2: SASS of the surface sweep per loop iteration "
+          f"({sweep['instantiation']}; tools/sweep_sass.py): {json.dumps(sweep['loops'])}")
+    if not sweep["lineinfo_matches_library"]:
+        fail("the sweep's lineinfo build does not hold the library's instructions")
 
     err16 = {}
     if phases is None or 3 in phases:
@@ -2105,6 +2125,8 @@ def run(phases=None, phase3_names=None) -> int:
                                node_tests_per_segment=k["tests"][0],
                                prim_tests_per_segment=k["tests"][1],
                                bvh_table_build_ms=k["table_ms"])
+        if name == "cornell":
+            kernels[-1]["sweep_sass_per_iteration"] = sweep["loops"]
         kernels[-1].update(host_ms_per_pass=path["host_s"] / 4 * 1e3,
                            pass_wall_minus_kernel_ms=k["glue_ms"],
                            rays_per_warp_issue_slot=k["occupancy"])
