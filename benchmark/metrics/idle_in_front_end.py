@@ -1,0 +1,12 @@
+"""The share of the traced window, in %, spent in device idle gaps that
+begin while the host is in a Renderer.render call's self time (its
+``render`` span outside its ``glue.*`` children), the program's spans
+placed pass by pass inside the benchmark's ``bench.render`` ranges
+(benchmark/program_spans.py)."""
+
+from benchmark import program_spans
+
+
+def read(r):
+    split = program_spans.idle_split(r.trace, program_spans.recorded())
+    return None if split is None else split["front end"]

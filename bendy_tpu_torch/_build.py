@@ -211,13 +211,16 @@ def tracer() -> tuple[ctypes.CDLL, int]:
 
 @functools.cache
 def _library(block: int, stubs: bool = False) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build(block, stubs)[0]))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        if stubs and name not in STUB_ENTRIES:
-            continue
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
+    from bendy_tpu_torch import telemetry
+
+    with telemetry.one_off("kernel.library"):
+        lib = ctypes.CDLL(str(_build(block, stubs)[0]))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            if stubs and name not in STUB_ENTRIES:
+                continue
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
     return lib
 
 

@@ -19,7 +19,9 @@ live preview and its control endpoints, ``--mesh``.
 Differences from ``bendy_tpu.cli``:
 - ``--device {cuda,cpu}`` (default cuda): where the render runs; without a
   card the default raises, nothing falls back to the CPU;
-- ``--profile DIR`` writes a ``torch.profiler`` trace (chrome JSON);
+- ``--profile DIR`` writes a ``torch.profiler`` trace (chrome JSON) with
+  the program's own spans in it (``bendy.render``, ``bendy.glue.*``, ...;
+  ``bendy_tpu_torch/telemetry.py``), which the profiler switches on;
 - ``--debug-nans`` raises ``FloatingPointError`` naming the first pass whose
   sums hold a NaN (one sync per pass, only under the flag);
 - no ``--compile-cache``: the kernels build once per checkout into
@@ -39,6 +41,7 @@ render the same image. Rank 0 writes the PNG and the telemetry line.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import sys
@@ -47,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.film import DeviceFilm, Film
 from bendy_tpu_torch.render import Config, Output, Renderer, RenderConfig, Subsample
 from bendy_tpu_torch.scene.graph import Scene, Update, UpdateQueue, affine_look_at
@@ -206,6 +210,7 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
+        telemetry.clear()  # a fresh record: the session's first render anchors the clock
         profiler.start()
 
     start = time.time()
@@ -225,8 +230,7 @@ def main(argv=None) -> int:
         if server is not None:
             # rays_traced fetches the pending counters (a sync): lazy, so it
             # runs only when a /stats client is polling
-            server.publish(film, lazy=lambda: {"mrays": round(
-                renderer.rays_traced / max(sum_delta, 1e-9) / 1e6, 1)})
+            server.publish(film, lazy=lambda: wall_mrays(renderer, start))
             for name, cargs in server.drain_commands():
                 # a bad command must not take down a long render
                 try:
@@ -248,7 +252,8 @@ def main(argv=None) -> int:
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, "trace.json")
         profiler.export_chrome_trace(path)
-        print(f"profiler trace written to {path}", file=sys.stderr)
+        n = write_spans(path)
+        print(f"profiler trace written to {path} ({n} program spans)", file=sys.stderr)
 
     total = time.time() - start
     print(f"total t: {total:.2f}s; rays traced: {renderer.rays_traced}; "
@@ -257,6 +262,43 @@ def main(argv=None) -> int:
     if server is not None:
         server.close()
     return 0
+
+
+def wall_mrays(renderer, start: float) -> dict:
+    """``/stats``' rate: the rays traced so far (reading them waits for the
+    queued passes) over the wall time since the render started (``start``,
+    ``time.time()``), in millions a second."""
+    rays = renderer.rays_traced
+    return {"mrays": round(rays / max(time.time() - start, 1e-9) / 1e6, 1)}
+
+
+def write_spans(path: str) -> int:
+    """Add the program's spans of this profiling session
+    (``bendy_tpu_torch/telemetry.py``, those after its last clock anchor) to
+    the Chrome trace at ``path`` as ``bendy.<name>`` complete events on the
+    trace's clock, on the thread of the ``bendy.clock`` range, placed by that
+    range's middle (within half its length, which the trace shows). Returns
+    the number of events added (0 without an anchor)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    clocks = [e for e in events
+              if e.get("name") == "bendy.clock" and e.get("cat") == "user_annotation"]
+    spans = telemetry.spans()
+    anchors = [i for i, s in enumerate(spans) if s.name == "clock"]
+    if not clocks or not anchors:
+        return 0
+    clock, a = clocks[-1], anchors[-1]
+    offset_us = clock["ts"] + clock["dur"] / 2 - spans[a].start_ns / 1e3
+    added = [{"ph": "X", "cat": "bendy", "name": f"bendy.{s.name}", "pid": clock["pid"],
+              "tid": clock["tid"], "ts": s.start_ns / 1e3 + offset_us,
+              "dur": (s.end_ns - s.start_ns) / 1e3,
+              "args": {"pass": s.pass_id, "span": i, "parent": s.parent}}
+             for i, s in enumerate(spans) if i > a and s.end_ns]
+    events.extend(added)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return len(added)
 
 
 def handle_command(name, cargs, args, scene, renderer, camera, film):

@@ -58,6 +58,7 @@ import functools
 import numpy as np
 import torch
 
+from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.geodesic import GeoParams
 from bendy_tpu_torch.ops.bvh import (BOX_COLS, BVH_STACK, RCT_COLS, SPH_COLS, build_bvh,
                                      bvh_counts, bvh_fits, uses_bvh)
@@ -723,8 +724,9 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         tests or None, RK4 steps or None, item counts or None), per lane."""
         dev = pix.device
         if dev not in tables:
-            table_np, counts = host_table()
-            tables[dev] = (torch.from_numpy(table_np).to(dev), counts)
+            with telemetry.one_off("pass.build"):
+                table_np, counts = host_table()
+                tables[dev] = (torch.from_numpy(table_np).to(dev), counts)
         table, counts = tables[dev]
         if count_tests and "bvh0" not in counts:
             raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
@@ -1025,22 +1027,30 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
 
     def lanes_of(y_offset: int, dev: torch.device):
         if (y_offset, dev) not in lanes:
-            lanes[y_offset, dev] = render_lanes(scn, cfg, width, rows, spp, nn, y_offset, dev,
-                                                tile)
+            with telemetry.one_off("pass.build"):
+                lanes[y_offset, dev] = render_lanes(scn, cfg, width, rows, spp, nn, y_offset,
+                                                    dev, tile)
         return lanes[y_offset, dev]
 
     def run(cam_packed, seed, pass_idx, y_offset, dst=None, add=False, rays=None):
         dev = cam_packed.device
+        rec = telemetry.ACTIVE  # spans only inside a profiled Renderer.render
         pix, sub, tiled = lanes_of(y_offset, dev)
+        t0 = telemetry.now() if rec else 0
         out, lane_rays = tracer.words(cam_packed, seed, pass_idx, pix, sub)
+        if rec:
+            telemetry.span("glue.trace", t0)
         if dst is None:
             if add:
                 raise ValueError("add: a pass adds into the film rows it is given")
             dst = torch.empty((rows, width, 3), dtype=torch.float32, device=dev)
         if rays is None:
             rays = torch.zeros(1, dtype=torch.int64, device=dev)
+        t0 = telemetry.now() if rec else 0
         accumulate(out, lane_rays, output, nn, dst, add=add, ray_total=rays,
                    pix=pix if tiled else None, pix0=y_offset * width)
+        if rec:
+            telemetry.span("glue.accumulate", t0)
         return dst, rays
 
     run.lanes = lambda y_offset, device: lanes_of(y_offset, torch.device(device))[:2]

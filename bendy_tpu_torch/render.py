@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.film import DeviceFilm, Film
 from bendy_tpu_torch.geodesic import GeoParams, geo_from_dict
 from bendy_tpu_torch.ops.camera import CameraParams
@@ -175,7 +176,6 @@ class Renderer:
         self.device = resolve_device(device)
         self.config = config
         self.scene = scene
-        self.arrays = compile_scene(scene, self.device)
         self.max_lanes = max_lanes
         # every pass adds its rays here on the device (int64: exact)
         self._rays = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -187,10 +187,12 @@ class Renderer:
         self.has_masses = any(
             o.tag is not None and o.tag.startswith("mass:") for o in scene.iter()
         )
-        # static material facts: branches for kinds no primitive carries are
-        # dead code in every lane, so the integrator drops them (exact)
-        host = self.arrays.host_copy()
-        mtypes = set(host.sph_mtype.tolist()) | set(host.rct_mtype.tolist())
+        with telemetry.one_off("scene.compile"):
+            self.arrays = compile_scene(scene, self.device)
+            # static material facts: branches for kinds no primitive carries
+            # are dead code in every lane, so the integrator drops them (exact)
+            host = self.arrays.host_copy()
+            mtypes = set(host.sph_mtype.tolist()) | set(host.rct_mtype.tolist())
         self.has_diffuse = MAT_DIFFUSE in mtypes
         self.has_metallic = MAT_METALLIC in mtypes
         self.has_glass = MAT_GLASS in mtypes
@@ -297,30 +299,36 @@ class Renderer:
         :class:`Film`, a film elsewhere); the rays go to the device counter
         behind :attr:`rays_traced`.
         """
-        if render_config.samples == 0:
-            return Status.DONE
-        cfg = merged_config(self.config, render_config)
-        self.camera_params(camera_ref)
-        tcfg = self.trace_config(cfg, camera_ref)
-        W, H = film.width, film.height
-        nn = render_config.subsample.subpixel_count
-        n = max(render_config.subsample.n, 1)
-        rows_chunk = min(H, max(1, self.max_lanes // max(W * nn, 1)))
-        in_place = isinstance(film, DeviceFilm) and film.sum.device == self.device
-        dst = film.sum if in_place else torch.empty((H, W, 3), dtype=torch.float32,
-                                                    device=self.device)
-        for y0 in range(0, H, rows_chunk):
-            rows = min(rows_chunk, H - y0)
-            key = (W, H, rows, render_config.samples, n, tcfg, cfg.output.value)
-            if key not in self._pass_cache:
-                self._pass_cache[key] = make_render_pass(
-                    self.arrays, W, H, rows, render_config.samples, n, tcfg,
-                    cfg.output.value,
-                )
-            self._pass_cache[key](self._cam_packed, seed, film.passes, y0, dst[y0:y0 + rows],
-                                  add=in_place, rays=self._rays)
-        if in_place:
-            film.count_pass(render_config.samples * nn)
-        else:
-            film.add_pass(dst, render_config.samples * nn)
-        return Status.IN_PROGRESS
+        span = telemetry.begin_render(film.passes)
+        try:
+            if render_config.samples == 0:
+                return Status.DONE
+            cfg = merged_config(self.config, render_config)
+            self.camera_params(camera_ref)
+            tcfg = self.trace_config(cfg, camera_ref)
+            W, H = film.width, film.height
+            nn = render_config.subsample.subpixel_count
+            n = max(render_config.subsample.n, 1)
+            rows_chunk = min(H, max(1, self.max_lanes // max(W * nn, 1)))
+            in_place = isinstance(film, DeviceFilm) and film.sum.device == self.device
+            dst = film.sum if in_place else torch.empty((H, W, 3), dtype=torch.float32,
+                                                        device=self.device)
+            for y0 in range(0, H, rows_chunk):
+                rows = min(rows_chunk, H - y0)
+                key = (W, H, rows, render_config.samples, n, tcfg, cfg.output.value)
+                if key not in self._pass_cache:
+                    with telemetry.one_off("pass.build"):
+                        self._pass_cache[key] = make_render_pass(
+                            self.arrays, W, H, rows, render_config.samples, n, tcfg,
+                            cfg.output.value,
+                        )
+                self._pass_cache[key](self._cam_packed, seed, film.passes, y0, dst[y0:y0 + rows],
+                                      add=in_place, rays=self._rays)
+            if in_place:
+                film.count_pass(render_config.samples * nn)
+            else:
+                film.add_pass(dst, render_config.samples * nn)
+            return Status.IN_PROGRESS
+
+        finally:
+            telemetry.end_render(span)

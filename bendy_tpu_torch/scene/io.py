@@ -14,7 +14,8 @@ and scenes we save load back into the Rust binary:
 - collections carry their ``next_key`` (``src/scene/mod.rs:16-20``).
 
 A copy of ``bendy_tpu/scene/io.py`` (which cannot be imported without JAX);
-``dumps_scene`` output is byte-identical to it.
+``dumps_scene`` output is byte-identical to it. ``load_scene`` is recorded as
+the ``scene.load`` span (``bendy_tpu_torch/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any
 
 import numpy as np
 
+from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.scene.graph import (
     Camera,
     Cuboid,
@@ -308,7 +310,7 @@ def dumps_scene(scene: Scene) -> str:
 def load_scene(path: str) -> Scene:
     """Load a scene file; ``.gz`` paths are gunzipped (``src/main.rs:97-102``)."""
     opener = gzip.open if str(path).endswith(".gz") else open
-    with opener(path, "rt") as f:
+    with telemetry.one_off("scene.load"), opener(path, "rt") as f:
         return scene_from_dict(json.load(f))
 
 

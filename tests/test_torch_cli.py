@@ -140,6 +140,38 @@ def test_cli_profile(tmp_path):
     assert trace["traceEvents"]
 
 
+def test_cli_profile_holds_program_spans(tmp_path):
+    """--profile writes the program's spans into its trace on the trace's
+    clock: one bendy.render a pass, each holding its bendy.glue.* events."""
+    prof = tmp_path / "prof"
+    assert main(_args(tmp_path, **{"--profile": str(prof), "--samples": "6"})) == 0
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "bendy"]
+    renders = sorted((e for e in ours if e["name"] == "bendy.render"), key=lambda e: e["ts"])
+    assert [e["args"]["pass"] for e in renders] == [0, 1, 2]
+    clock = next(e for e in events if e.get("name") == "bendy.clock")
+    assert clock["ts"] <= renders[0]["ts"]
+    for r in renders:
+        glue = [e for e in ours if e["args"]["parent"] == r["args"]["span"]
+                and e["name"].startswith("bendy.glue.")]
+        assert sorted(e["name"] for e in glue) == ["bendy.glue.accumulate", "bendy.glue.trace"]
+        for g in glue:
+            assert r["ts"] <= g["ts"] and g["ts"] + g["dur"] <= r["ts"] + r["dur"] + 1e-3
+            assert (g["pid"], g["tid"]) == (r["pid"], r["tid"]) == (clock["pid"], clock["tid"])
+
+
+def test_stats_rate_is_over_wall_time(monkeypatch):
+    """/stats' mrays: the rays so far over the wall time since the render
+    started, not over the summed host enqueue times."""
+    from bendy_tpu_torch import cli
+
+    class Traced:
+        rays_traced = 6_000_000
+
+    monkeypatch.setattr(cli.time, "time", lambda: 104.0)
+    assert cli.wall_mrays(Traced(), 100.0) == {"mrays": 1.5}
+
+
 def test_cli_debug_nans_names_the_pass(tmp_path, monkeypatch):
     from bendy_tpu_torch import render
 
