@@ -95,7 +95,8 @@
 //     reads the chord), and reads the GeoParams as launch arguments, so
 //     editing a scene's "geodesic" block rebuilds nothing.
 //
-// The surface sweep (kernel 1a: the SWEEP_ROWS instantiations, nearest_hit_rows):
+// The row sweep (the SWEEP_ROWS instantiations, nearest_hit_rows: kernel
+// 1a's segments and kernel 1d's geodesic chords):
 //   - What bounds it: cornell's primitive sweep was 0.68 of a warp-iteration
 //     (PERF.md §5, tools/phase_probe.py). In SASS (tools/sweep_sass.py) an
 //     iteration of the flat sweep took a rect 87 instructions, 14 of them
@@ -124,6 +125,13 @@
 //     box reject lost (3.77-3.80: its approximate slabs cost 76 instructions
 //     a box, more than the 57 % of box tests that whole warps skipped
 //     saved); 256 threads lost; 8 blocks won 2 % on cornell and cornell2.
+//   - Geodesic chords (kernel 1d) sweep the same rows. A chord's clip is
+//     short, so on blackhole (512x512, 32 spp, 2 bounces) a lane could skip
+//     94.5 % of its rect tests and a whole warp 94.1 % (cornell: 62 %,
+//     2.7 %); a sphere's iteration 54 -> 49.5 instructions, a rect's 84.5
+//     with 14 LDS -> 77.5 with 4 LDS.128. On an NVIDIA H100 80GB HBM3 at
+//     700.00 W the tracer of a 1920x1080, 256-spp blackhole pass took
+//     620.8 -> 527.2 ms (the benchmark's blackhole.batch, traced).
 //
 // Numerics (held per lane to the plain version at rtol 5e-4, atol 1e-5):
 //   - Trig: the same range-free polynomials as ops/distr.py::sin_cos_tau and
@@ -665,11 +673,11 @@ __device__ __forceinline__ HitT<VOL> hit_record(const float* tab, float t_best, 
   return h;
 }
 
-// ---- the surface sweep over float4 rows (kernel 1a) -----------------------
+// ---- the sweep over float4 rows (kernels 1a and 1d) -----------------------
 //
-// The surface instantiations that stage the table (SWEEP_ROWS: no
-// geodesics, media, BVH or GTAB) sweep rows of their own, built by the
-// block's staging loop in front of the staged table: only the fields a test
+// The surface and geodesic instantiations that stage the table (SWEEP_ROWS:
+// no media, BVH or GTAB; LOOPM among them) sweep rows of their own, built by
+// the block's staging loop in front of the staged table: only the fields a test
 // reads, each row a run of float4s, so that a row is read with 16-byte
 // shared loads (every lane of a warp reads the same row: a broadcast) where
 // the flat rows, 15, 21 and 28 floats wide, take one 32-bit load a field:
@@ -679,9 +687,16 @@ __device__ __forceinline__ HitT<VOL> hit_record(const float* tab, float t_best, 
 // A box's sgn_lo / sgn_hi and every shading field are read from the flat
 // row of the winner alone, after the sweep. The arithmetic is the flat
 // sweep's, operation for operation, so the winner, its t and its manifold
-// are bit for bit the same.
-template <bool GEO, bool VOL, bool GTAB, bool BVH>
-constexpr bool SWEEP_ROWS = !GEO && !VOL && !GTAB && !BVH;
+// are bit for bit the same. A geodesic chord's clip is short, [0 or
+// clip_min, |chord|], so nearly every rect test of a chord rejects, and the
+// 32 threads of a warp (32 samples of one pixel) reject together. The host
+// (bendy_staged_floats, bendy_item_occupancy) asks the same rule,
+// sweeps_rows, with the table staged.
+__host__ __device__ constexpr bool sweeps_rows(bool vol, bool gtab, bool bvh) {
+  return !vol && !gtab && !bvh;
+}
+template <bool VOL, bool GTAB, bool BVH>
+constexpr bool SWEEP_ROWS = sweeps_rows(VOL, GTAB, BVH);
 constexpr int SPH_ROW = 4, RCT_ROW = 16, BOX_ROW = 16;
 
 __host__ __device__ __forceinline__ int sweep_rows_floats(int n_sph, int n_rct, int n_box) {
@@ -1380,18 +1395,18 @@ constexpr bool PER_ITEM = GEO || (VOL && !BVH);
 // BLOCK does not divide the count the blocks round down (256: 3 and 2, that
 // is 768 and 512 threads; 512: 1 and 1), so a budget is never tighter than
 // the 128-thread build's. The surface instantiation of the main paths
-// (SWEEP_ROWS, FULL output) holds 1,024 threads an SM: 8 blocks of 128, 64
-// registers (ptxas spills 16 B), which ran cornell and cornell2 2 % faster
-// than its own 72 registers (7 blocks) and scene.json within its spread;
-// its AOV and GTAB siblings would spill 60-226 B under it (PERF.md §6).
-// Every other instantiation gets 0 and keeps __launch_bounds__(BLOCK)
-// alone: a minimum of 0 blocks emits none (a minimum of 1 moves their
-// registers).
+// (no geodesics, SWEEP_ROWS, FULL output) holds 1,024 threads an SM: 8
+// blocks of 128, 64 registers (ptxas spills 16 B), which ran cornell and
+// cornell2 2 % faster than its own 72 registers (7 blocks) and scene.json
+// within its spread; its AOV and GTAB siblings would spill 60-226 B under it
+// (PERF.md §6). Every other instantiation, LOOPM's with its rows among them,
+// gets 0 and keeps __launch_bounds__(BLOCK) alone: a minimum of 0 blocks
+// emits none (a minimum of 1 moves their registers).
 template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH>
 constexpr int MIN_BLOCKS =
-    !LOOPM && PER_ITEM<GEO, VOL, BVH>           ? (GEO && VOL ? 640 : 768) / BLOCK
-    : !AOVS && SWEEP_ROWS<GEO, VOL, GTAB, BVH> ? 1024 / BLOCK
-                                               : 0;
+    !LOOPM && PER_ITEM<GEO, VOL, BVH>              ? (GEO && VOL ? 640 : 768) / BLOCK
+    : !AOVS && !GEO && SWEEP_ROWS<VOL, GTAB, BVH> ? 1024 / BLOCK
+                                                  : 0;
 
 // The tracer: one thread per lane, or with PER_ITEM one per (lane, sample)
 // item.
@@ -1403,7 +1418,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
   const float* tab = smem_tab;
   if constexpr (GTAB) {
     tab = P.table;  // past shared memory: read in place
-  } else if constexpr (SWEEP_ROWS<GEO, VOL, GTAB, BVH>) {
+  } else if constexpr (SWEEP_ROWS<VOL, GTAB, BVH>) {
     // the sweep rows, then the table
     const int rows = sweep_rows_floats(P.n_sph, P.n_rct, P.n_box);
     for (int i = threadIdx.x; i < rows; i += blockDim.x)
@@ -1651,11 +1666,11 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
     if constexpr ((STUB & STUB_SWEEP) != 0) {
       h = stub_hit<VOL>(org, tdir);  // the sweep, or the BVH walk
     } else {
-      h = nearest_hit<VOL, BVH, SWEEP_ROWS<GEO, VOL, GTAB, BVH>>(
+      h = nearest_hit<VOL, BVH, SWEEP_ROWS<VOL, GTAB, BVH>>(
           tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir, march, last_sph, walk);
     }
 #else
-    HitT<VOL> h = nearest_hit<VOL, BVH, SWEEP_ROWS<GEO, VOL, GTAB, BVH>>(
+    HitT<VOL> h = nearest_hit<VOL, BVH, SWEEP_ROWS<VOL, GTAB, BVH>>(
         tab, P.n_sph, P.n_rct, P.n_box, cmin, cmax, org, tdir, march, last_sph, walk);
 #endif
     if (GEO && is_near) ++geo_steps;
@@ -2057,7 +2072,7 @@ template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
   return launch_kernel(instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0),
                        PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n,
-                       dynamic_smem(P, BVH, SWEEP_ROWS<GEO, VOL, false, BVH>), P, s);
+                       dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>), P, s);
 }
 
 // the phase stubs' mask rides in a launch's flags above the FLAG_* bits; the
@@ -2092,7 +2107,7 @@ int launch_stub(const Params& P, int mask, cudaStream_t s) {
     if (mask != STUB_MASKS[I]) return launch_stub<VOL, BVH, I + 1>(P, mask, s);
     return launch_kernel(trace_kernel<false, false, VOL, false, false, BVH, STUB_MASKS[I]>,
                          PER_ITEM<false, VOL, BVH> ? P.n * P.spp : P.n,
-                         dynamic_smem(P, BVH, SWEEP_ROWS<false, VOL, false, BVH>), P, s);
+                         dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>), P, s);
   }
 }
 #endif
@@ -2306,8 +2321,9 @@ int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_
 // `volumes`), bendy_trace_geodesic (FLAG_GEO without `volumes`) or
 // bendy_trace_volume (`volumes`) with a table of `table_floats` and these
 // primitive counts stages in shared memory unless FLAG_GTAB: the table and,
-// for a surface launch without FLAG_BVH, the sweep rows. The wrapper's
-// choice of FLAG_GTAB reads it.
+// for a launch without `volumes` or FLAG_BVH (SWEEP_ROWS with the table
+// staged, geodesics among them), the sweep rows. The wrapper's choice of
+// FLAG_GTAB reads it.
 int bendy_staged_floats(int flags, int volumes, int table_floats, int n_sph, int n_rct,
                         int n_box) {
   Params P = {};
@@ -2315,7 +2331,7 @@ int bendy_staged_floats(int flags, int volumes, int table_floats, int n_sph, int
   P.n_sph = n_sph;
   P.n_rct = n_rct;
   P.n_box = n_box;
-  return (int)staged_floats(P, !volumes && !(flags & (FLAG_GEO | FLAG_BVH)));
+  return (int)staged_floats(P, sweeps_rows(volumes != 0, false, (flags & FLAG_BVH) != 0));
 }
 
 // The instantiation without LOOPM or the BVH that a launch of
@@ -2337,7 +2353,7 @@ int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats
   P.n_sph = n_sph;
   P.n_rct = n_rct;
   P.n_box = n_box;
-  const size_t smem = dynamic_smem(P, false, !geo && !volumes);
+  const size_t smem = dynamic_smem(P, false, sweeps_rows(volumes != 0, false, false));
   void (*kernel)(Params) = volumes ? (geo ? instance<true, true>(aovs, gtab)
                                           : instance<false, true>(aovs, gtab))
                                    : (geo ? instance<true, false>(aovs, gtab)

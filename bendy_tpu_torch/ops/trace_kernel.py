@@ -278,8 +278,9 @@ def staged_floats(lib, cfg: TraceConfig, table_floats: int, counts: dict) -> int
     """The floats that a launch of ``cfg`` with a table of ``table_floats``
     and the ``counts`` of :func:`tracer_table` stages in shared memory
     unless its table stays in global memory, as the library ``lib`` counts
-    them (``bendy_staged_floats``): the table and, for a surface launch
-    without the BVH, the sweep rows that the kernel builds in front of it."""
+    them (``bendy_staged_floats``): the table and, for a launch without
+    media or the BVH (surface or geodesic), the sweep rows that the kernel
+    builds in front of it."""
     flags = _flags(cfg) | (FLAG_BVH if counts.get("bvh0", -1) >= 0 else 0)
     return lib.bendy_staged_floats(flags, int(cfg.has_volumes), table_floats,
                                    *(counts.get(k, 0) for k in ("n_sph", "n_rct", "n_box")))

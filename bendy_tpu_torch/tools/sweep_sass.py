@@ -1,14 +1,15 @@
-"""The surface tracer's primitive sweep on the card: its SASS counted per
-loop iteration, and how often a warp could skip a primitive's exact test.
+"""The tracer's primitive sweep on the card: its SASS counted per loop
+iteration, and how often a warp could skip a primitive's exact test.
 
     python3 -m bendy_tpu_torch.tools.sweep_sass [--root DIR] [--skips] [--out JSON]
 
 :func:`sass_counts` compiles ``csrc/trace_surface.cu`` (this package's, or
 that of the checkout whose root is ``--root``) once more with
-``-lineinfo`` into a cubin, disassembles the surface instantiation in FULL
-output with its table in shared memory (``nvdisasm -g``) and finds each
-loop of the sweep by the source line of its backward branch: the sphere,
-rect and box loops of the nearest hit and the face loop of ``light_pdf``.
+``-lineinfo`` into a cubin, disassembles the surface instantiation and the
+geodesic item instantiation (kernel 1d), each in FULL output with its table
+in shared memory (``nvdisasm -g``), and finds each loop of the sweep by the
+source line of its backward branch: the sphere, rect and box loops of the
+nearest hit and the face loop of ``light_pdf``.
 Per iteration (a loop that nvcc unrolled u times: its counts over u) it
 counts the shared loads by width, FFMA, FMUL, FADD, FSETP, FSEL, FMNMX,
 MUFU, CALL, BSSY/BSYNC, branches and all instructions. It also holds the
@@ -20,7 +21,8 @@ the probes' SASS.
 
 :func:`skip_shares` builds the measuring build of the tracer's source
 (``-DBENDY_SWEEP_STATS``, its own hashed directory under ``_build/``),
-runs one tracer call of a scene at the main path's geometry through it,
+runs one tracer call of a scene at its main path's geometry through it
+(cornell's surface segments, blackhole's geodesic chords: ``SKIP_PATHS``),
 and reads its counters: the lane rect tests, the share of them whose lane
 could skip the division and containment test (its t cannot pass cmin, cmax
 and t_best: ``quotient_may_win`` in the source) and the share whose whole
@@ -43,6 +45,11 @@ from pathlib import Path
 
 # the surface instantiation: trace_kernel<AOVS=0,GEO=0,VOL=0,LOOPM=0,GTAB=0,BVH=0>
 SURFACE = "trace_kernelILb0ELb0ELb0ELb0ELb0ELb0EEEvNS_6ParamsE"
+# the geodesic item instantiation (kernel 1d): GEO=1, the rest 0
+GEODESIC = "trace_kernelILb0ELb1ELb0ELb0ELb0ELb0EEEvNS_6ParamsE"
+# skip_shares' scenes at their main paths (chip_smoke.py phases 4 and 5):
+# width, height, spp, subsample and the Config's keywords
+SKIP_PATHS = {"cornell": (256, 256, 64, 2, {}), "blackhole": (512, 512, 32, 1, {"max_bounces": 2})}
 # each loop's for statement in the source: the line its backward branch
 # carries (light_pdf's: the first face loop after its definition)
 LOOPS = {
@@ -268,11 +275,12 @@ def library_listing(lib: Path) -> str:
 
 def sass_counts(root: Path | None = None, lib: Path | None = None, listing=None) -> dict:
     """The sweep's counts per iteration (:func:`sweep_counts`) of the
-    checkout at ``root`` (default: this package's), and whether its
-    lineinfo build has the opcodes of its library ``lib`` (default: this
-    package's default build; the newest built library under ``root``).
-    ``listing``: :func:`lineinfo_listing`'s result, where it was made
-    already."""
+    checkout at ``root`` (default: this package's), in the surface
+    instantiation (``loops``) and the geodesic item one (``geodesic``), and
+    whether its lineinfo build has the opcodes of its library ``lib`` in
+    both (default: this package's default build; the newest built library
+    under ``root``). ``listing``: :func:`lineinfo_listing`'s result, where
+    it was made already."""
     from bendy_tpu_torch import _build
 
     listing, source = listing or lineinfo_listing(root)
@@ -283,17 +291,21 @@ def sass_counts(root: Path | None = None, lib: Path | None = None, listing=None)
             libs = sorted((Path(root) / "bendy_tpu_torch" / "_build").glob("*/" + _build.LIB_NAME),
                           key=lambda p: p.stat().st_mtime)
             lib = libs[-1] if libs else None
-    match = None if lib is None else same_code(listing, library_listing(lib))
+    library = None if lib is None else library_listing(lib)
+    match = None if library is None else all(same_code(listing, library, name)
+                                             for name in (SURFACE, GEODESIC))
     return {"instantiation": _build.trace_label(0, 0, 0, 0, 0, 0),
-            "lineinfo_matches_library": match, "loops": sweep_counts(listing, source)}
+            "lineinfo_matches_library": match, "loops": sweep_counts(listing, source),
+            "geodesic": {"instantiation": _build.trace_label(0, 1, 0, 0, 0, 0),
+                         "loops": sweep_counts(listing, source, GEODESIC)}}
 
 
 # --- how often a warp could skip ------------------------------------------
 
 def stats_library() -> ctypes.CDLL:
     """The measuring build of the tracer's source (``-DBENDY_SWEEP_STATS``),
-    built at first use into ``_build/stats-<hash>/``, with the surface
-    entry's, ``bendy_staged_floats``', the error string's and
+    built at first use into ``_build/stats-<hash>/``, with the surface and
+    geodesic entries', ``bendy_staged_floats``', the error string's and
     ``bendy_sweep_stats``'s signatures."""
     from bendy_tpu_torch import _build
 
@@ -310,7 +322,8 @@ def stats_library() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on the measuring build:\n{proc.stdout}{proc.stderr}")
         tmp.replace(lib)
     cdll = ctypes.CDLL(str(lib))
-    for name in ("bendy_trace_surface", "bendy_staged_floats", "bendy_cuda_error_string"):
+    for name in ("bendy_trace_surface", "bendy_trace_geodesic", "bendy_staged_floats",
+                 "bendy_cuda_error_string"):
         getattr(cdll, name).argtypes, getattr(cdll, name).restype = _build.SIGNATURES[name]
     cdll.bendy_sweep_stats.argtypes, cdll.bendy_sweep_stats.restype = SIGNATURE_STATS
     return cdll
@@ -330,31 +343,34 @@ def measuring(lib: ctypes.CDLL):
 
 
 def tracer_call(scene: str = "cornell", width: int = 256, height: int = 256, spp: int = 64,
-                 subsample: int = 2):
+                 subsample: int = 2, config=None):
     """A function that runs one tracer call of ``scene`` (the Renderer's
-    lanes, perf_report's Config) with a seed, on the card."""
+    lanes; ``config``, else perf_report's Config) with a seed, on the
+    card."""
     from bendy_tpu_torch.bench import renderer_lanes
     from bendy_tpu_torch.ops.trace_kernel import make_tracer
     from bendy_tpu_torch.tools.perf_report import scene_renderer
 
-    r, cam = scene_renderer(scene, None, width, height, "cuda")
+    r, cam = scene_renderer(scene, config, width, height, "cuda")
     cfg = r.trace_config(r.config, cam)
     tracer = make_tracer(r.arrays, width, height, spp, subsample, cfg)
     pix, sub = renderer_lanes(r, cfg, width, height, spp, subsample)
     return lambda seed: tracer.words(r._cam_packed, seed, 0, pix, sub)
 
 
-def skip_shares(scene: str = "cornell", width: int = 256, height: int = 256, spp: int = 64,
-                subsample: int = 2) -> dict:
-    """One tracer call of ``scene`` (the Renderer's lanes, perf_report's
-    Config) through the measuring build: its lane rect tests,
+def skip_shares(scene: str = "cornell") -> dict:
+    """One tracer call of ``scene`` at its main path (``SKIP_PATHS``, the
+    Renderer's lanes) through the measuring build: its lane rect tests,
     ``lane_skip_share`` (tests whose lane could skip the division) and
     ``warp_skip_share`` (tests whose whole warp could)."""
     import os
 
     import torch
 
-    call = tracer_call(scene, width, height, spp, subsample)
+    from bendy_tpu_torch import Config
+
+    width, height, spp, subsample, kw = SKIP_PATHS[scene]
+    call = tracer_call(scene, width, height, spp, subsample, Config(**kw))
     lib = stats_library()
     counts = (ctypes.c_ulonglong * 3)()
     seed = int.from_bytes(os.urandom(4), "little") & 0x3FFFFFFF
@@ -375,12 +391,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=None,
                     help="the root of another checkout (its source and built library)")
-    ap.add_argument("--skips", action="store_true", help="also the skip shares on cornell")
+    ap.add_argument("--skips", action="store_true",
+                    help="also the skip shares on cornell and blackhole")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     res = {"sass": sass_counts(args.root)}
     if args.skips:
-        res["skips"] = skip_shares()
+        res["skips"] = [skip_shares(scene) for scene in SKIP_PATHS]
     text = json.dumps(res)
     if args.out:
         Path(args.out).write_text(text + "\n")

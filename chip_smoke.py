@@ -18,11 +18,12 @@ Phases, one line each (any failure exits non-zero):
      any) and of the pass's accumulate kernel (csrc/accumulate.cu); then
      each item instantiation's register budget (minBlocks) and the blocks
      of 128 an SM holds, and the surface instantiations'; then the SASS
-     of the surface sweep per loop iteration (tools/sweep_sass.py, from a
-     -lineinfo build of trace_surface.cu started beside the default one,
-     held to the library's instructions): shared loads by width, FFMA,
-     FMUL, FADD, FSETP, FSEL, FMNMX, MUFU, CALL, BSSY/BSYNC and branches
-     of the sphere, rect and box loops and of light_pdf's face loop,
+     of the surface sweep per loop iteration, and of the geodesic item
+     instantiation's (tools/sweep_sass.py, from a -lineinfo build of
+     trace_surface.cu started beside the default one, held to the
+     library's instructions): shared loads by width, FFMA, FMUL, FADD,
+     FSETP, FSEL, FMNMX, MUFU, CALL, BSSY/BSYNC and branches of the sphere,
+     rect and box loops and of light_pdf's face loop,
   3. kernel vs plain on the card: the surface kernel against the plain
      PyTorch integrator on cornell, cornell2 and scene at 16x16, 4 spp,
      max_bounces=3, seed 7, in FULL and NORMAL output, with the table in
@@ -216,10 +217,11 @@ PEAK_F32_S = 67e12
 # primitive kind, and per mass the capture/far/h² sweep that every
 # geodesic segment runs.
 SPHERE_OPS, RECT_OPS, BOX_OPS = 19, 37, 51
-# A rect of the row sweep (nearest_hit_rows: the surface launches without
-# the BVH, their table staged) first tests whether its t may still win: q 5,
-# p 8, the approximate reciprocal and the quotient 2, the margin 2 and a ± m
-# 2 (compares are not counted, as in the three above). Only the rects that
+# A rect of the row sweep (nearest_hit_rows: the surface and geodesic
+# launches without media or the BVH, their table staged) first tests
+# whether its t may still win: q 5, p 8, the approximate reciprocal and the
+# quotient 2, the margin 2 and a ± m 2 (compares are not counted, as in the
+# three above). Only the rects that
 # pass divide and test containment, and no counter of the default build
 # says how many, so the bound counts this test alone for each rect: a floor.
 RECT_REJECT_OPS = 19
@@ -2077,6 +2079,8 @@ def run(phases=None, phase3_names=None) -> int:
     sweep = sweep_sass.sass_counts(lib=lib_path, listing=listing.result())
     print(f"phase 2: SASS of the surface sweep per loop iteration "
           f"({sweep['instantiation']}; tools/sweep_sass.py): {json.dumps(sweep['loops'])}")
+    print(f"phase 2: SASS of the geodesic chords' sweep per loop iteration "
+          f"({sweep['geodesic']['instantiation']}): {json.dumps(sweep['geodesic']['loops'])}")
     if not sweep["lineinfo_matches_library"]:
         fail("the sweep's lineinfo build does not hold the library's instructions")
 
@@ -2127,6 +2131,8 @@ def run(phases=None, phase3_names=None) -> int:
                                bvh_table_build_ms=k["table_ms"])
         if name == "cornell":
             kernels[-1]["sweep_sass_per_iteration"] = sweep["loops"]
+        if name == "blackhole":
+            kernels[-1]["sweep_sass_per_iteration"] = sweep["geodesic"]["loops"]
         kernels[-1].update(host_ms_per_pass=path["host_s"] / 4 * 1e3,
                            pass_wall_minus_kernel_ms=k["glue_ms"],
                            rays_per_warp_issue_slot=k["occupancy"])

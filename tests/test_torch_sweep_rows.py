@@ -1,5 +1,6 @@
-"""The surface tracer's sweep over float4 rows (``csrc/trace_surface.cu``,
-``nearest_hit_rows``), rehearsed on the CPU.
+"""The tracer's sweep over float4 rows (``csrc/trace_surface.cu``,
+``nearest_hit_rows``: the surface segments and the geodesic chords),
+rehearsed on the CPU.
 
 The kernel's source up to its phase stubs (its device functions: every
 intersection test, the flat sweep, the rows' layout and the row sweep)
@@ -12,6 +13,10 @@ and grazing rays, then rays from the hits found) through both sweeps:
 - on every bundled scene's table and ``build_prim_grid(64)``'s, the row
   sweep against the flat sweep of the same source, bit for bit (t, face,
   material, position, normal, colour, rough, ior);
+- on the geodesic scenes' tables (blackhole, binary_blackhole,
+  mass_cluster), the same under a chord's short clip: rays on and near the
+  accretion ring's plane, rays grazing the spheres, chords ending at a
+  hit's t;
 - on cornell, cornell2 and scene.json (the surface kernel's main paths),
   the row sweep against the port's plain ``intersect.nearest_hit`` (t and
   face bit for bit) and the reference's (rtol 5e-4, atol 1e-5, the
@@ -26,6 +31,9 @@ says "cannot" where the correctly rounded ``p / q`` passes t >= cmin,
 t <= cmax and t < t_best. The same stand-in without its margin fails.
 The SASS listing parser of ``tools/sweep_sass.py`` is held to small
 listings of both tools' formats, through ``chip_smoke.sass_counts`` too.
+The staging rule (which instantiations sweep rows, which the host counts
+rows for) and the register budgets are read from the source's own
+definitions, built with g++.
 """
 
 import os
@@ -267,6 +275,74 @@ def test_row_sweep_matches_flat_sweep(runners, tmp_path, name):
     assert (hits[:, 0, 1] >= 0).mean() > 0.1  # the rays do hit
 
 
+def chord_rays(g, table, counts, n: int, cmin: float) -> np.ndarray:
+    """[n, 8] rays under a geodesic chord's clip [cmin, |chord|], |chord|
+    log-uniform over the step rule's [0.02, 30]: a third from on and near
+    the y = 0 plane of blackhole's accretion ring (y at 0, ±1e-6, ±1e-3 or
+    within ±0.5), half of them nearly in the plane and some in it; a third
+    grazing a sphere (impact parameter within 1e-3 of its radius, both
+    sides, up to 3 before the tangent point); a third of ``first_rays``."""
+    ns = counts["n_sph"]
+    sph = table[:15 * ns].reshape(ns, 15)
+    k = n // 3
+    org = np.empty((n, 3))
+    d = g.normal(size=(n, 3))
+    org[:k, 0], org[:k, 2] = g.uniform(-9, 9, k), g.uniform(-9, 9, k)
+    org[:k, 1] = np.where(g.uniform(0, 1, k) < 0.5, g.choice([0.0, 1e-6, -1e-6, 1e-3, -1e-3], k),
+                          g.uniform(-0.5, 0.5, k))
+    d[:k // 2, 1] *= g.choice([0.0, 1e-6, 1e-3, 1e-2], k // 2)
+    s = sph[g.integers(0, ns, k)]
+    v = g.normal(size=(k, 3))
+    d[k:2 * k] /= np.linalg.norm(d[k:2 * k], axis=1, keepdims=True)
+    u = np.cross(d[k:2 * k], v)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    b = s[:, 3] * (1 + g.uniform(-1e-3, 1e-3, k))
+    org[k:2 * k] = s[:, :3] + u * b[:, None] - d[k:2 * k] * g.uniform(0, 3, (k, 1))
+    rest = first_rays(g, primitive_points(table, counts), n - 2 * k)
+    org[2 * k:], d[2 * k:] = rest[:, :3], rest[:, 3:6]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    clip = np.stack([np.full(n, cmin), np.exp(g.uniform(np.log(0.02), np.log(30.0), n))], axis=1)
+    return np.concatenate([org, d, clip], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("cmin", [0.0, 0.01])
+@pytest.mark.parametrize("name", ["blackhole", "binary_blackhole", "mass_cluster"])
+def test_row_sweep_matches_flat_sweep_on_chords(runners, tmp_path, name, cmin):
+    """The geodesic item kernel's chords: the row sweep against the flat
+    sweep, bit for bit, with the approximate reciprocal rounded and 2 ulp
+    either side, and in the measuring build (one count a rect and ray).
+    Besides the drawn chords, each ray that hits within the longest chord
+    again with its chord ending at that hit's t, moved 0-2 ulp either way."""
+    table, counts = table_of(name)
+    g = np.random.default_rng(60 + sum(map(ord, name)) + int(cmin * 100))
+    rays = chord_rays(g, table, counts, N_RAYS, cmin)
+    edge = rays.copy()
+    edge[:, 7] = 30.0
+    t = run(runners["plain"], tmp_path, table, counts, edge)[:, 0]
+    edge = edge[t[:, 1] >= 0]
+    end, step = t[t[:, 1] >= 0, 0], g.integers(-2, 3, len(edge))
+    for _ in range(2):
+        end = np.where(step != 0, np.nextafter(end, np.where(step > 0, F(np.inf), F(-np.inf))), end)
+        step -= np.sign(step)
+    edge[:, 7] = end
+    rays = np.concatenate([rays, edge])
+    for mode in (0, 1, 2):
+        checks = []
+        for kind in ("plain", "stats"):
+            hits = run(runners[kind], tmp_path, table, counts, rays, mode,
+                       checks if kind == "stats" else None)
+            off = np.flatnonzero((hits[:, 0].view(np.uint32) != hits[:, 1].view(np.uint32)).any(1))
+            assert off.size == 0, (f"{name} cmin {cmin} mode {mode} {kind}: {off.size} rays "
+                                   f"differ, first {rays[off[0]]}")
+        assert checks[0][0] == counts["n_rct"] * len(rays)
+    hit = hits[:, 0, 1] >= 0
+    assert 0.05 < hit.mean() < 0.95  # chords that end short of a primitive, and chords that hit
+    if counts["n_rct"]:  # the ring: hits in its plane, and rect tests that reject
+        assert (hit & (np.abs(hits[:, 0, 4]) < 1e-3)).sum() > 50
+        tests, lane, _ = checks[0]
+        assert 0 < lane < tests
+
+
 @pytest.mark.parametrize("mode", [1, 2])
 def test_row_sweep_with_approximate_reciprocal_at_its_ends(runners, tmp_path, mode):
     """The rect reject's approximate reciprocal 2 ulp below (mode 1) and 2
@@ -319,6 +395,95 @@ def test_row_sweep_matches_plain_and_reference(runners, tmp_path, name):
     assert np.array_equal(np.asarray(ref.face), rows[:, 1].astype(np.int32))
     on = rows[:, 1] >= 0
     np.testing.assert_allclose(rows[on, 0], np.asarray(ref.t)[on], rtol=RTOL, atol=ATOL)
+
+
+RULE_MAIN = r"""
+#include <cstdio>
+#define __host__
+#define __device__
+constexpr int BLOCK = BENDY_TRACE_BLOCK;
+%(decls)s
+bool host_staged(int flags, int volumes) { return %(staged)s; }
+bool host_occupancy(int flags, int volumes) { return %(occupancy)s; }
+template <bool A, bool G, bool V, bool L, bool T, bool B>
+void row() {
+  const int flags = (G ? FLAG_GEO : 0) | (L ? FLAG_LOOPM : 0) | (T ? FLAG_GTAB : 0) | (B ? FLAG_BVH : 0);
+  printf("%%d %%d %%d %%d %%d %%d %%d %%d %%d %%d\n", A, G, V, L, T, B, MIN_BLOCKS<A, G, V, L, T, B>,
+         (int)SWEEP_ROWS<V, T, B>, (int)host_staged(flags, V), (int)host_occupancy(flags, V));
+}
+template <int I = 0>
+void rows() {
+  if constexpr (I < 64) {
+    constexpr bool A = I & 1, G = I & 2, V = I & 4, L = I & 8, T = I & 16, B = I & 32;
+    if constexpr (!(L && !G) && !(B && G)) row<A, G, V, L, T, B>();  // the instantiations
+    rows<I + 1>();
+  }
+}
+int main() { rows(); }
+"""
+
+
+def staging_rule(tmp_path, block: int) -> dict:
+    """{(aovs, geo, vol, loopm, gtab, bvh): (MIN_BLOCKS, SWEEP_ROWS, the
+    rows bendy_staged_floats counts, the rows bendy_item_occupancy counts)}
+    over every instantiation the kernel has, from the source's own
+    definitions and host expressions, built with g++ at ``block`` threads."""
+    with open(SOURCE) as f:
+        src = f.read()
+    decls = [re.search(r"constexpr int FLAG_DIFFUSE.*?;", src, re.S).group(0),
+             re.search(r"__host__ __device__ constexpr bool sweeps_rows\(.*?\n}", src, re.S).group(0)]
+    for name in ("SWEEP_ROWS", "PER_ITEM", "MIN_BLOCKS"):
+        decls.append(re.search(r"template <[^>]*>\s*constexpr \w+ %s =.*?;" % name, src,
+                               re.S).group(0))
+    staged = re.search(r"int bendy_staged_floats\(.*?staged_floats\(P, (.*?)\);\n", src, re.S)
+    occupancy = re.search(r"int bendy_item_occupancy\(.*?dynamic_smem\(P, false, (.*?)\);\n", src,
+                          re.S)
+    d = tmp_path / f"rule{block}"
+    d.mkdir()
+    (d / "main.cpp").write_text(RULE_MAIN % {"decls": "\n".join(decls), "staged": staged.group(1),
+                                             "occupancy": occupancy.group(1)})
+    exe = str(d / "main")
+    subprocess.run(["g++", "-std=c++17", "-w", f"-DBENDY_TRACE_BLOCK={block}", "-o", exe,
+                    str(d / "main.cpp")], check=True, timeout=120)
+    out = subprocess.run([exe], capture_output=True, text=True, check=True, timeout=60).stdout
+    table = {}
+    for ln in out.split("\n"):
+        if ln:
+            v = [int(x) for x in ln.split()]
+            table[tuple(map(bool, v[:6]))] = tuple(v[6:])
+    return table
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_staging_rule(tmp_path, block):
+    """One rule for the rows: the kernel's SWEEP_ROWS, the rows that
+    bendy_staged_floats counts for the wrapper's GTAB choice and those that
+    bendy_item_occupancy stages. Rows for every geodesic flag set without
+    media or the BVH (LOOPM among them, and GTAB, whose floats are counted
+    as the launch would stage them), none for media or the BVH, and a GTAB
+    instantiation sweeps the flat table in place. The register budgets
+    (MIN_BLOCKS) stay as they were: the item instantiations 768 / BLOCK
+    (640 with media), the surface one in FULL output with its table staged
+    1024 / BLOCK, LOOPM and every other 0."""
+    table = staging_rule(tmp_path, block)
+    assert len(table) == 2 * 2 * 8  # AOVS x GTAB x the eight (GEO, VOL, LOOPM, BVH) routes
+    for (aovs, geo, vol, loopm, gtab, bvh), (budget, rows, staged, occ) in table.items():
+        want_rows = not vol and not bvh
+        assert staged == want_rows and occ == (not vol), (geo, vol, loopm, gtab, bvh)
+        assert rows == (want_rows and not gtab), (geo, vol, loopm, gtab, bvh)
+        if loopm:
+            want = 0
+        elif geo or (vol and not bvh):  # the item instantiations
+            want = (640 if geo and vol else 768) // block
+        elif not aovs and rows:  # the surface one, FULL output, table staged
+            want = 1024 // block
+        else:
+            want = 0
+        assert budget == want, (aovs, geo, vol, loopm, gtab, bvh, budget)
+    # the geodesic main path (kernel 1d, FULL output, table staged) sweeps
+    # rows under the item budget; LOOPM sweeps rows with none
+    assert table[False, True, False, False, False, False] == (768 // block, 1, 1, 1)
+    assert table[False, True, False, True, False, False] == (0, 1, 1, 1)
 
 
 def test_sweep_rows_floats_and_layout(tmp_path):
@@ -497,6 +662,26 @@ def test_sweep_sass_counts_a_listing():
     assert (rect["CALL"], rect["BSSY/BSYNC"], rect["BRA"]) == (0.5, 1.0, 0.5)
     assert sweep_sass.same_code(LISTING, LISTING.replace("R20", "R21"))
     assert not sweep_sass.same_code(LISTING, LISTING.replace("FADD", "FMUL"))
+
+
+def test_sweep_sass_counts_the_geodesic_instantiation(monkeypatch, tmp_path):
+    """sass_counts counts the geodesic item instantiation beside the
+    surface one, and holds both to the library's opcodes."""
+    geo = LISTING.replace("ILb0ELb0ELb0ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb0ELb0ELb0E").replace(
+        "LDS.128 R8", "LDS R8")
+    listing = LISTING + geo
+    source = "x\n  for (int k = 0; k < n_rct; ++k) {\n"
+    monkeypatch.setattr(sweep_sass, "library_listing", lambda lib: listing)
+    res = sweep_sass.sass_counts(lib=tmp_path, listing=(listing, source))
+    assert res["lineinfo_matches_library"] is True
+    assert res["loops"]["rect"]["LDS.128"] == 0.5 and res["loops"]["rect"]["LDS"] == 0.5
+    assert res["geodesic"]["instantiation"].startswith("trace_kernel<AOVS=0,GEO=1,VOL=0")
+    assert res["geodesic"]["loops"]["rect"]["LDS.128"] == 0 and res["geodesic"]["loops"]["rect"][
+        "LDS"] == 1.0
+    monkeypatch.setattr(sweep_sass, "library_listing", lambda lib: LISTING + geo.replace(
+        "FADD", "FMUL"))
+    assert sweep_sass.sass_counts(lib=tmp_path, listing=(listing, source))[
+        "lineinfo_matches_library"] is False
 
 
 # cuobjdump's format: branches to addresses, an encoding line after each
