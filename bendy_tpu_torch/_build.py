@@ -91,17 +91,17 @@ SIGNATURES = {
     # flags, volumes, want_aovs, table_floats, n_sph, n_rct, n_box, out [3] int32 (host)
     "bendy_item_occupancy": ([c_int] * 7 + [c_void_p], c_int),
     # samp, cnt, n, spp, n_out, first, max_iters, out, rays, iters, vevents,
-    #   near_steps, over_cap, stream
+    #   near_steps, over_cap, loop_use, stream
     "bendy_fold_samples": (
         [c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_int, c_void_p, c_void_p, c_void_p,
-         c_void_p, c_void_p, c_void_p, c_void_p],
+         c_void_p, c_void_p, c_void_p, c_void_p, c_void_p],
         c_int,
     ),
     # csrc/accumulate.cu: out, n_out, lanes, row0, step, rays, pixels, nn, pix, pix0, film,
-    #   add, ray_total, stream
+    #   add, ray_total, iters, loop_use, stream
     "bendy_accumulate": (
         [c_void_p, c_int, c_int, c_int, c_int, c_void_p, c_int, c_int, c_void_p, c_int,
-         c_void_p, c_int, c_void_p, c_void_p],
+         c_void_p, c_int, c_void_p, c_void_p, c_void_p, c_void_p],
         c_int),
     "bendy_cuda_error_string": ([c_int], ctypes.c_char_p),
     # csrc/probes.cu: x, out, n, iters, fma, stream
@@ -291,11 +291,12 @@ def ptxas_report(log: str) -> list[str]:
                           r"(?:Li(\d+)E)?", name)
             p = re.search(r"fp32_chain_kernelILb(\d)E", name)
             d = re.search(r"bf16_dot_chain_kernelILi(\d+)ELi(\d+)E", name)
+            k = re.search(r"(fold_kernel|accumulate_kernel)(?:ILb(\d)E)?", name)
             label = (trace_label(*(int(g) for g in t.groups()[:6]),
                                  None if t.group(7) is None else int(t.group(7))) if t else
                      f"fp32_chain_kernel<FMA={p.group(1)}>" if p else
                      f"bf16_dot_chain_kernel<BN={d.group(1)},KS={d.group(2)}>" if d else
-                     "fold_kernel" if "fold_kernel" in name else
-                     "accumulate_kernel" if "accumulate_kernel" in name else name)
+                     k.group(1) + (f"<COUNT={k.group(2)}>" if k.group(2) else "") if k else
+                     name)
             lines.append(f"{label}: {m.group(1)} registers, {frame}")
     return lines

@@ -1939,17 +1939,80 @@ __host__ __device__ __forceinline__ int fold_stride(int spp) {
   return (spp < FOLD_TILE ? spp : FOLD_TILE) | 1;
 }
 
+// The tracer's warp use (csrc/accumulate.cu counts it alike): each warp of
+// 32 consecutive threads of a launch issues 32 × its longest thread loop.
+// A block's threads read runs of `run` consecutive threads' iteration counts,
+// run r0 = t·run from a block start on a warp boundary, so no warp spans two
+// blocks. This takes the block's item k (count x) in order within its run
+// [r0, r0 + run): it adds x to `loop_it` and, at a warp's last item, the
+// warp's longest to `issued` where the warp lies within the run, else into
+// warp_max[the run where the warp starts] (atomicMax), which the block adds
+// after a barrier; `wmax` carries the open warp's longest. `left`: the
+// launch's threads from the block's first on; a trailing partial warp is
+// left out of both sums, as tools/perf_report.issued leaves it out.
+__device__ __forceinline__ void count_warp_item(int k, int x, int r0, int run, long long left,
+                                                int& wmax, long long& loop_it, long long& issued,
+                                                int* warp_max) {
+  if ((k | 31) >= left) return;
+  loop_it += x;
+  wmax = max(wmax, x);
+  const bool warp_end = (k & 31) == 31;
+  if (!warp_end && k != r0 + run - 1) return;
+  const int w0 = k & ~31;
+  if (warp_end && w0 >= r0) issued += wmax;
+  else atomicMax(&warp_max[w0 / run], wmax);
+  wmax = 0;
+}
+
+// The block's warp-use sums into loop_use [2] (thread iterations, issued
+// iterations); after count_warp_item and a barrier.
+__device__ __forceinline__ void add_warp_use(long long loop_it, long long issued,
+                                             const int* warp_max,
+                                             long long (*sums)[FOLD_LANES / 32],
+                                             unsigned long long* loop_use) {
+  issued += warp_max[threadIdx.x];
+  for (int o = 16; o > 0; o >>= 1) {
+    loop_it += __shfl_down_sync(0xffffffffu, loop_it, o);
+    issued += __shfl_down_sync(0xffffffffu, issued, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    sums[0][threadIdx.x >> 5] = loop_it;
+    sums[1][threadIdx.x >> 5] = issued;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long a = 0, b = 0;
+    for (int w = 0; w < FOLD_LANES / 32; ++w) {
+      a += sums[0][w];
+      b += sums[1][w];
+    }
+    if (a != 0) atomicAdd(loop_use, (unsigned long long)a);
+    if (b != 0) atomicAdd(loop_use + 1, (unsigned long long)(32 * b));
+  }
+}
+
+// fold_kernel<true>, launched for a profiled pass, also counts the tracer's
+// warp use into loop_use from the items' iteration row (the per-item
+// launch's thread is item lane·spp + s, so lane l's run of items is
+// [l·spp, (l + 1)·spp)); fold_kernel<false> is the fold alone.
+template <bool COUNT>
 __global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, const int32_t* cnt,
                                                           int n, int spp, int n_out, bool first,
                                                           int max_iters, float* out,
                                                           int32_t* rays, int32_t* iters,
                                                           int32_t* vevents, int32_t* near_steps,
-                                                          int32_t* over_cap) {
+                                                          int32_t* over_cap,
+                                                          unsigned long long* loop_use) {
   extern __shared__ uint32_t fold_tiles[];  // [2][FOLD_LANES · stride]
+  __shared__ int warp_max[COUNT ? FOLD_LANES : 1];
+  __shared__ long long warp_sums[2][FOLD_LANES / 32];
   const int t = threadIdx.x, lane0 = blockIdx.x * FOLD_LANES, lane = lane0 + t;
   const int lanes = min(FOLD_LANES, n - lane0), stride = fold_stride(spp);
   const int tiles = (spp + FOLD_TILE - 1) / FOLD_TILE;
   const size_t items = (size_t)n * spp;
+  long long loop_it = 0, issued = 0;
+  int wmax = 0;
+  if constexpr (COUNT) warp_max[t] = 0;  // before the first stage's barrier
   // the rows: n_out sums, then each count whose output is given
   auto dst = [&](int w) {
     return w == 0 ? rays : w == 1 ? iters : w == 2 ? vevents : near_steps;
@@ -2013,6 +2076,15 @@ __global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, con
         int32_t acc = j > 0 ? isum : first ? 0 : dst(w)[lane];
         for (int i = 0; i < ts; ++i) acc += (int32_t)v[i];
         isum = acc;
+        if constexpr (COUNT) {
+          if (w == 1) {
+            const int k0 = t * spp + j * FOLD_TILE;
+            const long long left = (long long)items - (long long)lane0 * spp;
+            for (int i = 0; i < ts; ++i)
+              count_warp_item(k0 + i, (int)v[i], t * spp, spp, left, wmax, loop_it, issued,
+                              warp_max);
+          }
+        }
         if (last) {
           dst(w)[lane] = acc;
           if (w == 1 && max_iters >= 0 && acc > max_iters) atomicAdd(over_cap, 1);
@@ -2024,6 +2096,7 @@ __global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, con
     r = nr;
     j = nj;
   }
+  if constexpr (COUNT) add_warp_use(loop_it, issued, warp_max, warp_sums, loop_use);
 }
 
 template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
@@ -2296,24 +2369,28 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
 // [n_out, n·spp] f32 and `cnt` [4, n·spp] int32 (rays, iters, vevents,
 // near_steps) into `out` [n_out, n], `rays`, `iters` and the optional
 // `vevents`, `near_steps` [n] int32; `first` = 0 carries on from their
-// values, max_iters >= 0 counts lanes past it into `over_cap` [1] int32.
+// values, max_iters >= 0 counts lanes past it into `over_cap` [1] int32. A
+// non-null `loop_use` [2] int64 gets the launch's thread iterations and the
+// iterations its warps issued added to it.
 int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_out, int first,
                        int max_iters, void* out, void* rays, void* iters, void* vevents,
-                       void* near_steps, void* over_cap, void* stream) {
+                       void* near_steps, void* over_cap, void* loop_use, void* stream) {
   if (n < 0 || spp < 1 || (n_out != 3 && n_out != 10) || samp == nullptr || cnt == nullptr ||
       out == nullptr || rays == nullptr || iters == nullptr ||
       (max_iters >= 0 && over_cap == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const size_t smem = sizeof(uint32_t) * 2 * FOLD_LANES * fold_stride(spp);
+  const auto kernel = loop_use != nullptr ? fold_kernel<true> : fold_kernel<false>;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  fold_kernel<<<(n + FOLD_LANES - 1) / FOLD_LANES, FOLD_LANES, smem,
-                static_cast<cudaStream_t>(stream)>>>(
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<(n + FOLD_LANES - 1) / FOLD_LANES, FOLD_LANES, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(samp), static_cast<const int32_t*>(cnt), n, spp, n_out,
       first != 0, max_iters, static_cast<float*>(out), static_cast<int32_t*>(rays),
       static_cast<int32_t*>(iters), static_cast<int32_t*>(vevents),
-      static_cast<int32_t*>(near_steps), static_cast<int32_t*>(over_cap));
+      static_cast<int32_t*>(near_steps), static_cast<int32_t*>(over_cap),
+      static_cast<unsigned long long*>(loop_use));
   return (int)cudaGetLastError();
 }
 

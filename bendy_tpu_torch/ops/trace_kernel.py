@@ -411,7 +411,7 @@ def over_cap_lanes(device) -> torch.Tensor:
 
 def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, height, spp,
             spp_total, subsample, key, sample0, cfg: TraceConfig, extra, vevents=None,
-            near_steps=None, item_counts=None, bvh_tests=None):
+            near_steps=None, item_counts=None, bvh_tests=None, loop_use=None):
     """Launch ``entry``: one thread per lane, or for :func:`per_item` per
     (lane, sample) item into per-item buffers, each chunk of samples
     followed by its ordered fold (:func:`fold_samples`) into the per-lane
@@ -419,8 +419,9 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
     after ``bvh_tests``. ``item_counts``, optional
     [N_COUNTS, B, spp] int32, receives a per-item launch's per-item counts
     (row 2, vevents, only with volumes; row 3, RK4 steps, only with
-    geodesics). ``bvh_tests`` and ``counter`` as for :func:`_launch`.
-    Returns (out, rays, iters)."""
+    geodesics). ``loop_use`` ([2] int64), optional, gets each per-item
+    launch's warp use added by its fold. ``bvh_tests`` and ``counter`` as
+    for :func:`_launch`. Returns (out, rays, iters)."""
     if not per_item(cfg, "bvh0" in counts):
         return _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, spp,
                        spp_total, subsample, key, sample0, cfg, extra=extra(near_steps, vevents),
@@ -448,7 +449,8 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
                 subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]),
                 outs=(f, c[0], c[1]), max_iters=cap)
         fold_samples(f, c, s, out, rays, iters, vevents, near_steps, first=c0 == 0,
-                     max_iters=cap if c0 + s == spp else -1, over_cap=over_cap_lanes(dev))
+                     max_iters=cap if c0 + s == spp else -1, over_cap=over_cap_lanes(dev),
+                     loop_use=loop_use)
         if item_counts is not None:
             item_counts[:, :, c0:c0 + s] = c.view(N_COUNTS, B, s)
     return out, rays, iters
@@ -476,11 +478,30 @@ def item_occupancy(cfg: TraceConfig, table_floats: int,
     return tuple(out)
 
 
+def warp_use_plain(iters: torch.Tensor, loop_use: torch.Tensor) -> None:
+    """Plain version of the warp-use count of the fold and accumulate
+    kernels: ``iters``, the loop iterations of a launch's threads in launch
+    order, adds to ``loop_use`` ([2] int64) their sum and the iterations
+    their warps of 32 consecutive threads issue, 32 × each warp's longest
+    (a trailing partial warp left out of both, as ``tools/perf_report.issued``
+    leaves it out)."""
+    n = iters.numel() // 32 * 32
+    w = iters[:n].view(-1, 32).to(torch.int64)
+    loop_use += torch.stack([w.sum(), 32 * w.amax(dim=1).sum()])
+
+
+def _check_loop_use(loop_use: torch.Tensor | None, dev: torch.device, who: str) -> None:
+    if loop_use is not None and (loop_use.shape != (2,) or loop_use.dtype != torch.int64
+                                 or loop_use.device != dev or not loop_use.is_contiguous()):
+        raise ValueError(f"{who}: loop_use must be a contiguous [2] int64 tensor on {dev}")
+
+
 def fold_samples_plain(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
                        rays: torch.Tensor, iters: torch.Tensor,
                        vevents: torch.Tensor | None = None,
                        near_steps: torch.Tensor | None = None, *, first: bool = True,
-                       max_iters: int = -1, over_cap: torch.Tensor | None = None) -> None:
+                       max_iters: int = -1, over_cap: torch.Tensor | None = None,
+                       loop_use: torch.Tensor | None = None) -> None:
     """Plain version of :func:`fold_samples`: per lane, the per-item words
     added in sample order from 0 (or from the outputs' values when not
     ``first``), in place."""
@@ -500,12 +521,15 @@ def fold_samples_plain(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: tor
         dst.copy_(tot)
     if max_iters >= 0:
         over_cap += (iters > max_iters).sum(dtype=torch.int32)
+    if loop_use is not None:
+        warp_use_plain(cnt[1], loop_use)
 
 
 def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
                  rays: torch.Tensor, iters: torch.Tensor, vevents: torch.Tensor | None = None,
                  near_steps: torch.Tensor | None = None, *, first: bool = True,
-                 max_iters: int = -1, over_cap: torch.Tensor | None = None) -> None:
+                 max_iters: int = -1, over_cap: torch.Tensor | None = None,
+                 loop_use: torch.Tensor | None = None) -> None:
     """The ordered fold of a looped-mass launch (``fold_kernel`` of
     ``csrc/trace_surface.cu``), in place on the current stream: ``samp``
     [n_out, B·spp] f32 and ``cnt`` [N_COUNTS, B·spp] int32 per item (item =
@@ -515,7 +539,10 @@ def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Ten
     outputs' values when not ``first`` (the next chunk of samples), so the
     sums are bit-equal to one thread tracing the lane's samples in turn.
     With ``max_iters >= 0`` the lanes whose iteration sum passes it are
-    added to ``over_cap`` ([1] int32). CPU tensors run
+    added to ``over_cap`` ([1] int32). With ``loop_use`` ([2] int64) the
+    launch's warp use (:func:`warp_use_plain`, over its items in launch
+    order, item = lane·spp + s, from ``cnt``'s iteration row) is added to
+    it. CPU tensors run
     :func:`fold_samples_plain`; CUDA ones launch the kernel (adding one to
     ``fold_samples.launches``) or raise."""
     from bendy_tpu_torch import _build
@@ -533,14 +560,17 @@ def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Ten
         raise ValueError(f"fold_samples: expected contiguous samp [n_out, B·spp] f32, cnt "
                          f"[{N_COUNTS}, B·spp] int32, out [n_out, B] f32 and [B] int32 counts "
                          f"on {dev}")
+    _check_loop_use(loop_use, dev, "fold_samples")
     if dev.type == "cpu":
         return fold_samples_plain(samp, cnt, spp, out, rays, iters, vevents, near_steps,
-                                  first=first, max_iters=max_iters, over_cap=over_cap)
+                                  first=first, max_iters=max_iters, over_cap=over_cap,
+                                  loop_use=loop_use)
     if dev.type != "cuda":
         raise ValueError(f"fold_samples runs on CPU or CUDA tensors, got {dev}")
     if B == 0:
         return None
-    ptr = [None if t is None else t.data_ptr() for t in (vevents, near_steps, over_cap)]
+    ptr = [None if t is None else t.data_ptr()
+           for t in (vevents, near_steps, over_cap, loop_use)]
     rc = _build.library().bendy_fold_samples(
         samp.data_ptr(), cnt.data_ptr(), B, spp, n_out, int(first), max_iters, out.data_ptr(),
         rays.data_ptr(), iters.data_ptr(), *ptr, torch.cuda.current_stream(dev).cuda_stream)
@@ -582,7 +612,8 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                    height: int, spp: int, spp_total: int, subsample: int,
                    key: tuple, sample0: int, cfg: TraceConfig,
                    near_steps: torch.Tensor | None = None,
-                   item_counts: torch.Tensor | None = None):
+                   item_counts: torch.Tensor | None = None,
+                   loop_use: torch.Tensor | None = None):
     """Launch the geodesic instantiation of ``csrc/trace_surface.cu`` (RK4
     chord stepping; the item instantiation over unrolled masses, or the
     LOOPM one with ``cfg.looped_masses``) on the current stream.
@@ -592,8 +623,8 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     the fold kernel adds each lane's samples in order (:func:`fold_samples`,
     chunks of :func:`split_samples`), with the same sums as one thread per
     lane; ``near_steps`` (an optional [B] int32 output) receives each
-    lane's count of RK4 steps and ``item_counts`` those of :func:`_traced`.
-    Adds one to ``trace_geodesic.launches`` per kernel launch (one per
+    lane's count of RK4 steps, ``item_counts`` and ``loop_use`` those of
+    :func:`_traced`. Adds one to ``trace_geodesic.launches`` per kernel launch (one per
     chunk of samples). Raises unless
     ``cfg.geodesic`` without volumes and 1 <= n_mass (at most
     ``MAX_MASSES`` unless ``cfg.looped_masses``).
@@ -604,7 +635,8 @@ def trace_geodesic(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     return _traced("bendy_trace_geodesic", trace_geodesic, table, counts, cam_packed, pix, sub,
                    width, height, spp, spp_total, subsample, key, sample0, cfg,
                    lambda near, vev: (*geo, near),
-                   near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts)
+                   near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts,
+                   loop_use=loop_use)
 
 
 trace_geodesic.launches = 0
@@ -640,7 +672,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                  key: tuple, sample0: int, cfg: TraceConfig,
                  near_steps: torch.Tensor | None = None,
                  item_counts: torch.Tensor | None = None,
-                 bvh_tests: torch.Tensor | None = None):
+                 bvh_tests: torch.Tensor | None = None,
+                 loop_use: torch.Tensor | None = None):
     """Launch the volume instantiation of ``csrc/trace_surface.cu`` (march
     mode and the 8-corner density lookup of ``grid``, the ``[G, D, H, W]``
     f32 stack of the scene's density grids; geodesic inside media when
@@ -649,8 +682,8 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     Returns (out, rays, iters) as :func:`trace_surface`, then vol_events
     [B] int32, each lane's count of volume events (density lookups). It
     runs per item as :func:`trace_geodesic` does (the item instantiation,
-    or the LOOPM one with looped masses), ``near_steps`` and
-    ``item_counts`` as there; with the BVH (a table with a node block) one
+    or the LOOPM one with looped masses), ``near_steps``,
+    ``item_counts`` and ``loop_use`` as there; with the BVH (a table with a node block) one
     thread per lane, ``bvh_tests`` as for :func:`trace_surface`. Adds one to
     ``trace_volume.launches`` per kernel launch (one per chunk of samples).
     Raises unless
@@ -672,7 +705,7 @@ def trace_volume(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
         lambda near, vev: (*geo, near, grid, G, D, H, W, cfg.volume_step,
                            cfg.max_volume_bounces, int(cfg.vol_nearest), vev),
         vevents=vevents, near_steps=_near_steps(near_steps, pix, cfg), item_counts=item_counts,
-        bvh_tests=bvh_tests)
+        bvh_tests=bvh_tests, loop_use=loop_use)
     return out, rays, iters, vevents
 
 
@@ -712,6 +745,13 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     accumulates (:func:`accumulate`): the channel sums [3 or 10, B] f32 and
     each lane's traced rays [B] (int32 from the kernel, int64 from the
     plain version), with none of the reductions of ``TraceSums``.
+    ``fn.pass_words(cam_packed, seed, pass_idx, pix, sub, loop_use=None)``
+    is ``words`` for a render pass that counts the tracer's warp use into
+    ``loop_use`` ([2] int64, or None for no count): it returns a third
+    word, the lanes' loop iterations [B] that the pass's accumulate counts
+    (a launch of one thread per lane, and the plain version, whose loop is
+    per lane), or None where there is nothing left to count (no
+    ``loop_use``, or per-item launches, whose folds have counted).
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
@@ -720,9 +760,10 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     grids: dict = {}
 
     def launch(cam_packed, seed, pass_idx, pix, sub, sample0, count_tests=False,
-               count_steps=False, count_items=False):
+               count_steps=False, count_items=False, loop_use=None):
         """The kernel route: (out, rays, iters, vol_events or None, bvh
-        tests or None, RK4 steps or None, item counts or None), per lane."""
+        tests or None, RK4 steps or None, item counts or None), per lane;
+        ``loop_use`` goes to a per-item launch's folds."""
         dev = pix.device
         if dev not in tables:
             with telemetry.one_off("pass.build"):
@@ -735,6 +776,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
                   subsample=subsample, key=render_key(seed, pass_idx), sample0=sample0,
                   cfg=cfg)
         tests = near = items = None
+        if loop_use is not None and per_item(cfg, "bvh0" in counts):
+            kw["loop_use"] = loop_use
         if count_items and per_item(cfg, "bvh0" in counts):
             items = kw["item_counts"] = torch.empty((N_COUNTS, pix.shape[0], spp),
                                                     dtype=torch.int32, device=dev)
@@ -789,20 +832,27 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
                          out[9], *sums, lane_counts=lane_counts)
 
-    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0):
+    def pass_words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0, loop_use=None):
         dev = pix.device
         if dev.type == "cpu":
             res = plain(cam_packed, seed, pass_idx, pix, sub, sample0)
             chans = [*res.radiance]
             if cfg.want_aovs:
                 chans += [*res.aov_albedo, *res.aov_normal, res.aov_depth]
-            return torch.stack(chans), res.lane_counts["rays"]
+            lc = res.lane_counts
+            return torch.stack(chans), lc["rays"], None if loop_use is None else lc["iters"]
         if dev.type != "cuda":
             raise ValueError(f"no tracer for device {dev}")
-        out, rays, *_ = launch(cam_packed, seed, pass_idx, pix, sub, sample0)
-        return out, rays
+        out, rays, iters, *_ = launch(cam_packed, seed, pass_idx, pix, sub, sample0,
+                                      loop_use=loop_use)
+        counted = loop_use is None or per_item(cfg, "bvh0" in tables[dev][1])
+        return out, rays, None if counted else iters
+
+    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0):
+        return pass_words(cam_packed, seed, pass_idx, pix, sub, sample0)[:2]
 
     run.words = words
+    run.pass_words = pass_words
     return run
 
 
@@ -927,7 +977,9 @@ def _channel_rows(output: str, n_out: int) -> tuple[int, int]:
 
 def accumulate_plain(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int,
                      dst: torch.Tensor, *, add: bool, ray_total: torch.Tensor,
-                     pix: torch.Tensor | None = None, pix0: int = 0) -> None:
+                     pix: torch.Tensor | None = None, pix0: int = 0,
+                     iters: torch.Tensor | None = None,
+                     loop_use: torch.Tensor | None = None) -> None:
     """Plain version of :func:`accumulate`, with its subpixel order; tiled
     lanes (``pix``) go to their film rows by ``index_add_`` or
     ``index_copy_``."""
@@ -947,11 +999,14 @@ def accumulate_plain(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int
     else:
         dst.copy_(acc.t().reshape(dst.shape))
     ray_total += rays.sum(dtype=torch.int64)
+    if loop_use is not None:
+        warp_use_plain(iters, loop_use)
 
 
 def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst: torch.Tensor,
                *, add: bool, ray_total: torch.Tensor, pix: torch.Tensor | None = None,
-               pix0: int = 0) -> None:
+               pix0: int = 0, iters: torch.Tensor | None = None,
+               loop_use: torch.Tensor | None = None) -> None:
     """A render pass's subpixel sum, film add and ray count
     (``csrc/accumulate.cu``), in place on the current stream.
 
@@ -967,7 +1022,10 @@ def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst:
     ``add``, else stored there; the lanes' rays are added to ``ray_total``
     ([1] int64), exactly. At ``nn = 1`` the film equals ``dst +
     pixel_sums(...)`` bit for bit; past it ``torch.sum``'s order may differ
-    by rounding. CPU tensors run :func:`accumulate_plain`; CUDA ones launch
+    by rounding. With ``loop_use`` ([2] int64) and ``iters`` ([B] integers,
+    the loop iterations of a launch of one tracer thread per lane, in the
+    lanes' order) the tracer's warp use (:func:`warp_use_plain`) is added to
+    ``loop_use``. CPU tensors run :func:`accumulate_plain`; CUDA ones launch
     the kernel (adding one to ``accumulate.launches``) or raise."""
     from bendy_tpu_torch import _build
 
@@ -983,20 +1041,28 @@ def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst:
         raise ValueError(f"accumulate: expected contiguous out [n_out, P·nn] f32, rays [P·nn] "
                          f"integers, dst [..., 3] f32 of P pixels, ray_total [1] int64 and "
                          f"optional pix [P·nn] int32 on {dev}")
+    _check_loop_use(loop_use, dev, "accumulate")
+    if loop_use is not None and (iters is None or iters.shape != rays.shape
+                                 or iters.is_floating_point() or iters.device != dev
+                                 or not iters.is_contiguous()):
+        raise ValueError("accumulate: loop_use counts from iters, the lanes' [P·nn] loop "
+                         "iterations beside rays")
     row0, step = _channel_rows(output, out.shape[0])
     if dev.type == "cpu":
         return accumulate_plain(out, rays, output, nn, dst, add=add, ray_total=ray_total,
-                                pix=pix, pix0=pix0)
+                                pix=pix, pix0=pix0, iters=iters, loop_use=loop_use)
     if dev.type != "cuda":
         raise ValueError(f"accumulate runs on CPU or CUDA tensors, got {dev}")
-    if rays.dtype != torch.int32:
-        raise ValueError(f"accumulate: the kernel takes int32 rays, got {rays.dtype}")
+    if rays.dtype != torch.int32 or (loop_use is not None and iters.dtype != torch.int32):
+        raise ValueError(f"accumulate: the kernel takes int32 rays and iters, got {rays.dtype}")
     if pixels == 0:
         return None
     rc = _build.library().bendy_accumulate(
         out.data_ptr(), out.shape[0], out.shape[1], row0, step, rays.data_ptr(), pixels, nn,
         None if pix is None else pix.data_ptr(), pix0, dst.data_ptr(), int(add),
-        ray_total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        ray_total.data_ptr(), None if loop_use is None else iters.data_ptr(),
+        None if loop_use is None else loop_use.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("bendy_accumulate", dev, rc)
     accumulate.launches += 1
     return None
@@ -1010,14 +1076,18 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
                      tile: bool = TILE):
     """Counterpart of ``render.render_pass`` on the tracer (the reference's
     ``make_pallas_render_pass``): returns ``fn(cam_packed, seed, pass_idx,
-    y_offset, dst=None, add=False, rays=None) -> (dst, rays)`` over image
+    y_offset, dst=None, add=False, rays=None, loop_use=None) -> (dst, rays)`` over image
     rows [y_offset, y_offset+rows), on ``cam_packed``'s device: one tracer
     call (:func:`make_tracer`'s ``words``), then one :func:`accumulate` of
     its pixel sums into ``dst`` ([rows, W, 3] f32; allocated when None),
     added to it with ``add`` (a film's rows) else stored, and of its rays
     into ``rays`` ([1] int64; zeros allocated when None). With ``tile`` the
     lanes go in tile-major order (:func:`render_lanes`), which renders the
-    same film bit for bit. The lanes of each (y_offset, device) are built at
+    same film bit for bit. With ``loop_use`` ([2] int64) the pass adds the
+    tracer's warp use to it: the loop iterations of the tracer's threads
+    and the iterations their warps issue (the folds count a per-item
+    launch's, the accumulate a lane-loop launch's; no launch is added).
+    The lanes of each (y_offset, device) are built at
     its first pass and kept (8 bytes a lane), so a pass runs no torch op
     besides the tracer's and the accumulate's allocations;
     ``fn.lanes(y_offset, device)`` gives them as (pix, sub).
@@ -1033,12 +1103,14 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
                                                     dev, tile)
         return lanes[y_offset, dev]
 
-    def run(cam_packed, seed, pass_idx, y_offset, dst=None, add=False, rays=None):
+    def run(cam_packed, seed, pass_idx, y_offset, dst=None, add=False, rays=None,
+            loop_use=None):
         dev = cam_packed.device
         rec = telemetry.ACTIVE  # spans only inside a profiled Renderer.render
         pix, sub, tiled = lanes_of(y_offset, dev)
         t0 = telemetry.now() if rec else 0
-        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, pix, sub)
+        out, lane_rays, iters = tracer.pass_words(cam_packed, seed, pass_idx, pix, sub,
+                                                  loop_use=loop_use)
         if rec:
             telemetry.span("glue.trace", t0)
         if dst is None:
@@ -1049,7 +1121,8 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
             rays = torch.zeros(1, dtype=torch.int64, device=dev)
         t0 = telemetry.now() if rec else 0
         accumulate(out, lane_rays, output, nn, dst, add=add, ray_total=rays,
-                   pix=pix if tiled else None, pix0=y_offset * width)
+                   pix=pix if tiled else None, pix0=y_offset * width, iters=iters,
+                   loop_use=None if iters is None else loop_use)
         if rec:
             telemetry.span("glue.accumulate", t0)
         return dst, rays

@@ -32,6 +32,24 @@ span                where
 A render's front-end self time is its ``render`` span less its ``glue.*``
 children.
 
+Counters, like the per-pass spans, are kept only while a profiler records:
+a profiled ``Renderer.render`` hands its pass the renderer's device int64
+pair (:func:`tally`), into which the pass's fold or accumulate kernels add
+the tracer's warp use, and :func:`counters` sums the pairs:
+
+======================= ================================================
+counter                 what the profiled passes added
+======================= ================================================
+``loop_thread_iters``   the tracer's thread-loop iterations, over its
+                        threads (one a lane, or one a (lane, sample) item)
+``loop_issued_iters``   the iterations the warps of 32 consecutive
+                        threads issue: 32 × each warp's longest loop
+======================= ================================================
+
+Both leave out a launch's trailing partial warp, as
+``tools/perf_report.issued`` does; their ratio is the share of the warps'
+issued loop iterations that a thread used.
+
 The clock anchor: at the first render of a profiling session (the first that
 finds a profiler recording after one that did not), the recorder opens one
 profiler range, ``bendy.clock``, stamps its clock inside it, and records that
@@ -40,8 +58,9 @@ recorder's spans on the trace's clock by the range's middle: the stamp lies
 somewhere in the range, so the error is at most half its length (tens of
 microseconds on an H100 machine; the first range of a process takes longer).
 
-Readers use :func:`spans`, and :func:`clear` to start a fresh record (tests,
-and the CLI as it starts its profiler); the rest is the program's.
+Readers use :func:`spans`, :func:`counters`, and :func:`clear` to start a
+fresh record (tests, and the CLI as it starts its profiler); the rest is the
+program's.
 """
 
 from __future__ import annotations
@@ -64,6 +83,7 @@ _ints: list = []
 _open: list = []  # indices of the open spans, innermost last
 _pass = -1  # the pass of the render under way
 _profiling = False  # whether the last render found a profiler recording
+_tallies: list = []  # the device [2] int64 pairs that profiled passes counted into
 
 ACTIVE = False  # per-pass spans are recorded in the render under way
 
@@ -84,12 +104,35 @@ def spans() -> list[Span]:
             for i, n in enumerate(_names)]
 
 
+def counters() -> dict:
+    """The counters (table above), summed over every pair that profiled
+    passes counted into since :func:`clear`; reading them waits for those
+    passes. Zero where no profiled pass ran."""
+    total = [0, 0]
+    for pair in _tallies:
+        a, b = pair.tolist()
+        total[0] += a
+        total[1] += b
+    return {"loop_thread_iters": total[0], "loop_issued_iters": total[1]}
+
+
 def clear() -> None:
-    """Forget every span and start a fresh record."""
+    """Forget every span, zero the counters, and start a fresh record."""
     global ACTIVE, _pass, _profiling
-    for a in (_names, _ints, _open):
+    for pair in _tallies:
+        pair.zero_()
+    for a in (_names, _ints, _open, _tallies):
         del a[:]
     ACTIVE, _pass, _profiling = False, -1, False
+
+
+def tally(pair: torch.Tensor) -> torch.Tensor:
+    """At a profiled render (:data:`ACTIVE`): ``pair``, the renderer's
+    device [2] int64 counter that its pass adds to, kept for
+    :func:`counters`."""
+    if not any(pair is t for t in _tallies):
+        _tallies.append(pair)
+    return pair
 
 
 def _record(name: str, t0: int, t1: int) -> int:

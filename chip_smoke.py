@@ -175,6 +175,11 @@ Phases, one line each (any failure exits non-zero):
      graph's film bit-equal to the chain's. Each writes its JSON into
      smoke_out/; the phase split joins its main path's tracer entry in the
      kernel line.
+ 20. the tracer's warp-use counter at the benchmark's four cells (cornell
+     256x256 2x2 64 spp and 768x512 2x2 1 spp, blackhole 1920x1080 256 spp
+     with 2 bounces, mass_cluster 1920x1080 16 spp): one profiled pass each
+     (telemetry.counters()) against tools/perf_report.issued and the
+     iteration sum of the same key's per-thread counts, integer for integer.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -184,6 +189,7 @@ oracle.
     python3 -c "import chip_smoke as c; c.run(phases=(2, 15))"  # the probes alone
     python3 -c "import chip_smoke as c; c.run(phases=(4, 16, 17))"  # bench, fidelity
     python3 -c "import chip_smoke as c; c.run(phases=(2, 19))"  # the probes of tools/
+    python3 -c "import chip_smoke as c; c.run(phases=(2, 20))"  # the warp-use counter
 """
 
 import contextlib
@@ -611,8 +617,9 @@ def accumulate_vs_plain(dev) -> float:
     store mode, with row-major lanes and with tile-major ones (rows 5-41 of
     the image, ``pass_lanes(tile=True)`` at 128 lanes a block: tiles of 16
     x 8 and 4 x 8 pixels with a ragged right edge and trailing rows), bit
-    for bit, with equal int64 ray counts. Returns the largest |diff| (0
-    when they agree)."""
+    for bit, with equal int64 ray counts and equal counts of the tracer's
+    warp use from seeded loop iterations (a ragged last warp left out).
+    Returns the largest |diff| (0 when they agree)."""
     import torch
 
     from bendy_tpu_torch.ops.trace_kernel import (accumulate, accumulate_plain, pass_lanes,
@@ -626,6 +633,7 @@ def accumulate_vs_plain(dev) -> float:
         out = torch.randn((10, B), generator=g, device=dev) * 10.0 ** torch.randint(
             -4, 4, (10, B), generator=g, device=dev)
         rays = torch.randint(0, 500, (B,), generator=g, device=dev, dtype=torch.int32)
+        iters = torch.randint(1, 300, (B,), generator=g, device=dev, dtype=torch.int32)
         film = torch.rand((rows, W, 3), generator=g, device=dev)
         tiled, _ = pass_lanes(W, rows, nn, y0, dev, tile=True, lanes_per_block=128)
         tiling = tile_perm(W, rows, nn, 128)[1]
@@ -635,18 +643,21 @@ def accumulate_vs_plain(dev) -> float:
                     got, want = film.clone(), film.clone()
                     rk = torch.full((1,), 5, dtype=torch.int64, device=dev)
                     rp = rk.clone()
+                    uk = torch.full((2,), 7, dtype=torch.int64, device=dev)
+                    up = uk.clone()
                     accumulate(out, rays, output, nn, got, add=add, ray_total=rk, pix=pix,
-                               pix0=y0 * W)
+                               pix0=y0 * W, iters=iters, loop_use=uk)
                     accumulate_plain(out, rays, output, nn, want, add=add, ray_total=rp,
-                                     pix=pix, pix0=y0 * W)
+                                     pix=pix, pix0=y0 * W, iters=iters, loop_use=up)
                     torch.cuda.synchronize()
                     equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
                     err = float((got - want).abs().max())
                     worst = max(worst, err)
                     print(f"phase 3: accumulate {output} nn {nn} {'add' if add else 'store'} "
                           f"at {rows}x{W} pixels, {order} lanes: bit-equal to its plain version "
-                          f"{equal}, rays {int(rk)} vs {int(rp)}")
-                    if not equal or int(rk) != int(rp):
+                          f"{equal}, rays {int(rk)} vs {int(rp)}, warp use {uk.tolist()} vs "
+                          f"{up.tolist()}")
+                    if not equal or int(rk) != int(rp) or not torch.equal(uk, up):
                         fail(f"accumulate disagrees with its plain version ({output}, nn {nn}, "
                              f"{order})")
     return worst
@@ -1170,6 +1181,7 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
                 torch.zeros(1, dtype=torch.int32, device=dev))
 
     got, want, spare = outputs(), outputs(), outputs()
+    use_got, use_want = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
 
     def chunk(c0: int, s: int) -> dict:
         items = lanes * s
@@ -1178,9 +1190,10 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
         cnt = torch.randint(0, 300, (N_COUNTS, items), generator=g, device=dev,
                             dtype=torch.int32)
         kw = dict(first=c0 == 0, max_iters=cap if c0 + s == spp else -1)
-        fold_samples(samp, cnt, s, *got[:3], over_cap=got[3], **kw)
+        fold_samples(samp, cnt, s, *got[:3], over_cap=got[3], loop_use=use_got, **kw)
         _, plain_ms = cuda_ms(lambda: fold_samples_plain(samp, cnt, s, *want[:3],
-                                                         over_cap=want[3], **kw))
+                                                         over_cap=want[3], loop_use=use_want,
+                                                         **kw))
         equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                     for a, b in zip(got, want))
         _, ms, lo, hi = cuda_ms_median(
@@ -1200,17 +1213,19 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
         return sum(r[k] for r in runs) / len(runs)
 
     equal, err = all(r["equal"] for r in runs), max(r["err"] for r in runs)
+    counted = torch.equal(use_got, use_want)
     ms, lo, hi = mean("ms"), min(r["lo"] for r in runs), max(r["hi"] for r in runs)
     print(f"phase {phase}: fold_samples alone median {ms:.4f} ms per launch (min {lo:.4f}, max "
           f"{hi:.4f}) at {lanes} lanes x {spp} samples in {len(runs)} launch(es) of "
           f"{'+'.join(str(r['s']) for r in runs)} samples ({sum(r['ms'] for r in runs):.4f} ms "
           f"in all), {n_out} sums and 2 counts (bound {mean('bound_ms'):.4f} ms per launch by "
-          f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), plain "
+          f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), warp use "
+          f"{use_got.tolist()} vs the plain {use_want.tolist()}, plain "
           f"{mean('plain_ms'):.3f} ms, torch.sum over the samples {mean('library_ms'):.4f} ms "
           f"per launch; by chunk: " + ", ".join(
               f"{r['s']} samples {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, torch.sum "
               f"{r['library_ms']:.4f})" for r in runs))
-    if not equal:
+    if not equal or not counted:
         fail("fold_samples disagrees with its plain version")
     return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=mean("plain_ms"), max_err=err,
                 bound_ms=mean("bound_ms"), library_ms=mean("library_ms"), launches=len(runs))
@@ -2038,6 +2053,60 @@ def probes_phase(dev, stub_build) -> dict:
                                                      "crossover_kernel_ms")}}
 
 
+# the benchmark's cells (BENCHMARK.json): scene, Config, width, height, spp, subsample
+WARP_USE_CELLS = (("cornell", {}, 256, 256, 64, 2), ("cornell", {}, 768, 512, 1, 2),
+                  ("blackhole", {"max_bounces": 2}, 1920, 1080, 256, 1),
+                  ("mass_cluster", {}, 1920, 1080, 16, 1))
+
+
+def warp_use_vs_issued(dev) -> list:
+    """Phase 20: one pass of each of :data:`WARP_USE_CELLS` under
+    ``torch.profiler`` counts the tracer's warp use
+    (``telemetry.counters()``); the same key's per-thread counts
+    (``make_tracer(..., count_items=True)`` on the Renderer's lanes, in
+    launch order by ``perf_report.thread_counts``) give
+    ``perf_report.issued`` and the thread-iteration sum, which must equal
+    the counters integer for integer. Every cell's lanes, so every launch's
+    threads, are a multiple of 32, so no warp spans two launches. Returns
+    the rows."""
+    import torch
+
+    from bendy_tpu_torch import telemetry
+    from bendy_tpu_torch.bench import renderer_lanes
+    from bendy_tpu_torch.film import DeviceFilm
+    from bendy_tpu_torch.ops.trace_kernel import make_tracer
+    from bendy_tpu_torch.render import Config, RenderConfig, Subsample
+    from bendy_tpu_torch.tools.perf_report import issued, thread_counts
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows = []
+    for name, kw, W, H, spp, n in WARP_USE_CELLS:
+        r, cam = renderer(name, Config(**kw), W, H, dev)
+        film, seed = DeviceFilm(W, H, device=dev), 2**31 + 20
+        telemetry.clear()
+        with torch.profiler.profile(activities=acts):
+            r.render(cam, RenderConfig(samples=spp, subsample=Subsample(n)), film, seed=seed)
+        got = telemetry.counters()
+        cfg = r.trace_config(r.config, cam)
+        pix, sub = renderer_lanes(r, cfg, W, H, spp, n)
+        res = make_tracer(r.arrays, W, H, spp, n, cfg)(r._cam_packed, seed, 0, pix, sub,
+                                                         count_items=True)
+        _, iters = thread_counts(res, pix.numel(), spp, cfg)
+        want = {"loop_thread_iters": int(iters.sum(dtype=torch.int64)),
+                "loop_issued_iters": issued(iters)}
+        row = dict(cell=f"{name} {W}x{H} {spp}spp {n}x{n}", counters=got, recomputed=want,
+                   warp_use=100.0 * got["loop_thread_iters"] / max(got["loop_issued_iters"], 1))
+        print(f"phase 20: {row['cell']}: counters {got}, from the per-thread counts {want}: "
+              f"loop_warp_use {row['warp_use']:.4f} %")
+        if pix.numel() % 32 or got != want or not 0 < got["loop_thread_iters"]:
+            fail(f"the warp-use counter of {row['cell']} disagrees with perf_report.issued")
+        rows.append(row)
+        del res, iters
+        torch.cuda.empty_cache()
+    telemetry.clear()
+    return rows
+
+
 def run(phases=None, phase3_names=None) -> int:
     """Run the phases in ``phases`` (all when None; the card and the build
     always run), phase 3 on the cases of ``phase3_names`` only when given."""
@@ -2218,6 +2287,9 @@ def run(phases=None, phase3_names=None) -> int:
                 entry["march_share_events"] = res["march_share"]["march_share"]
             if scene == "prim_grid_256":
                 entry["prim_scaling"] = res["prim_scaling"]
+
+    if phases is None or 20 in phases:
+        warp_use_vs_issued(dev)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))
