@@ -72,18 +72,19 @@ _TRACE_ARGS = [
 ]
 SIGNATURES = {
     "bendy_trace_surface": (_TRACE_ARGS + [c_void_p], c_int),
-    # + n_mass, eta, min_step, max_step, far, max_steps, growth, near_steps
+    # + n_mass, eta, min_step, max_step, far, max_steps, growth, near_steps,
+    #   loop_use
     "bendy_trace_geodesic": (
         _TRACE_ARGS + [c_int, c_float, c_float, c_float, c_float, c_int, c_float,
-                       c_void_p, c_void_p],
+                       c_void_p, c_void_p, c_void_p],
         c_int,
     ),
-    # + the geodesic arguments, grid, G, D, H, W, volume_step,
-    #   max_volume_bounces, nearest, vevents
+    # + the geodesic arguments but loop_use, grid, G, D, H, W, volume_step,
+    #   max_volume_bounces, nearest, vevents, loop_use
     "bendy_trace_volume": (
         _TRACE_ARGS + [c_int, c_float, c_float, c_float, c_float, c_int, c_float,
                        c_void_p, c_void_p, c_int, c_int, c_int, c_int, c_float, c_int,
-                       c_int, c_void_p, c_void_p],
+                       c_int, c_void_p, c_void_p, c_void_p],
         c_int,
     ),
     # flags, volumes, table_floats, n_sph, n_rct, n_box

@@ -216,6 +216,20 @@
 //     fold_kernel then adds each lane's items in sample order from 0, as
 //     the lane loop adds its finished paths (acc = acc + rad from 0), so the
 //     result is bit-equal to one thread per lane and to the plain version.
+//   - The item pool. With one item a thread a warp still ran as long as its
+//     longest item (13-258 iterations, mean 21.8, on the benchmark's
+//     mass_cluster: 63 % of the loop iterations its warps issued did work),
+//     and a block held its SM slot until its slowest warp ended. So a LOOPM
+//     launch starts a resident grid (the blocks its SMs hold at once), each
+//     thread takes item = its thread index first, and a thread whose item
+//     ends (or is cut at the cap) writes that item's words at the item's
+//     index and takes the next unclaimed one (pool_take) in the same loop
+//     iteration, with a fresh state: the same stream ids, `it` from 0 under
+//     the same cap, the same words, so fold_kernel and the film see what one
+//     item a thread gave. A thread leaves the loop when the pool is empty;
+//     no warp waits on a long item of another's but the launch's last ones.
+//     A persistent pool lost on the item instantiations' paths (below),
+//     whose warps ran nearly full; LOOPM's ran a third empty.
 //   - The cap. A thread's cap is the whole lane's, max_iters of the call's
 //     spp, so no sample is cut where the lane loop would not cut it. The
 //     lane loop cuts where a lane's iteration sum passes that cap; a cut
@@ -393,6 +407,7 @@ struct Params {
   int32_t* near_steps;                           // geodesics, optional: RK4 steps per item
   int bvh0;                                      // BVH only: the node block's offset in the table
   int32_t* bvh_tests;                            // BVH only, optional: [2, n] node, prim tests
+  unsigned long long* loop_use;                  // LOOPM only, optional: [2] warp use (below)
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -1382,6 +1397,73 @@ __device__ __forceinline__ HitT<VOL> stub_hit(V3 org, V3 dir) {
 #define STUB_PARAM
 #endif
 
+// LOOPM's item pool: the items a launch has handed out past each thread's
+// first (item = thread index). A thread draws from it until it gets an index
+// past the launch's items, so every thread draws exactly once past them and
+// a launch of `items` items draws `items` indices in all (the threads past
+// the items, a ragged last block, draw none). The draw of the last one sets
+// the counter back to 0 for the next launch: no launch or host call between.
+// So LOOPM launches on one device must not overlap: they share the counter.
+__device__ unsigned int pool_next;
+
+// The next item of a LOOPM launch of `threads` threads and `items` items (an
+// index >= items: the pool is empty). The lanes of a warp that draw together
+// take consecutive indices, one atomicAdd a warp.
+__device__ __forceinline__ unsigned pool_take(unsigned threads, unsigned items) {
+  const unsigned voters = __activemask();
+  const int lead = __ffs(voters) - 1, me = threadIdx.x & 31;
+  unsigned base = 0;
+  if (me == lead) base = atomicAdd(&pool_next, (unsigned)__popc(voters));
+  const unsigned k = __shfl_sync(voters, base, lead) + __popc(voters & ((1u << me) - 1u));
+  if (k == items - 1) atomicExch(&pool_next, 0u);  // the launch's last draw
+  return threads + k;
+}
+
+// LOOPM: the loop iterations of the calling thread's finished items, for the
+// warp-use count (in shared memory: a register more moved other
+// instantiations' code)
+__device__ __forceinline__ int& pool_trips() {
+  __shared__ int trips[BLOCK];
+  return trips[threadIdx.x];
+}
+
+// The end of a LOOPM thread's item: its last completed path folded in (a
+// path cut at the cap is not, as the lane loop leaves it) and its words
+// written at `item` of the [n_out, N] sums and the [N] counts (depth_n
+// applied), as the other instantiations write theirs after their loop (their
+// stores stay inline there: in this helper they moved those instantiations'
+// opcodes)
+template <bool AOVS, bool VOL>
+__device__ __forceinline__ void store_item(const Params& P, int N, int item, bool alive,
+                                           bool path_open, V3 rad, V3 aov_alb, V3 aov_nrm,
+                                           float aov_dep, V3 acc_rad, V3 acc_alb, V3 acc_nrm,
+                                           float acc_dep, int rays, int it, int vev, int n_near) {
+  if (!alive && path_open) {
+    acc_rad = acc_rad + rad;
+    if (AOVS) {
+      acc_alb = acc_alb + aov_alb;
+      acc_nrm = acc_nrm + aov_nrm;
+      acc_dep = acc_dep + depth_n(aov_dep, P.clip_min, P.dep_den);
+    }
+  }
+  P.out[item] = acc_rad.x;
+  P.out[N + item] = acc_rad.y;
+  P.out[2 * N + item] = acc_rad.z;
+  if (AOVS) {
+    P.out[3 * N + item] = acc_alb.x;
+    P.out[4 * N + item] = acc_alb.y;
+    P.out[5 * N + item] = acc_alb.z;
+    P.out[6 * N + item] = acc_nrm.x;
+    P.out[7 * N + item] = acc_nrm.y;
+    P.out[8 * N + item] = acc_nrm.z;
+    P.out[9 * N + item] = acc_dep;
+  }
+  P.rays[item] = rays;
+  P.iters[item] = it;
+  if constexpr (VOL) P.vevents[item] = vev;
+  if (P.near_steps != nullptr) P.near_steps[item] = n_near;
+}
+
 // the routing (ops/trace_kernel.per_item): geodesics (LOOPM among them)
 // and media without the BVH trace one thread per (lane, sample) item; the
 // surface and BVH instantiations one thread per lane
@@ -1442,8 +1524,8 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
   // one thread per lane, or with SPLIT one per (lane, sample): item =
   // lane·spp + s traces the single sample sample0 + s (the other
   // instantiations read P.spp, P.sample0 and P.n as before, so that they
-  // compile as before)
-  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  // compile as before); LOOPM's threads go on with items from the pool
+  int item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= (SPLIT ? P.n * P.spp : P.n)) return;  // ragged last block
   const int lane = SPLIT ? item / P.spp : item;
 
@@ -1462,13 +1544,13 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
   const V3 cam_t = ld3(cam + 15);
   const bool dof = (P.flags & FLAG_DOF) && focus > 0.0f;
 
-  const uint32_t pixv = (uint32_t)P.pix[lane], subv = (uint32_t)P.sub[lane];
+  uint32_t pixv = (uint32_t)P.pix[lane], subv = (uint32_t)P.sub[lane];
   const int n = P.subsample > 1 ? P.subsample : 1;
   const uint32_t nn = (uint32_t)(n * n);
   const float px = (float)(pixv % (uint32_t)P.width), py = (float)(pixv / (uint32_t)P.width);
   const float si = (float)(subv % (uint32_t)n), sj = (float)(subv / (uint32_t)n);
-  const float u_base = px * P.pw - 1.0f + (si / (float)n) * P.pw;
-  const float v_base = py * P.ph - 1.0f + (sj / (float)n) * P.ph;
+  float u_base = px * P.pw - 1.0f + (si / (float)n) * P.pw;
+  float v_base = py * P.ph - 1.0f + (sj / (float)n) * P.ph;
 
   int sample = -1, path_step = 0, bounce = 0, rays = 0, it = 0;
   bool alive = false, path_open = false, aov_open = false;
@@ -1484,7 +1566,36 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
   int vbounce = 0, last_sph = -1, vev = 0;
   int n_near = 0;  // RK4 steps taken (near segments), for the work count
 
-  for (; it < P.max_iters; ++it) {
+  if constexpr (LOOPM) pool_trips() = 0;
+  for (; LOOPM || it < P.max_iters; ++it) {
+    if constexpr (LOOPM) {
+      // === the item is done or cut at the cap: its words, the pool's next =
+      if (it >= P.max_iters || (!alive && sample >= 0)) {
+        const int N = P.n * P.spp;
+        store_item<AOVS, VOL>(P, N, item, alive, path_open, rad, aov_alb, aov_nrm, aov_dep,
+                              acc_rad, acc_alb, acc_nrm, acc_dep, rays, it, vev, n_near);
+        pool_trips() += it;
+        const unsigned next = pool_take(gridDim.x * blockDim.x, (unsigned)N);
+        if (next >= (unsigned)N) break;  // the pool is empty: this thread is done
+        item = (int)next;
+        pixv = (uint32_t)P.pix[item / P.spp];
+        subv = (uint32_t)P.sub[item / P.spp];
+        const float pxi = (float)(pixv % (uint32_t)P.width);
+        const float pyi = (float)(pixv / (uint32_t)P.width);
+        const float sii = (float)(subv % (uint32_t)n), sji = (float)(subv / (uint32_t)n);
+        u_base = pxi * P.pw - 1.0f + (sii / (float)n) * P.pw;
+        v_base = pyi * P.ph - 1.0f + (sji / (float)n) * P.ph;
+        sample = -1;
+        it = rays = n_near = 0;
+        alive = path_open = false;
+        acc_rad = acc_alb = acc_nrm = {0.0f, 0.0f, 0.0f};
+        acc_dep = 0.0f;
+        if constexpr (VOL) {
+          vev = 0;
+          last_sph = -1;
+        }
+      }
+    }
     if (!alive) {
       if (sample + 1 >= (SPLIT ? 1 : P.spp)) break;  // this thread is done
       // === finalize the dead path, regenerate a camera ray ==============
@@ -1864,6 +1975,22 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
 #endif
   }
 
+  if constexpr (LOOPM) {
+    // every item written in the loop; with loop_use (profiled passes) the
+    // warp adds its threads' loop iterations and 32 × its own loop trips
+    // (the longest thread's), as fold_kernel<true> counts the static mapping
+    if (P.loop_use != nullptr) {
+      const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) & ~31, live = P.n * P.spp - w0;
+      const unsigned warp = live >= 32 ? 0xffffffffu : (1u << live) - 1u;  // ragged last warp
+      const unsigned sum = __reduce_add_sync(warp, (unsigned)pool_trips());
+      const unsigned most = __reduce_max_sync(warp, (unsigned)pool_trips());
+      if ((threadIdx.x & 31) == 0) {
+        atomicAdd(P.loop_use, (unsigned long long)sum);
+        atomicAdd(P.loop_use + 1, 32ull * most);
+      }
+    }
+    return;
+  }
   // fold in the lane's last completed path
   if (!alive && path_open) {
     acc_rad = acc_rad + rad;
@@ -2120,22 +2247,34 @@ size_t dynamic_smem(const Params& P, bool bvh, bool rows) {
          (bvh ? BVH_STACK_BYTES : 0);
 }
 
-// the register budget (MIN_BLOCKS) of the instance<GEO, VOL>(aovs, gtab) runs
-template <bool GEO, bool VOL>
+// the register budget (MIN_BLOCKS) of the instance<GEO, VOL, LOOPM>(aovs, gtab) runs
+template <bool GEO, bool VOL, bool LOOPM = false>
 int min_blocks(bool aovs, bool gtab) {
-  return gtab ? (aovs ? MIN_BLOCKS<true, GEO, VOL, false, true, false>
-                      : MIN_BLOCKS<false, GEO, VOL, false, true, false>)
-              : (aovs ? MIN_BLOCKS<true, GEO, VOL, false, false, false>
-                      : MIN_BLOCKS<false, GEO, VOL, false, false, false>);
+  return gtab ? (aovs ? MIN_BLOCKS<true, GEO, VOL, LOOPM, true, false>
+                      : MIN_BLOCKS<false, GEO, VOL, LOOPM, true, false>)
+              : (aovs ? MIN_BLOCKS<true, GEO, VOL, LOOPM, false, false>
+                      : MIN_BLOCKS<false, GEO, VOL, LOOPM, false, false>);
 }
 
 // launch `kernel` over `items` threads with `smem` bytes of dynamic shared
-// memory
+// memory; with `pool` (LOOPM) over no more blocks than the device holds at
+// once, whose threads take the rest of the items from the pool
 int launch_kernel(void (*kernel)(Params), int items, size_t smem, const Params& P,
-                  cudaStream_t s) {
+                  cudaStream_t s, bool pool = false) {
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kernel<<<(items + BLOCK - 1) / BLOCK, BLOCK, smem, s>>>(P);
+  int blocks = (items + BLOCK - 1) / BLOCK;
+  if (pool) {
+    int dev = 0, per_sm = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    if (blocks > per_sm * sms) blocks = per_sm * sms;
+  }
+  kernel<<<blocks, BLOCK, smem, s>>>(P);
   // a launch refused for registers or shared memory never runs, and a later
   // synchronize() does not report it: the wrapper raises on this code
   return (int)cudaGetLastError();
@@ -2145,7 +2284,7 @@ template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
   return launch_kernel(instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0),
                        PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n,
-                       dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>), P, s);
+                       dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>), P, s, LOOPM);
 }
 
 // the phase stubs' mask rides in a launch's flags above the FLAG_* bits; the
@@ -2286,17 +2425,22 @@ int bendy_trace_surface(TRACE_ARGS, void* stream) {
 // sample) (the LOOPM or the item instantiation): out, rays and iters are
 // per item, [n_out, n·spp] and [n·spp] (item = lane·spp + s, at most
 // INT_MAX items), for bendy_fold_samples to fold, and a non-null
-// `near_steps` [n·spp] int32 receives each item's RK4 step count. Not in the
-// stub build.
+// `near_steps` [n·spp] int32 receives each item's RK4 step count. The LOOPM
+// one takes its items from a pool shared by every LOOPM launch of the device,
+// so two must not run at once; a non-null `loop_use` [2] int64 gets its
+// threads' loop iterations and the iterations its warps issued added to it
+// (LOOPM only). Not in the stub build.
 #ifndef BENDY_PHASE_STUBS
 int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                          float far, int max_steps, float growth, void* near_steps,
-                         void* stream) {
+                         void* loop_use, void* stream) {
   const bool loopm = (flags & FLAG_LOOPM) != 0;
   if (!(flags & FLAG_GEO) || (flags & FLAG_BVH) || n_mass < 1 ||
-      (!loopm && n_mass > MAX_MASSES) || !items_ok(true, n, spp) || (flags >> STUB_SHIFT))
+      (!loopm && (n_mass > MAX_MASSES || loop_use != nullptr)) || !items_ok(true, n, spp) ||
+      (flags >> STUB_SHIFT))
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
+  P.loop_use = static_cast<unsigned long long*>(loop_use);
   P.n_mass = n_mass;
   P.eta = eta;
   P.min_step = min_step;
@@ -2318,21 +2462,23 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
 // and the GeoParams as for bendy_trace_geodesic); without, n_mass is
 // ignored, and FLAG_BVH walks the node block as for bendy_trace_surface,
 // one thread per lane, or else the item instantiation runs. Per item,
-// `vevents` is per item too. The stub build launches the item instantiation
-// of the stub mask in `flags` (no geodesics, no BVH, FULL output, table in
-// shared memory only).
+// `vevents` is per item too. `loop_use` as for bendy_trace_geodesic (LOOPM
+// only). The stub build launches the item instantiation of the stub mask in
+// `flags` (no geodesics, no BVH, FULL output, table in shared memory only).
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                        float far, int max_steps, float growth, void* near_steps,
                        const void* grid, int G, int D, int H, int W, float volume_step,
-                       int max_volume_bounces, int nearest, void* vevents, void* stream) {
+                       int max_volume_bounces, int nearest, void* vevents, void* loop_use,
+                       void* stream) {
   const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0,
              bvh = (flags & FLAG_BVH) != 0;
   if ((geo && (n_mass < 1 || (!loopm && n_mass > MAX_MASSES))) || (loopm && !geo) ||
-      (geo && bvh) || !bvh_args_ok(flags, bvh0, table_floats) ||
-      !items_ok(geo || !bvh, n, spp) ||
+      (geo && bvh) || (!loopm && loop_use != nullptr) ||
+      !bvh_args_ok(flags, bvh0, table_floats) || !items_ok(geo || !bvh, n, spp) ||
       grid == nullptr || vevents == nullptr || G < 1 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
+  P.loop_use = static_cast<unsigned long long*>(loop_use);
   P.n_mass = geo ? n_mass : 0;
   P.eta = eta;
   P.min_step = min_step;
@@ -2411,18 +2557,20 @@ int bendy_staged_floats(int flags, int volumes, int table_floats, int n_sph, int
   return (int)staged_floats(P, sweeps_rows(volumes != 0, false, (flags & FLAG_BVH) != 0));
 }
 
-// The instantiation without LOOPM or the BVH that a launch of
-// bendy_trace_surface (the surface one, one thread per lane),
-// bendy_trace_geodesic or bendy_trace_volume (these two the item
-// instantiations) with a table of `table_floats` and these primitive counts
-// (staged unless FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its
-// register budget asks for (__launch_bounds__; 0: none), the blocks one SM
-// holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of
-// the current device. Returns a CUDA error code. Not in the stub build.
+// The instantiation without the BVH that a launch of bendy_trace_surface
+// (the surface one, one thread per lane), bendy_trace_geodesic or
+// bendy_trace_volume (these two the item instantiations, or with FLAG_LOOPM
+// the LOOPM ones, whose resident grid is these blocks on every SM) with a
+// table of `table_floats` and these primitive counts (staged unless
+// FLAG_GTAB) runs: out [3] int32 gets the blocks per SM its register budget
+// asks for (__launch_bounds__; 0: none), the blocks one SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count of the
+// current device. Returns a CUDA error code. Not in the stub build.
 #ifndef BENDY_PHASE_STUBS
 int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats, int n_sph,
                          int n_rct, int n_box, void* out) {
   const bool geo = (flags & FLAG_GEO) != 0, aovs = want_aovs != 0, gtab = (flags & FLAG_GTAB) != 0;
+  const bool loopm = geo && (flags & FLAG_LOOPM) != 0;
   if (out == nullptr || table_floats < 0) return (int)cudaErrorInvalidValue;
   Params P = {};
   P.flags = flags;
@@ -2431,15 +2579,22 @@ int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats
   P.n_rct = n_rct;
   P.n_box = n_box;
   const size_t smem = dynamic_smem(P, false, sweeps_rows(volumes != 0, false, false));
-  void (*kernel)(Params) = volumes ? (geo ? instance<true, true>(aovs, gtab)
-                                          : instance<false, true>(aovs, gtab))
-                                   : (geo ? instance<true, false>(aovs, gtab)
-                                          : instance<false, false>(aovs, gtab));
+  void (*kernel)(Params) =
+      volumes ? (loopm ? instance<true, true, true>(aovs, gtab)
+                 : geo ? instance<true, true>(aovs, gtab)
+                       : instance<false, true>(aovs, gtab))
+              : (loopm ? instance<true, false, true>(aovs, gtab)
+                 : geo ? instance<true, false>(aovs, gtab)
+                       : instance<false, false>(aovs, gtab));
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int* o = static_cast<int*>(out);
-  o[0] = volumes ? (geo ? min_blocks<true, true>(aovs, gtab) : min_blocks<false, true>(aovs, gtab))
-                 : (geo ? min_blocks<true, false>(aovs, gtab) : min_blocks<false, false>(aovs, gtab));
+  o[0] = volumes ? (loopm ? min_blocks<true, true, true>(aovs, gtab)
+                    : geo ? min_blocks<true, true>(aovs, gtab)
+                          : min_blocks<false, true>(aovs, gtab))
+                 : (loopm ? min_blocks<true, false, true>(aovs, gtab)
+                    : geo ? min_blocks<true, false>(aovs, gtab)
+                          : min_blocks<false, false>(aovs, gtab));
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], kernel, BLOCK, smem);

@@ -20,7 +20,9 @@ primitive and light sweeps need no instantiation of their own. Geodesics
 and media without the BVH (:func:`per_item`) run one thread per (lane,
 sample) item instead (the LOOPM and the item instantiations), so that a
 lane's long samples spread over threads and no thread carries a quota of
-samples, under a register budget that fits more warps per SM; a second
+samples, under a register budget that fits more warps per SM (the LOOPM
+ones start a resident grid whose threads take the next item from a pool
+when their path ends, :func:`pools_items`); a second
 kernel (:func:`fold_samples`) adds each lane's samples in sample order,
 bit-equal to one thread per lane. A render pass (:func:`make_render_pass`)
 then runs one more kernel, :func:`accumulate` (``csrc/accumulate.cu``),
@@ -253,7 +255,15 @@ def _flags(cfg: TraceConfig) -> int:
             | (FLAG_DOF if cfg.has_dof else 0)
             | (FLAG_POLY if cfg.frustum_poly else 0)
             | (FLAG_GEO if cfg.geodesic else 0)
-            | (FLAG_LOOPM if cfg.geodesic and cfg.looped_masses else 0))
+            | (FLAG_LOOPM if pools_items(cfg) else 0))
+
+
+def pools_items(cfg: TraceConfig) -> bool:
+    """Whether a launch of ``cfg`` runs the LOOPM instantiations (geodesics
+    over looped masses), whose resident threads take their (lane, sample)
+    items from a pool and count their own warp use (``loop_use`` goes to
+    the tracer, not to the fold)."""
+    return cfg.geodesic and cfg.looped_masses
 
 
 def per_item(cfg: TraceConfig, bvh: bool = False) -> bool:
@@ -288,8 +298,13 @@ def staged_floats(lib, cfg: TraceConfig, table_floats: int, counts: dict) -> int
 
 def stays_in_global(lib, cfg: TraceConfig, table_floats: int, counts: dict) -> bool:
     """Whether that launch keeps its table in global memory (the GTAB
-    instantiations): :func:`table_in_global` of what it would stage."""
-    return table_in_global(4 * staged_floats(lib, cfg, table_floats, counts),
+    instantiations): :func:`table_in_global` of what it would stage, beside
+    the LOOPM threads' int each of static shared memory (their count of
+    loop iterations, ``pool_trips``)."""
+    from bendy_tpu_torch import _build
+
+    trips = 4 * _build.TRACE_BLOCK if pools_items(cfg) else 0
+    return table_in_global(4 * staged_floats(lib, cfg, table_floats, counts) + trips,
                            counts.get("bvh0", -1) >= 0)
 
 
@@ -416,19 +431,23 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
     (lane, sample) item into per-item buffers, each chunk of samples
     followed by its ordered fold (:func:`fold_samples`) into the per-lane
     outputs. ``extra(near_steps, vevents)`` gives the entry's arguments
-    after ``bvh_tests``. ``item_counts``, optional
+    after ``bvh_tests`` but the last, ``loop_use``, which this adds.
+    ``item_counts``, optional
     [N_COUNTS, B, spp] int32, receives a per-item launch's per-item counts
     (row 2, vevents, only with volumes; row 3, RK4 steps, only with
     geodesics). ``loop_use`` ([2] int64), optional, gets each per-item
-    launch's warp use added by its fold. ``bvh_tests`` and ``counter`` as
-    for :func:`_launch`. Returns (out, rays, iters)."""
+    launch's warp use added: by the tracer itself on the LOOPM path
+    (:func:`pools_items`, whose folds then count nothing), else by its
+    fold. ``bvh_tests`` and ``counter`` as for :func:`_launch`. Returns
+    (out, rays, iters)."""
     if not per_item(cfg, "bvh0" in counts):
         return _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, spp,
-                       spp_total, subsample, key, sample0, cfg, extra=extra(near_steps, vevents),
-                       bvh_tests=bvh_tests)
+                       spp_total, subsample, key, sample0, cfg,
+                       extra=extra(near_steps, vevents) + (None,), bvh_tests=bvh_tests)
     dev, B = pix.device, pix.shape[0]
     if spp < 1:
         raise ValueError(f"a per-item launch traces at least one sample, got spp {spp}")
+    _check_loop_use(loop_use, dev, entry)
     n_out = N_OUT if cfg.want_aovs else 3
     out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
     rays = torch.empty(B, dtype=torch.int32, device=dev)
@@ -441,16 +460,17 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
     samp = torch.empty(n_out * B * sc, dtype=torch.float32, device=dev)
     cnt = torch.empty(N_COUNTS * B * sc, dtype=torch.int32, device=dev)
     cap = cfg.max_iters(spp)  # the whole lane's cap for every item
+    traced, folded = (loop_use, None) if pools_items(cfg) else (None, loop_use)
     for c0 in range(0, spp, sc):
         s = min(sc, spp - c0)
         f = samp[:n_out * B * s].view(n_out, B * s)
         c = cnt[:N_COUNTS * B * s].view(N_COUNTS, B * s)
         _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, s, spp_total,
-                subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]),
+                subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]) + (traced,),
                 outs=(f, c[0], c[1]), max_iters=cap)
         fold_samples(f, c, s, out, rays, iters, vevents, near_steps, first=c0 == 0,
                      max_iters=cap if c0 + s == spp else -1, over_cap=over_cap_lanes(dev),
-                     loop_use=loop_use)
+                     loop_use=folded)
         if item_counts is not None:
             item_counts[:, :, c0:c0 + s] = c.view(N_COUNTS, B, s)
     return out, rays, iters
@@ -459,12 +479,13 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
 def item_occupancy(cfg: TraceConfig, table_floats: int,
                    counts: dict | None = None) -> tuple[int, int, int]:
     """(blocks per SM its register budget asks for, 0 for none, blocks one
-    SM holds, SMs) of the instantiation without looped masses or the BVH
-    that a launch of ``cfg`` with a table of ``table_floats`` and the
-    primitive ``counts`` of :func:`scene_table` (default none) runs on the
-    current card: the item instantiation of geodesics or media, or the
-    surface one, one thread per lane; blocks of the build's
-    ``_build.TRACE_BLOCK`` threads (the last two give the warps per SM)."""
+    SM holds, SMs) of the instantiation without the BVH that a launch of
+    ``cfg`` with a table of ``table_floats`` and the primitive ``counts`` of
+    :func:`scene_table` (default none) runs on the current card: the item
+    instantiation of geodesics or media, the LOOPM one with looped masses
+    (whose resident grid is that many blocks on every SM), or the surface
+    one, one thread per lane; blocks of the build's ``_build.TRACE_BLOCK``
+    threads (the last two give the warps per SM)."""
     from bendy_tpu_torch import _build
 
     lib = _build.library()
@@ -487,6 +508,33 @@ def warp_use_plain(iters: torch.Tensor, loop_use: torch.Tensor) -> None:
     leaves it out)."""
     n = iters.numel() // 32 * 32
     w = iters[:n].view(-1, 32).to(torch.int64)
+    loop_use += torch.stack([w.sum(), 32 * w.amax(dim=1).sum()])
+
+
+def warp_use_pool_plain(iters: torch.Tensor, loop_use: torch.Tensor, threads: int) -> None:
+    """Plain model of the LOOPM tracer's own warp-use count: ``iters``, the
+    loop iterations of a launch's items in item order, traced by ``threads``
+    threads (the resident grid) that each start on item = its index and,
+    when their item's iterations run out, take the next unclaimed index
+    (the earliest free thread first, ties in thread order, every thread at
+    one iteration a step). Adds to ``loop_use`` ([2] int64) the items'
+    iterations and the iterations the warps of 32 consecutive threads issue,
+    32 × each warp's longest thread (its items' iterations summed). Items of
+    equal length issue what :func:`warp_use_plain` counts for one item a
+    thread; the kernel's warps drift apart, so its count is the measure."""
+    its = iters.reshape(-1).to(torch.int64)
+    n = its.numel()
+    t = min(threads, n)
+    free = its[:t].clone()  # when each thread's item runs out
+    trips = torch.cat([free, free.new_zeros(-t % 32)])
+    k = t  # the next unclaimed item
+    while k < n:
+        idx = (free == free.min()).nonzero().flatten()[:n - k]  # in thread order
+        x = its[k:k + idx.numel()]
+        free[idx] += x
+        trips[idx] += x
+        k += idx.numel()
+    w = trips.view(-1, 32)
     loop_use += torch.stack([w.sum(), 32 * w.amax(dim=1).sum()])
 
 
@@ -751,7 +799,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     word, the lanes' loop iterations [B] that the pass's accumulate counts
     (a launch of one thread per lane, and the plain version, whose loop is
     per lane), or None where there is nothing left to count (no
-    ``loop_use``, or per-item launches, whose folds have counted).
+    ``loop_use``, or per-item launches, whose folds or, on the LOOPM path,
+    tracers have counted).
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
@@ -763,7 +812,7 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
                count_steps=False, count_items=False, loop_use=None):
         """The kernel route: (out, rays, iters, vol_events or None, bvh
         tests or None, RK4 steps or None, item counts or None), per lane;
-        ``loop_use`` goes to a per-item launch's folds."""
+        ``loop_use`` goes to a per-item launch (:func:`_traced`)."""
         dev = pix.device
         if dev not in tables:
             with telemetry.one_off("pass.build"):

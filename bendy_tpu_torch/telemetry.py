@@ -35,20 +35,22 @@ children.
 Counters, like the per-pass spans, are kept only while a profiler records:
 a profiled ``Renderer.render`` hands its pass the renderer's device int64
 pair (:func:`tally`), into which the pass's fold or accumulate kernels add
-the tracer's warp use, and :func:`counters` sums the pairs:
+the tracer's warp use (the LOOPM tracer, whose threads take items from a
+pool, adds its own), and :func:`counters` sums the pairs:
 
 ======================= ================================================
 counter                 what the profiled passes added
 ======================= ================================================
 ``loop_thread_iters``   the tracer's thread-loop iterations, over its
-                        threads (one a lane, or one a (lane, sample) item)
+                        threads (one a lane, one a (lane, sample) item,
+                        or LOOPM's: the items a thread took, summed)
 ``loop_issued_iters``   the iterations the warps of 32 consecutive
                         threads issue: 32 × each warp's longest loop
 ======================= ================================================
 
 Both leave out a launch's trailing partial warp, as
-``tools/perf_report.issued`` does; their ratio is the share of the warps'
-issued loop iterations that a thread used.
+``tools/perf_report.issued`` does (LOOPM counts its live threads); their
+ratio is the share of the warps' issued loop iterations that a thread used.
 
 The clock anchor: at the first render of a profiling session (the first that
 finds a profiler recording after one that did not), the recorder opens one

@@ -17,7 +17,9 @@ lineinfo build's opcodes to those of the checkout's built library
 (``cuobjdump -sass``), so that the counts are of the code that runs. The
 listing parser (:func:`functions`, :func:`instructions`, :func:`loops`)
 reads both tools' listings and also serves ``chip_smoke.py``'s counts of
-the probes' SASS.
+the probes' SASS, and :func:`same_tracers` holds every tracer instantiation
+of one built library to another's (a parent checkout's, built by
+:func:`checkout_library`).
 
 :func:`skip_shares` builds the measuring build of the tracer's source
 (``-DBENDY_SWEEP_STATS``, its own hashed directory under ``_build/``),
@@ -237,6 +239,38 @@ def same_code(lineinfo: str, library: str, name: str = SURFACE) -> bool:
     both listings."""
     ops = [[opcode(t) for _, t in instructions(function(d, name))[0]] for d in (lineinfo, library)]
     return ops[0] == ops[1]
+
+
+def same_tracers(library: str, other: str) -> dict[str, bool | None]:
+    """{label (``_build.trace_label``): whether it has the same opcodes in
+    both listings} over the tracer instantiations of the library listing
+    ``library``, each found in ``other`` by its mangled name after the
+    anonymous namespace (whose hash follows the source's path); None where
+    ``other`` has no such function."""
+    from bendy_tpu_torch import _build
+
+    theirs = functions(other)
+    out = {}
+    for name in functions(library):
+        m = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E.*", name)
+        if m:
+            tail = m.group(0)
+            found = any(k.endswith(tail) for k in theirs)
+            out[_build.trace_label(*(int(g) for g in m.groups()))] = (
+                same_code(library, other, tail) if found else None)
+    return out
+
+
+def checkout_library(root: Path) -> tuple[Path, str]:
+    """(the library, its build log) of the checkout at ``root``, built by
+    its own ``_build`` (its flags, into its own ``_build/``) in a process of
+    its own."""
+    cmd = [sys.executable, "-c", "import sys; from bendy_tpu_torch import _build; "
+           "lib, _ = _build.build(); print(lib.resolve()); sys.stdout.write(_build.build_log())"]
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, check=True,
+                         timeout=900).stdout
+    lib, _, log = out.partition("\n")
+    return Path(lib.strip()), log
 
 
 def _tool(name: str) -> str:

@@ -17,7 +17,10 @@ Phases, one line each (any failure exits non-zero):
      each tile of the wgmma dot chain, and ptxas's warnings on wgmma, if
      any) and of the pass's accumulate kernel (csrc/accumulate.cu); then
      each item instantiation's register budget (minBlocks) and the blocks
-     of 128 an SM holds, and the surface instantiations'; then the SASS
+     of 128 an SM holds, and the surface and LOOPM instantiations'; with
+     run(parent=<the parent's checkout>) every tracer instantiation's
+     opcodes and ptxas line against the parent's library, where only the
+     LOOPM ones may differ (printed beside the parent's); then the SASS
      of the surface sweep per loop iteration, and of the geodesic item
      instantiation's (tools/sweep_sass.py, from a -lineinfo build of
      trace_surface.cu started beside the default one, held to the
@@ -109,12 +112,15 @@ Phases, one line each (any failure exits non-zero):
      looped sweep with media, the BVH): 256x256, 16 spp,
      Config(max_bounces=4), through the volume kernel, as phases 6 and 9,
  11. the mass_cluster main path (64 masses, the looped mass sweep): 256x256,
-     16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel (one
-     thread per (lane, sample)) and the fold kernel, as phase 5, with each
-     lane's RK4 steps counted for the bound; the per-item and per-lane
-     loop lengths and the slowest block over the mean block of both
-     designs (the same paths), and the fold kernel alone against its plain
-     version and torch.sum,
+     16 spp, Config(max_bounces=2), through the LOOPM geodesic kernel (a
+     resident grid whose threads take (lane, sample) items from a pool)
+     and the fold kernel, as phase 5, with each lane's RK4 steps counted
+     for the bound; the per-item and per-lane loop lengths and the slowest
+     block over the mean block of one item and one lane a thread (the
+     same paths); the tracer's own warp-use count of one call against its
+     items' iterations, one item a thread's count and the pool model's,
+     and the call against one item a thread's 56.469 ms; and the fold
+     kernel alone against its plain version and torch.sum,
  12. the many-lights path (the looped light sweep; 201 primitives, the
      BVH): build_light_field(200) at 256x256, 16 spp, Config(max_bounces=3),
      through the surface kernel, as phase 9,
@@ -179,7 +185,10 @@ Phases, one line each (any failure exits non-zero):
      256x256 2x2 64 spp and 768x512 2x2 1 spp, blackhole 1920x1080 256 spp
      with 2 bounces, mass_cluster 1920x1080 16 spp): one profiled pass each
      (telemetry.counters()) against tools/perf_report.issued and the
-     iteration sum of the same key's per-thread counts, integer for integer.
+     iteration sum of the same key's per-thread counts, integer for integer;
+     mass_cluster's LOOPM tracer counts its pooled warps itself: its thread
+     iterations equal the items' sum, it issues a multiple of 32 no fewer,
+     beside one item a thread's count and the pool model's.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -285,18 +294,22 @@ def item_budgets() -> str:
     4 KiB table in shared memory and with the table in global memory
     (GTAB); the same of the surface instantiations (a budget of 1,024
     threads an SM in FULL output with the table staged, none with AOVs or
-    GTAB: minBlocks 0)."""
+    GTAB: minBlocks 0) and of the LOOPM ones (their resident grid: the
+    blocks one SM holds on every SM)."""
     from bendy_tpu_torch._build import TRACE_BLOCK
     from bendy_tpu_torch.ops.trace_kernel import MAX_TABLE_BYTES, item_occupancy
     from bendy_tpu_torch.ops.wavefront import TraceConfig
 
     parts = []
-    for geo, vol in ((False, False), (True, False), (False, True), (True, True)):
+    for geo, vol, loopm in ((False, False, False), (True, False, False), (False, True, False),
+                            (True, True, False), (True, False, True), (True, True, True)):
         for aovs in (False, True):
             for gtab, floats in ((0, 1024), (1, MAX_TABLE_BYTES // 4 + 1)):
-                cfg = TraceConfig(geodesic=geo, has_volumes=vol, want_aovs=aovs)
+                cfg = TraceConfig(geodesic=geo, has_volumes=vol, want_aovs=aovs,
+                                  looped_masses=loopm)
                 min_blocks, per_sm, sms = item_occupancy(cfg, floats)
-                parts.append(f"{trace_label(int(aovs), int(geo), int(vol), 0, gtab, 0)}: minBlocks "
+                label = trace_label(int(aovs), int(geo), int(vol), int(loopm), gtab, 0)
+                parts.append(f"{label}: minBlocks "
                              f"{min_blocks}, {per_sm} blocks of {TRACE_BLOCK} per SM "
                              f"({per_sm * TRACE_BLOCK // 32} warps) "
                              f"x {sms} SMs")
@@ -1046,17 +1059,20 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
     if items:
         item_rays, item_iters = item_counts[0].reshape(-1), item_counts[1].reshape(-1)
         lane_iters = item_counts[1].sum(dim=1, dtype=torch.int32)
-        budget = ""
-        if not cfg.looped_masses:
-            min_blocks, per_sm, sms = item_occupancy(cfg, table.numel())
-            blk = _build.TRACE_BLOCK
-            budget = (f"; {-(-item_iters.numel() // blk)} blocks of {blk}, {per_sm} per SM "
-                      f"({per_sm * blk // 32} warps) x {sms} SMs, minBlocks {min_blocks}")
+        min_blocks, per_sm, sms = item_occupancy(cfg, table.numel(), counts)
+        blk = _build.TRACE_BLOCK
+        blocks = -(-item_iters.numel() // blk)
+        if cfg.looped_masses:  # the pool's resident grid
+            blocks = min(blocks, per_sm * sms)
+        budget = (f"; {blocks} blocks of {blk}, {per_sm} per SM ({per_sm * blk // 32} warps) x "
+                  f"{sms} SMs, minBlocks {min_blocks}")
         print(f"phase {phase}: one thread per (lane, sample): "
               f"{warp_stats(item_rays, item_iters, 'item')}, slowest block over the mean block "
               f"{block_tail(item_iters):.3f}; one thread per lane (the parent design, the same "
               f"paths): {warp_stats(item_counts[0].sum(dim=1), lane_iters)}, slowest block over "
               f"the mean block {block_tail(lane_iters):.3f}{budget}")
+        if cfg.looped_masses:
+            pool_use(phase, call, item_iters, blocks * blk, call_ms, dev)
         fold = fold_alone(phase, pix.numel(), spp, 10 if cfg.want_aovs else 3, cfg.max_iters(spp),
                           dev)
     kern_pass = make_render_pass(r.arrays, W, H, plain_rows, pass_spp, n, cfg, "full")
@@ -1093,6 +1109,38 @@ def kernel_alone_and_passes(phase: int, run: dict, W: int, H: int, spp: int, n: 
                 pass_spp=pass_spp, fold=fold, sweep_floor_ms=sweep_ms if bvh else None,
                 tests=tests, table_ms=table_s * 1e3, glue_ms=glue_ms, accumulate=acc,
                 occupancy=occupancy)
+
+
+# phase 11's LOOPM call (256x256, 16 spp, each launch with its fold) with one
+# item a thread, before the pool: median of 7 seeds, NVIDIA H100 80GB HBM3
+# at 700.00 W (PERF.md §6, kernel 1e-iii)
+LOOPM_ONE_ITEM_MS = 56.469
+
+
+def pool_use(phase: int, call, item_iters, threads: int, call_ms: float, dev) -> None:
+    """Phase 11: the LOOPM tracer's own warp-use count of one call at the
+    key of ``item_iters`` (its items' iterations in item order), which must
+    sum those iterations and issue a multiple of 32 no fewer; beside it
+    the static count of one item a thread (``warp_use_plain``) and the pool
+    model at the launch's ``threads`` (``warp_use_pool_plain``), and the
+    call against the one-item-a-thread route's time."""
+    import torch
+
+    from bendy_tpu_torch.ops.trace_kernel import warp_use_plain, warp_use_pool_plain
+
+    use = torch.zeros(2, dtype=torch.int64, device=dev)
+    call(REPEATS, loop_use=use)
+    static, model = (torch.zeros(2, dtype=torch.int64) for _ in range(2))
+    warp_use_plain(item_iters.cpu(), static)
+    warp_use_pool_plain(item_iters.cpu(), model, threads)
+    got = use.tolist()
+    print(f"phase {phase}: the item pool of {threads} threads: the tracer's count {got} "
+          f"({100 * got[0] / max(got[1], 1):.2f} %), one item a thread {static.tolist()} "
+          f"({100 * static[0] / static[1]:.2f} %), the pool model {model.tolist()} "
+          f"({100 * model[0] / model[1]:.2f} %); the call {call_ms:.3f} ms against one item a "
+          f"thread's {LOOPM_ONE_ITEM_MS} ms ({call_ms / LOOPM_ONE_ITEM_MS:.4f})")
+    if got[0] != int(item_iters.sum()) or got[1] % 32 or got[1] < got[0]:
+        fail("the LOOPM tracer's warp-use count disagrees with its items' iterations")
 
 
 def accumulate_alone(phase: int, out, rays, nn: int, H: int, W: int, dev, pix=None) -> dict:
@@ -2067,14 +2115,19 @@ def warp_use_vs_issued(dev) -> list:
     launch order by ``perf_report.thread_counts``) give
     ``perf_report.issued`` and the thread-iteration sum, which must equal
     the counters integer for integer. Every cell's lanes, so every launch's
-    threads, are a multiple of 32, so no warp spans two launches. Returns
-    the rows."""
+    threads, are a multiple of 32, so no warp spans two launches. The LOOPM
+    tracer (mass_cluster) counts its own warps, whose threads take items
+    from the pool: its thread iterations must equal the items' iteration
+    sum, and it must issue a multiple of 32 no fewer; ``issued`` (one item a
+    thread) and the pool model (``warp_use_pool_plain`` at the launch's
+    threads) are printed beside it. Returns the rows."""
     import torch
 
-    from bendy_tpu_torch import telemetry
+    from bendy_tpu_torch import _build, telemetry
     from bendy_tpu_torch.bench import renderer_lanes
     from bendy_tpu_torch.film import DeviceFilm
-    from bendy_tpu_torch.ops.trace_kernel import make_tracer
+    from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_tracer, pools_items,
+                                                  tracer_table, warp_use_pool_plain)
     from bendy_tpu_torch.render import Config, RenderConfig, Subsample
     from bendy_tpu_torch.tools.perf_report import issued, thread_counts
 
@@ -2096,9 +2149,26 @@ def warp_use_vs_issued(dev) -> list:
                 "loop_issued_iters": issued(iters)}
         row = dict(cell=f"{name} {W}x{H} {spp}spp {n}x{n}", counters=got, recomputed=want,
                    warp_use=100.0 * got["loop_thread_iters"] / max(got["loop_issued_iters"], 1))
-        print(f"phase 20: {row['cell']}: counters {got}, from the per-thread counts {want}: "
-              f"loop_warp_use {row['warp_use']:.4f} %")
-        if pix.numel() % 32 or got != want or not 0 < got["loop_thread_iters"]:
+        if pools_items(cfg):
+            table_np, counts = tracer_table(r.arrays.host_copy(), cfg)
+            _, per_sm, sms = item_occupancy(cfg, table_np.size, counts)
+            threads = min(per_sm * sms * _build.TRACE_BLOCK, iters.numel())
+            model = torch.zeros(2, dtype=torch.int64)
+            warp_use_pool_plain(iters.cpu(), model, threads)
+            row.update(threads=threads, pool_model=model.tolist())
+            print(f"phase 20: {row['cell']}: the pool's counters {got} (loop_warp_use "
+                  f"{row['warp_use']:.4f} %); from the per-thread counts, one item a thread "
+                  f"{want} ({100 * want['loop_thread_iters'] / want['loop_issued_iters']:.4f} "
+                  f"%), the pool model at {threads} threads {model.tolist()} "
+                  f"({100 * model[0] / model[1]:.4f} %)")
+            issued_ok = (got["loop_issued_iters"] % 32 == 0
+                         and got["loop_issued_iters"] >= got["loop_thread_iters"])
+            ok = got["loop_thread_iters"] == want["loop_thread_iters"] and issued_ok
+        else:
+            print(f"phase 20: {row['cell']}: counters {got}, from the per-thread counts {want}: "
+                  f"loop_warp_use {row['warp_use']:.4f} %")
+            ok = got == want
+        if pix.numel() % 32 or not ok or not 0 < got["loop_thread_iters"]:
             fail(f"the warp-use counter of {row['cell']} disagrees with perf_report.issued")
         rows.append(row)
         del res, iters
@@ -2107,9 +2177,36 @@ def warp_use_vs_issued(dev) -> list:
     return rows
 
 
-def run(phases=None, phase3_names=None) -> int:
+def parent_code(lib_path, parent_build) -> None:
+    """Phase 2 with a parent checkout: every tracer instantiation's opcodes
+    (``sweep_sass.same_tracers``) and every ptxas line against the parent's
+    library. Only the LOOPM instantiations may differ; their lines are
+    printed beside the parent's."""
+    from bendy_tpu_torch import _build
+    from bendy_tpu_torch.tools import sweep_sass
+
+    plib, plog = parent_build.result()
+    same = sweep_sass.same_tracers(sweep_sass.library_listing(lib_path),
+                                   sweep_sass.library_listing(plib))
+    mine, theirs = ({ln.split(": ")[0]: ln for ln in ptxas_report(log)}
+                    for log in (_build.build_log(), plog))
+    others = [k for k in same if "LOOPM=1" not in k]
+    code_off = [k for k in others if not same[k]]
+    lines_off = [k for k in mine if "LOOPM=1" not in k and mine[k] != theirs.get(k)]
+    print(f"phase 2: opcodes equal to the parent's library: {len(others) - len(code_off)} of "
+          f"{len(others)} instantiations without LOOPM, LOOPM " + ", ".join(
+              f"{k} {same[k]}" for k in same if "LOOPM=1" in k)
+          + f"; ptxas lines equal but LOOPM's: {not lines_off}; LOOPM, change | parent: "
+          + " | ".join(f"{mine[k]} | {theirs.get(k)}" for k in mine if "LOOPM=1" in k))
+    if code_off or lines_off:
+        fail(f"instantiations without LOOPM differ from the parent's: {code_off + lines_off}")
+
+
+def run(phases=None, phase3_names=None, parent=None) -> int:
     """Run the phases in ``phases`` (all when None; the card and the build
-    always run), phase 3 on the cases of ``phase3_names`` only when given."""
+    always run), phase 3 on the cases of ``phase3_names`` only when given;
+    with ``parent``, the root of the parent's checkout, phase 2 also holds
+    the build to the parent's library (:func:`parent_code`)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2139,6 +2236,7 @@ def run(phases=None, phase3_names=None) -> int:
                         if t != _build.TRACE_BLOCK]
     if phases is None or 19 in phases:
         stub_build = pool.submit(_build.build, None, True)
+    parent_build = None if parent is None else pool.submit(sweep_sass.checkout_library, parent)
     pool.shutdown(wait=False)
     lib_path, build_s = _build.build()
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s; ptxas: "
@@ -2152,6 +2250,8 @@ def run(phases=None, phase3_names=None) -> int:
           f"({sweep['geodesic']['instantiation']}): {json.dumps(sweep['geodesic']['loops'])}")
     if not sweep["lineinfo_matches_library"]:
         fail("the sweep's lineinfo build does not hold the library's instructions")
+    if parent_build is not None:
+        parent_code(lib_path, parent_build)
 
     err16 = {}
     if phases is None or 3 in phases:

@@ -51,6 +51,7 @@ from bendy_tpu.render import Renderer as RefRenderer
 from bendy_tpu.scene import load_scene as ref_load
 from bendy_tpu.utils.v3 import V3 as JV3
 from bendy_tpu_torch import Renderer, build_prim_grid, load_scene
+from bendy_tpu_torch._build import trace_label
 from bendy_tpu_torch.ops import intersect
 from bendy_tpu_torch.ops.trace_kernel import scene_table
 from bendy_tpu_torch.scene.compiler import compile_scene
@@ -662,6 +663,18 @@ def test_sweep_sass_counts_a_listing():
     assert (rect["CALL"], rect["BSSY/BSYNC"], rect["BRA"]) == (0.5, 1.0, 0.5)
     assert sweep_sass.same_code(LISTING, LISTING.replace("R20", "R21"))
     assert not sweep_sass.same_code(LISTING, LISTING.replace("FADD", "FMUL"))
+
+
+def test_same_tracers_finds_each_instantiation_in_another_library():
+    """Every tracer instantiation of one listing held to the same mangled
+    name in another (whose anonymous namespace differs): its opcodes, or
+    None where the other lacks it; other functions are left out."""
+    loopm = LISTING.replace("ILb0ELb0ELb0ELb0ELb0ELb0E", "ILb0ELb1ELb0ELb1ELb0ELb0E")
+    mine = LISTING + loopm
+    theirs = (LISTING + loopm.replace("FADD", "FMUL")).replace("4xx", "5yyyy")
+    surface, looped = (trace_label(0, g, 0, g, 0, 0) for g in (0, 1))
+    assert sweep_sass.same_tracers(mine, theirs) == {surface: True, looped: False}
+    assert sweep_sass.same_tracers(mine, LISTING) == {surface: True, looped: None}
 
 
 def test_sweep_sass_counts_the_geodesic_instantiation(monkeypatch, tmp_path):
