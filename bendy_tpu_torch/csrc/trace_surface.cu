@@ -407,7 +407,7 @@ struct Params {
   int32_t* near_steps;                           // geodesics, optional: RK4 steps per item
   int bvh0;                                      // BVH only: the node block's offset in the table
   int32_t* bvh_tests;                            // BVH only, optional: [2, n] node, prim tests
-  unsigned long long* loop_use;                  // LOOPM only, optional: [2] warp use (below)
+  unsigned long long* loop_use;                  // optional: [2] warp use (count_warp_use)
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -1420,8 +1420,8 @@ __device__ __forceinline__ unsigned pool_take(unsigned threads, unsigned items) 
 }
 
 // LOOPM: the loop iterations of the calling thread's finished items, for the
-// warp-use count (in shared memory: a register more moved other
-// instantiations' code)
+// warp-use count (count_warp_use; in shared memory: a register more moved
+// other instantiations' code)
 __device__ __forceinline__ int& pool_trips() {
   __shared__ int trips[BLOCK];
   return trips[threadIdx.x];
@@ -1462,6 +1462,25 @@ __device__ __forceinline__ void store_item(const Params& P, int N, int item, boo
   P.iters[item] = it;
   if constexpr (VOL) P.vevents[item] = vev;
   if (P.near_steps != nullptr) P.near_steps[item] = n_near;
+}
+
+// The tracer's warp use, the one count of it (telemetry.counters,
+// loop_warp_use): with loop_use (profiled passes) each warp of 32 consecutive
+// threads adds its threads' loop iterations, `trips`, and 32 × its longest
+// thread's to loop_use [2], one atomicAdd pair a warp. A launch of `items`
+// lanes or items leaves a trailing partial warp out of both sums
+// (ops/trace_kernel.warp_use counts alike): its threads past the items
+// returned before the loop, so no full-mask reduction may name them. Every
+// instantiation calls it at its end.
+__device__ __forceinline__ void count_warp_use(unsigned long long* loop_use, int items,
+                                               int trips) {
+  if (loop_use == nullptr || ((blockIdx.x * blockDim.x + threadIdx.x) | 31) >= items) return;
+  const unsigned sum = __reduce_add_sync(0xffffffffu, (unsigned)trips);
+  const unsigned most = __reduce_max_sync(0xffffffffu, (unsigned)trips);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(loop_use, (unsigned long long)sum);
+    atomicAdd(loop_use + 1, 32ull * most);
+  }
 }
 
 // the routing (ops/trace_kernel.per_item): geodesics (LOOPM among them)
@@ -1976,19 +1995,9 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
   }
 
   if constexpr (LOOPM) {
-    // every item written in the loop; with loop_use (profiled passes) the
-    // warp adds its threads' loop iterations and 32 × its own loop trips
-    // (the longest thread's), as fold_kernel<true> counts the static mapping
-    if (P.loop_use != nullptr) {
-      const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) & ~31, live = P.n * P.spp - w0;
-      const unsigned warp = live >= 32 ? 0xffffffffu : (1u << live) - 1u;  // ragged last warp
-      const unsigned sum = __reduce_add_sync(warp, (unsigned)pool_trips());
-      const unsigned most = __reduce_max_sync(warp, (unsigned)pool_trips());
-      if ((threadIdx.x & 31) == 0) {
-        atomicAdd(P.loop_use, (unsigned long long)sum);
-        atomicAdd(P.loop_use + 1, 32ull * most);
-      }
-    }
+    // every item written in the loop; a thread's loop trips are its items'
+    // iterations summed
+    count_warp_use(P.loop_use, P.n * P.spp, pool_trips());
     return;
   }
   // fold in the lane's last completed path
@@ -2025,6 +2034,9 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
       P.bvh_tests[N + item] = walk.prim_tests;
     }
   }
+  // (LOOPM counted its own above: this dead call, compiled into its
+  // instantiations, moved their loops' code)
+  if constexpr (!LOOPM) count_warp_use(P.loop_use, N, it);
 }
 
 // The ordered fold of a per-item launch: each lane's spp per-item words
@@ -2066,80 +2078,17 @@ __host__ __device__ __forceinline__ int fold_stride(int spp) {
   return (spp < FOLD_TILE ? spp : FOLD_TILE) | 1;
 }
 
-// The tracer's warp use (csrc/accumulate.cu counts it alike): each warp of
-// 32 consecutive threads of a launch issues 32 × its longest thread loop.
-// A block's threads read runs of `run` consecutive threads' iteration counts,
-// run r0 = t·run from a block start on a warp boundary, so no warp spans two
-// blocks. This takes the block's item k (count x) in order within its run
-// [r0, r0 + run): it adds x to `loop_it` and, at a warp's last item, the
-// warp's longest to `issued` where the warp lies within the run, else into
-// warp_max[the run where the warp starts] (atomicMax), which the block adds
-// after a barrier; `wmax` carries the open warp's longest. `left`: the
-// launch's threads from the block's first on; a trailing partial warp is
-// left out of both sums, as tools/perf_report.issued leaves it out.
-__device__ __forceinline__ void count_warp_item(int k, int x, int r0, int run, long long left,
-                                                int& wmax, long long& loop_it, long long& issued,
-                                                int* warp_max) {
-  if ((k | 31) >= left) return;
-  loop_it += x;
-  wmax = max(wmax, x);
-  const bool warp_end = (k & 31) == 31;
-  if (!warp_end && k != r0 + run - 1) return;
-  const int w0 = k & ~31;
-  if (warp_end && w0 >= r0) issued += wmax;
-  else atomicMax(&warp_max[w0 / run], wmax);
-  wmax = 0;
-}
-
-// The block's warp-use sums into loop_use [2] (thread iterations, issued
-// iterations); after count_warp_item and a barrier.
-__device__ __forceinline__ void add_warp_use(long long loop_it, long long issued,
-                                             const int* warp_max,
-                                             long long (*sums)[FOLD_LANES / 32],
-                                             unsigned long long* loop_use) {
-  issued += warp_max[threadIdx.x];
-  for (int o = 16; o > 0; o >>= 1) {
-    loop_it += __shfl_down_sync(0xffffffffu, loop_it, o);
-    issued += __shfl_down_sync(0xffffffffu, issued, o);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    sums[0][threadIdx.x >> 5] = loop_it;
-    sums[1][threadIdx.x >> 5] = issued;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long a = 0, b = 0;
-    for (int w = 0; w < FOLD_LANES / 32; ++w) {
-      a += sums[0][w];
-      b += sums[1][w];
-    }
-    if (a != 0) atomicAdd(loop_use, (unsigned long long)a);
-    if (b != 0) atomicAdd(loop_use + 1, (unsigned long long)(32 * b));
-  }
-}
-
-// fold_kernel<true>, launched for a profiled pass, also counts the tracer's
-// warp use into loop_use from the items' iteration row (the per-item
-// launch's thread is item lane·spp + s, so lane l's run of items is
-// [l·spp, (l + 1)·spp)); fold_kernel<false> is the fold alone.
-template <bool COUNT>
 __global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, const int32_t* cnt,
                                                           int n, int spp, int n_out, bool first,
                                                           int max_iters, float* out,
                                                           int32_t* rays, int32_t* iters,
                                                           int32_t* vevents, int32_t* near_steps,
-                                                          int32_t* over_cap,
-                                                          unsigned long long* loop_use) {
+                                                          int32_t* over_cap) {
   extern __shared__ uint32_t fold_tiles[];  // [2][FOLD_LANES · stride]
-  __shared__ int warp_max[COUNT ? FOLD_LANES : 1];
-  __shared__ long long warp_sums[2][FOLD_LANES / 32];
   const int t = threadIdx.x, lane0 = blockIdx.x * FOLD_LANES, lane = lane0 + t;
   const int lanes = min(FOLD_LANES, n - lane0), stride = fold_stride(spp);
   const int tiles = (spp + FOLD_TILE - 1) / FOLD_TILE;
   const size_t items = (size_t)n * spp;
-  long long loop_it = 0, issued = 0;
-  int wmax = 0;
-  if constexpr (COUNT) warp_max[t] = 0;  // before the first stage's barrier
   // the rows: n_out sums, then each count whose output is given
   auto dst = [&](int w) {
     return w == 0 ? rays : w == 1 ? iters : w == 2 ? vevents : near_steps;
@@ -2203,15 +2152,6 @@ __global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, con
         int32_t acc = j > 0 ? isum : first ? 0 : dst(w)[lane];
         for (int i = 0; i < ts; ++i) acc += (int32_t)v[i];
         isum = acc;
-        if constexpr (COUNT) {
-          if (w == 1) {
-            const int k0 = t * spp + j * FOLD_TILE;
-            const long long left = (long long)items - (long long)lane0 * spp;
-            for (int i = 0; i < ts; ++i)
-              count_warp_item(k0 + i, (int)v[i], t * spp, spp, left, wmax, loop_it, issued,
-                              warp_max);
-          }
-        }
         if (last) {
           dst(w)[lane] = acc;
           if (w == 1 && max_iters >= 0 && acc > max_iters) atomicAdd(over_cap, 1);
@@ -2223,7 +2163,6 @@ __global__ void __launch_bounds__(FOLD_LANES) fold_kernel(const float* samp, con
     r = nr;
     j = nj;
   }
-  if constexpr (COUNT) add_warp_use(loop_it, issued, warp_max, warp_sums, loop_use);
 }
 
 template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
@@ -2329,7 +2268,7 @@ Params make_params(const void* table, int table_floats, const void* cam, const v
                    int height, int spp, int subsample, unsigned spp_total, unsigned key0,
                    unsigned key1, unsigned sample0, int max_bounces, int max_iters,
                    float clip_min, float clip_max, int flags, int n_sph, int n_rct, int n_box,
-                   int n_light, int n_face, int bvh0, void* bvh_tests) {
+                   int n_light, int n_face, int bvh0, void* bvh_tests, void* loop_use) {
   Params P = {};
   P.table = static_cast<const float*>(table);
   P.cam = static_cast<const float*>(cam);
@@ -2367,6 +2306,7 @@ Params make_params(const void* table, int table_floats, const void* cam, const v
   P.n_face = n_face;
   P.bvh0 = bvh0;
   P.bvh_tests = static_cast<int32_t*>(bvh_tests);
+  P.loop_use = static_cast<unsigned long long*>(loop_use);
   return P;
 }
 
@@ -2388,11 +2328,11 @@ bool items_ok(bool per_item, int n, int spp) {
       void *out, void *rays, void *iters, int n, int width, int height, int spp, int subsample,   \
       unsigned spp_total, unsigned key0, unsigned key1, unsigned sample0, int max_bounces,       \
       int max_iters, float clip_min, float clip_max, int flags, int n_sph, int n_rct, int n_box, \
-      int n_light, int n_face, int want_aovs, int bvh0, void *bvh_tests
+      int n_light, int n_face, int want_aovs, int bvh0, void *bvh_tests, void *loop_use
 #define TRACE_PARAMS                                                                             \
   make_params(table, table_floats, cam, pix, sub, out, rays, iters, n, width, height, spp,      \
               subsample, spp_total, key0, key1, sample0, max_bounces, max_iters, clip_min,       \
-              clip_max, flags, n_sph, n_rct, n_box, n_light, n_face, bvh0, bvh_tests)
+              clip_max, flags, n_sph, n_rct, n_box, n_light, n_face, bvh0, bvh_tests, loop_use)
 
 extern "C" {
 
@@ -2401,7 +2341,9 @@ extern "C" {
 // With FLAG_BVH it walks the node block at float `bvh0` of `table`
 // (ops/bvh.py) and, when `bvh_tests` is not null, writes each lane's node
 // and primitive test counts to it ([2, n] int32); without, both are ignored.
-// The stub build launches the instantiation of the stub mask in `flags`
+// A non-null `loop_use` [2] int64 gets the launch's warp use added to it
+// (count_warp_use: its threads' loop iterations and the iterations its warps
+// issued), in every entry and instantiation. The stub build launches the instantiation of the stub mask in `flags`
 // (FULL output, table in shared memory only).
 int bendy_trace_surface(TRACE_ARGS, void* stream) {
   if ((flags & (FLAG_GEO | FLAG_LOOPM)) || !bvh_args_ok(flags, bvh0, table_floats))
@@ -2427,20 +2369,16 @@ int bendy_trace_surface(TRACE_ARGS, void* stream) {
 // INT_MAX items), for bendy_fold_samples to fold, and a non-null
 // `near_steps` [n·spp] int32 receives each item's RK4 step count. The LOOPM
 // one takes its items from a pool shared by every LOOPM launch of the device,
-// so two must not run at once; a non-null `loop_use` [2] int64 gets its
-// threads' loop iterations and the iterations its warps issued added to it
-// (LOOPM only). Not in the stub build.
+// so two must not run at once. Not in the stub build.
 #ifndef BENDY_PHASE_STUBS
 int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                          float far, int max_steps, float growth, void* near_steps,
-                         void* loop_use, void* stream) {
+                         void* stream) {
   const bool loopm = (flags & FLAG_LOOPM) != 0;
   if (!(flags & FLAG_GEO) || (flags & FLAG_BVH) || n_mass < 1 ||
-      (!loopm && (n_mass > MAX_MASSES || loop_use != nullptr)) || !items_ok(true, n, spp) ||
-      (flags >> STUB_SHIFT))
+      (!loopm && n_mass > MAX_MASSES) || !items_ok(true, n, spp) || (flags >> STUB_SHIFT))
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
-  P.loop_use = static_cast<unsigned long long*>(loop_use);
   P.n_mass = n_mass;
   P.eta = eta;
   P.min_step = min_step;
@@ -2462,23 +2400,20 @@ int bendy_trace_geodesic(TRACE_ARGS, int n_mass, float eta, float min_step, floa
 // and the GeoParams as for bendy_trace_geodesic); without, n_mass is
 // ignored, and FLAG_BVH walks the node block as for bendy_trace_surface,
 // one thread per lane, or else the item instantiation runs. Per item,
-// `vevents` is per item too. `loop_use` as for bendy_trace_geodesic (LOOPM
-// only). The stub build launches the item instantiation of the stub mask in
-// `flags` (no geodesics, no BVH, FULL output, table in shared memory only).
+// `vevents` is per item too. The stub build launches the item instantiation
+// of the stub mask in `flags` (no geodesics, no BVH, FULL output, table in
+// shared memory only).
 int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float max_step,
                        float far, int max_steps, float growth, void* near_steps,
                        const void* grid, int G, int D, int H, int W, float volume_step,
-                       int max_volume_bounces, int nearest, void* vevents, void* loop_use,
-                       void* stream) {
+                       int max_volume_bounces, int nearest, void* vevents, void* stream) {
   const bool geo = (flags & FLAG_GEO) != 0, loopm = (flags & FLAG_LOOPM) != 0,
              bvh = (flags & FLAG_BVH) != 0;
   if ((geo && (n_mass < 1 || (!loopm && n_mass > MAX_MASSES))) || (loopm && !geo) ||
-      (geo && bvh) || (!loopm && loop_use != nullptr) ||
-      !bvh_args_ok(flags, bvh0, table_floats) || !items_ok(geo || !bvh, n, spp) ||
+      (geo && bvh) || !bvh_args_ok(flags, bvh0, table_floats) || !items_ok(geo || !bvh, n, spp) ||
       grid == nullptr || vevents == nullptr || G < 1 || D < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   Params P = TRACE_PARAMS;
-  P.loop_use = static_cast<unsigned long long*>(loop_use);
   P.n_mass = geo ? n_mass : 0;
   P.eta = eta;
   P.min_step = min_step;
@@ -2515,28 +2450,24 @@ int bendy_trace_volume(TRACE_ARGS, int n_mass, float eta, float min_step, float 
 // [n_out, n·spp] f32 and `cnt` [4, n·spp] int32 (rays, iters, vevents,
 // near_steps) into `out` [n_out, n], `rays`, `iters` and the optional
 // `vevents`, `near_steps` [n] int32; `first` = 0 carries on from their
-// values, max_iters >= 0 counts lanes past it into `over_cap` [1] int32. A
-// non-null `loop_use` [2] int64 gets the launch's thread iterations and the
-// iterations its warps issued added to it.
+// values, max_iters >= 0 counts lanes past it into `over_cap` [1] int32.
 int bendy_fold_samples(const void* samp, const void* cnt, int n, int spp, int n_out, int first,
                        int max_iters, void* out, void* rays, void* iters, void* vevents,
-                       void* near_steps, void* over_cap, void* loop_use, void* stream) {
+                       void* near_steps, void* over_cap, void* stream) {
   if (n < 0 || spp < 1 || (n_out != 3 && n_out != 10) || samp == nullptr || cnt == nullptr ||
       out == nullptr || rays == nullptr || iters == nullptr ||
       (max_iters >= 0 && over_cap == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const size_t smem = sizeof(uint32_t) * 2 * FOLD_LANES * fold_stride(spp);
-  const auto kernel = loop_use != nullptr ? fold_kernel<true> : fold_kernel<false>;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kernel<<<(n + FOLD_LANES - 1) / FOLD_LANES, FOLD_LANES, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+    cudaFuncSetAttribute(fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  fold_kernel<<<(n + FOLD_LANES - 1) / FOLD_LANES, FOLD_LANES, smem,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(samp), static_cast<const int32_t*>(cnt), n, spp, n_out,
       first != 0, max_iters, static_cast<float*>(out), static_cast<int32_t*>(rays),
       static_cast<int32_t*>(iters), static_cast<int32_t*>(vevents),
-      static_cast<int32_t*>(near_steps), static_cast<int32_t*>(over_cap),
-      static_cast<unsigned long long*>(loop_use));
+      static_cast<int32_t*>(near_steps), static_cast<int32_t*>(over_cap));
   return (int)cudaGetLastError();
 }
 

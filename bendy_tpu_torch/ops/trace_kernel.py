@@ -261,8 +261,7 @@ def _flags(cfg: TraceConfig) -> int:
 def pools_items(cfg: TraceConfig) -> bool:
     """Whether a launch of ``cfg`` runs the LOOPM instantiations (geodesics
     over looped masses), whose resident threads take their (lane, sample)
-    items from a pool and count their own warp use (``loop_use`` goes to
-    the tracer, not to the fold)."""
+    items from a pool."""
     return cfg.geodesic and cfg.looped_masses
 
 
@@ -331,10 +330,14 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
             pix: torch.Tensor, sub: torch.Tensor, width: int, height: int, spp: int,
             spp_total: int, subsample: int, key: tuple, sample0: int,
             cfg: TraceConfig, extra: tuple = (), outs: tuple | None = None,
-            max_iters: int | None = None, bvh_tests: torch.Tensor | None = None):
+            max_iters: int | None = None, bvh_tests: torch.Tensor | None = None,
+            loop_use: torch.Tensor | None = None):
     """Check the arguments and launch the C entry point ``entry`` on the
     current stream; ``extra`` are the entry's arguments after
-    ``bvh_tests``, where a tensor goes in as its pointer (None as NULL).
+    ``loop_use``, where a tensor goes in as its pointer (None as NULL).
+    ``loop_use`` ([2] int64), optional, gets the launch's warp use added by
+    the tracer itself (the loop iterations of its threads and the
+    iterations their warps issue; :func:`warp_use` is its plain version).
     ``outs`` (out, rays, iters) are the kernel's outputs (a per-item
     launch's per-item buffers), else allocated per lane; ``max_iters`` is
     the loop cap (default ``cfg.max_iters(spp)``). A table with a node
@@ -366,6 +369,9 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
                                   or not bvh_tests.is_contiguous()):
         raise ValueError("bvh_tests: a contiguous [2, B] int32 tensor beside the lanes, for a "
                          "table with a node block")
+    if loop_use is not None and (loop_use.shape != (2,) or loop_use.dtype != torch.int64
+                                 or loop_use.device != dev or not loop_use.is_contiguous()):
+        raise ValueError(f"loop_use: a contiguous [2] int64 tensor on {dev}")
     if outs is None:
         n_out = N_OUT if cfg.want_aovs else 3
         outs = (torch.empty((n_out, B), dtype=torch.float32, device=dev),
@@ -386,6 +392,7 @@ def _launch(entry: str, counter, table: torch.Tensor, counts: dict, cam_packed: 
         cfg.clip_min, cfg.clip_max, flags, counts["n_sph"], counts["n_rct"],
         counts["n_box"], counts["n_light"], counts["n_face"], int(cfg.want_aovs), bvh0,
         None if bvh_tests is None else bvh_tests.data_ptr(),
+        None if loop_use is None else loop_use.data_ptr(),
         *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in extra),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -431,23 +438,18 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
     (lane, sample) item into per-item buffers, each chunk of samples
     followed by its ordered fold (:func:`fold_samples`) into the per-lane
     outputs. ``extra(near_steps, vevents)`` gives the entry's arguments
-    after ``bvh_tests`` but the last, ``loop_use``, which this adds.
-    ``item_counts``, optional
+    after ``loop_use``. ``item_counts``, optional
     [N_COUNTS, B, spp] int32, receives a per-item launch's per-item counts
     (row 2, vevents, only with volumes; row 3, RK4 steps, only with
-    geodesics). ``loop_use`` ([2] int64), optional, gets each per-item
-    launch's warp use added: by the tracer itself on the LOOPM path
-    (:func:`pools_items`, whose folds then count nothing), else by its
-    fold. ``bvh_tests`` and ``counter`` as for :func:`_launch`. Returns
-    (out, rays, iters)."""
+    geodesics). ``bvh_tests``, ``loop_use`` (every launch's) and
+    ``counter`` as for :func:`_launch`. Returns (out, rays, iters)."""
     if not per_item(cfg, "bvh0" in counts):
         return _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, spp,
                        spp_total, subsample, key, sample0, cfg,
-                       extra=extra(near_steps, vevents) + (None,), bvh_tests=bvh_tests)
+                       extra=extra(near_steps, vevents), bvh_tests=bvh_tests, loop_use=loop_use)
     dev, B = pix.device, pix.shape[0]
     if spp < 1:
         raise ValueError(f"a per-item launch traces at least one sample, got spp {spp}")
-    _check_loop_use(loop_use, dev, entry)
     n_out = N_OUT if cfg.want_aovs else 3
     out = torch.empty((n_out, B), dtype=torch.float32, device=dev)
     rays = torch.empty(B, dtype=torch.int32, device=dev)
@@ -460,17 +462,15 @@ def _traced(entry: str, counter, table, counts, cam_packed, pix, sub, width, hei
     samp = torch.empty(n_out * B * sc, dtype=torch.float32, device=dev)
     cnt = torch.empty(N_COUNTS * B * sc, dtype=torch.int32, device=dev)
     cap = cfg.max_iters(spp)  # the whole lane's cap for every item
-    traced, folded = (loop_use, None) if pools_items(cfg) else (None, loop_use)
     for c0 in range(0, spp, sc):
         s = min(sc, spp - c0)
         f = samp[:n_out * B * s].view(n_out, B * s)
         c = cnt[:N_COUNTS * B * s].view(N_COUNTS, B * s)
         _launch(entry, counter, table, counts, cam_packed, pix, sub, width, height, s, spp_total,
-                subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]) + (traced,),
-                outs=(f, c[0], c[1]), max_iters=cap)
+                subsample, key, sample0 + c0, cfg, extra=extra(c[3], c[2]),
+                outs=(f, c[0], c[1]), max_iters=cap, loop_use=loop_use)
         fold_samples(f, c, s, out, rays, iters, vevents, near_steps, first=c0 == 0,
-                     max_iters=cap if c0 + s == spp else -1, over_cap=over_cap_lanes(dev),
-                     loop_use=folded)
+                     max_iters=cap if c0 + s == spp else -1, over_cap=over_cap_lanes(dev))
         if item_counts is not None:
             item_counts[:, :, c0:c0 + s] = c.view(N_COUNTS, B, s)
     return out, rays, iters
@@ -499,16 +499,22 @@ def item_occupancy(cfg: TraceConfig, table_floats: int,
     return tuple(out)
 
 
+def warp_use(iters: torch.Tensor) -> torch.Tensor:
+    """[2] int64: the loop iterations of a launch's threads, ``iters`` in
+    launch order, summed, and the iterations their warps of 32 consecutive
+    threads issue, 32 × each warp's longest; a trailing partial warp is left
+    out of both. The one host count of issued iterations, as the tracer
+    counts them (``count_warp_use`` in ``csrc/trace_surface.cu``)."""
+    its = iters.reshape(-1)
+    w = its[:its.numel() // 32 * 32].reshape(-1, 32).to(torch.int64)
+    return torch.stack([w.sum(), 32 * w.amax(dim=1).sum()])
+
+
 def warp_use_plain(iters: torch.Tensor, loop_use: torch.Tensor) -> None:
-    """Plain version of the warp-use count of the fold and accumulate
-    kernels: ``iters``, the loop iterations of a launch's threads in launch
-    order, adds to ``loop_use`` ([2] int64) their sum and the iterations
-    their warps of 32 consecutive threads issue, 32 × each warp's longest
-    (a trailing partial warp left out of both, as ``tools/perf_report.issued``
-    leaves it out)."""
-    n = iters.numel() // 32 * 32
-    w = iters[:n].view(-1, 32).to(torch.int64)
-    loop_use += torch.stack([w.sum(), 32 * w.amax(dim=1).sum()])
+    """Plain version of the tracer's warp-use count where each thread
+    traces one lane or one item: adds :func:`warp_use` of ``iters`` to
+    ``loop_use`` ([2] int64)."""
+    loop_use += warp_use(iters)
 
 
 def warp_use_pool_plain(iters: torch.Tensor, loop_use: torch.Tensor, threads: int) -> None:
@@ -517,39 +523,29 @@ def warp_use_pool_plain(iters: torch.Tensor, loop_use: torch.Tensor, threads: in
     threads (the resident grid) that each start on item = its index and,
     when their item's iterations run out, take the next unclaimed index
     (the earliest free thread first, ties in thread order, every thread at
-    one iteration a step). Adds to ``loop_use`` ([2] int64) the items'
-    iterations and the iterations the warps of 32 consecutive threads issue,
-    32 × each warp's longest thread (its items' iterations summed). Items of
-    equal length issue what :func:`warp_use_plain` counts for one item a
-    thread; the kernel's warps drift apart, so its count is the measure."""
+    one iteration a step). Adds to ``loop_use`` ([2] int64) the
+    :func:`warp_use` of the threads' loop trips (each its items' iterations
+    summed). Items of equal length issue what :func:`warp_use_plain` counts
+    for one item a thread; the kernel's warps drift apart, so its count is
+    the measure."""
     its = iters.reshape(-1).to(torch.int64)
     n = its.numel()
     t = min(threads, n)
-    free = its[:t].clone()  # when each thread's item runs out
-    trips = torch.cat([free, free.new_zeros(-t % 32)])
+    free = its[:t].clone()  # when each thread's item runs out: its loop trips
     k = t  # the next unclaimed item
     while k < n:
         idx = (free == free.min()).nonzero().flatten()[:n - k]  # in thread order
         x = its[k:k + idx.numel()]
         free[idx] += x
-        trips[idx] += x
         k += idx.numel()
-    w = trips.view(-1, 32)
-    loop_use += torch.stack([w.sum(), 32 * w.amax(dim=1).sum()])
-
-
-def _check_loop_use(loop_use: torch.Tensor | None, dev: torch.device, who: str) -> None:
-    if loop_use is not None and (loop_use.shape != (2,) or loop_use.dtype != torch.int64
-                                 or loop_use.device != dev or not loop_use.is_contiguous()):
-        raise ValueError(f"{who}: loop_use must be a contiguous [2] int64 tensor on {dev}")
+    loop_use += warp_use(free)
 
 
 def fold_samples_plain(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
                        rays: torch.Tensor, iters: torch.Tensor,
                        vevents: torch.Tensor | None = None,
                        near_steps: torch.Tensor | None = None, *, first: bool = True,
-                       max_iters: int = -1, over_cap: torch.Tensor | None = None,
-                       loop_use: torch.Tensor | None = None) -> None:
+                       max_iters: int = -1, over_cap: torch.Tensor | None = None) -> None:
     """Plain version of :func:`fold_samples`: per lane, the per-item words
     added in sample order from 0 (or from the outputs' values when not
     ``first``), in place."""
@@ -569,15 +565,12 @@ def fold_samples_plain(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: tor
         dst.copy_(tot)
     if max_iters >= 0:
         over_cap += (iters > max_iters).sum(dtype=torch.int32)
-    if loop_use is not None:
-        warp_use_plain(cnt[1], loop_use)
 
 
 def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Tensor,
                  rays: torch.Tensor, iters: torch.Tensor, vevents: torch.Tensor | None = None,
                  near_steps: torch.Tensor | None = None, *, first: bool = True,
-                 max_iters: int = -1, over_cap: torch.Tensor | None = None,
-                 loop_use: torch.Tensor | None = None) -> None:
+                 max_iters: int = -1, over_cap: torch.Tensor | None = None) -> None:
     """The ordered fold of a looped-mass launch (``fold_kernel`` of
     ``csrc/trace_surface.cu``), in place on the current stream: ``samp``
     [n_out, B·spp] f32 and ``cnt`` [N_COUNTS, B·spp] int32 per item (item =
@@ -587,10 +580,7 @@ def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Ten
     outputs' values when not ``first`` (the next chunk of samples), so the
     sums are bit-equal to one thread tracing the lane's samples in turn.
     With ``max_iters >= 0`` the lanes whose iteration sum passes it are
-    added to ``over_cap`` ([1] int32). With ``loop_use`` ([2] int64) the
-    launch's warp use (:func:`warp_use_plain`, over its items in launch
-    order, item = lane·spp + s, from ``cnt``'s iteration row) is added to
-    it. CPU tensors run
+    added to ``over_cap`` ([1] int32). CPU tensors run
     :func:`fold_samples_plain`; CUDA ones launch the kernel (adding one to
     ``fold_samples.launches``) or raise."""
     from bendy_tpu_torch import _build
@@ -608,17 +598,14 @@ def fold_samples(samp: torch.Tensor, cnt: torch.Tensor, spp: int, out: torch.Ten
         raise ValueError(f"fold_samples: expected contiguous samp [n_out, B·spp] f32, cnt "
                          f"[{N_COUNTS}, B·spp] int32, out [n_out, B] f32 and [B] int32 counts "
                          f"on {dev}")
-    _check_loop_use(loop_use, dev, "fold_samples")
     if dev.type == "cpu":
         return fold_samples_plain(samp, cnt, spp, out, rays, iters, vevents, near_steps,
-                                  first=first, max_iters=max_iters, over_cap=over_cap,
-                                  loop_use=loop_use)
+                                  first=first, max_iters=max_iters, over_cap=over_cap)
     if dev.type != "cuda":
         raise ValueError(f"fold_samples runs on CPU or CUDA tensors, got {dev}")
     if B == 0:
         return None
-    ptr = [None if t is None else t.data_ptr()
-           for t in (vevents, near_steps, over_cap, loop_use)]
+    ptr = [None if t is None else t.data_ptr() for t in (vevents, near_steps, over_cap)]
     rc = _build.library().bendy_fold_samples(
         samp.data_ptr(), cnt.data_ptr(), B, spp, n_out, int(first), max_iters, out.data_ptr(),
         rays.data_ptr(), iters.data_ptr(), *ptr, torch.cuda.current_stream(dev).cuda_stream)
@@ -634,11 +621,13 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                   pix: torch.Tensor, sub: torch.Tensor, *, width: int,
                   height: int, spp: int, spp_total: int, subsample: int,
                   key: tuple, sample0: int, cfg: TraceConfig,
-                  bvh_tests: torch.Tensor | None = None):
+                  bvh_tests: torch.Tensor | None = None,
+                  loop_use: torch.Tensor | None = None):
     """Launch the flat surface instantiation of ``csrc/trace_surface.cu``
     on the current stream; the BVH one for a table of :func:`tracer_table`
     with a node block, whose per-lane node and primitive test counts go to
-    ``bvh_tests`` ([2, B] int32) when it is given.
+    ``bvh_tests`` ([2, B] int32) when it is given. ``loop_use`` as for
+    :func:`_launch`.
 
     Returns (out [3 or 10, B] f32 channel sums, rays [B] int32, iters
     [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
@@ -649,7 +638,7 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
                          "volumes trace_volume")
     return _launch("bendy_trace_surface", trace_surface, table, counts, cam_packed, pix, sub,
                    width, height, spp, spp_total, subsample, key, sample0, cfg,
-                   bvh_tests=bvh_tests)
+                   bvh_tests=bvh_tests, loop_use=loop_use)
 
 
 trace_surface.launches = 0
@@ -788,19 +777,15 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     (:func:`per_item`), each item's rays and iterations (``item_rays``,
     ``item_iters``: [B, spp] int32, the counts of the launch's threads).
 
-    ``fn.words(cam_packed, seed, pass_idx, pix, sub, sample0=0)`` traces
-    the same lanes and returns only the per-lane words a render pass
-    accumulates (:func:`accumulate`): the channel sums [3 or 10, B] f32 and
-    each lane's traced rays [B] (int32 from the kernel, int64 from the
-    plain version), with none of the reductions of ``TraceSums``.
-    ``fn.pass_words(cam_packed, seed, pass_idx, pix, sub, loop_use=None)``
-    is ``words`` for a render pass that counts the tracer's warp use into
-    ``loop_use`` ([2] int64, or None for no count): it returns a third
-    word, the lanes' loop iterations [B] that the pass's accumulate counts
-    (a launch of one thread per lane, and the plain version, whose loop is
-    per lane), or None where there is nothing left to count (no
-    ``loop_use``, or per-item launches, whose folds or, on the LOOPM path,
-    tracers have counted).
+    ``fn.words(cam_packed, seed, pass_idx, pix, sub, sample0=0,
+    loop_use=None)`` traces the same lanes and returns only the per-lane
+    words a render pass accumulates (:func:`accumulate`): the channel sums
+    [3 or 10, B] f32 and each lane's traced rays [B] (int32 from the kernel,
+    int64 from the plain version), with none of the reductions of
+    ``TraceSums``. With ``loop_use`` ([2] int64) the tracer's warp use is
+    added to it: by every kernel launch itself (:func:`_launch`), and on the
+    CPU route, whose loop is per lane, by :func:`warp_use_plain` of the
+    lanes' iterations.
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
@@ -812,7 +797,7 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
                count_steps=False, count_items=False, loop_use=None):
         """The kernel route: (out, rays, iters, vol_events or None, bvh
         tests or None, RK4 steps or None, item counts or None), per lane;
-        ``loop_use`` goes to a per-item launch (:func:`_traced`)."""
+        ``loop_use`` goes to every launch."""
         dev = pix.device
         if dev not in tables:
             with telemetry.one_off("pass.build"):
@@ -823,10 +808,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
             raise ValueError("count_tests: only the kernel's BVH walk counts its tests")
         kw = dict(width=width, height=height, spp=spp, spp_total=spp_total,
                   subsample=subsample, key=render_key(seed, pass_idx), sample0=sample0,
-                  cfg=cfg)
+                  cfg=cfg, loop_use=loop_use)
         tests = near = items = None
-        if loop_use is not None and per_item(cfg, "bvh0" in counts):
-            kw["loop_use"] = loop_use
         if count_items and per_item(cfg, "bvh0" in counts):
             items = kw["item_counts"] = torch.empty((N_COUNTS, pix.shape[0], spp),
                                                     dtype=torch.int32, device=dev)
@@ -881,27 +864,21 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
                          out[9], *sums, lane_counts=lane_counts)
 
-    def pass_words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0, loop_use=None):
+    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0, loop_use=None):
         dev = pix.device
         if dev.type == "cpu":
             res = plain(cam_packed, seed, pass_idx, pix, sub, sample0)
             chans = [*res.radiance]
             if cfg.want_aovs:
                 chans += [*res.aov_albedo, *res.aov_normal, res.aov_depth]
-            lc = res.lane_counts
-            return torch.stack(chans), lc["rays"], None if loop_use is None else lc["iters"]
+            if loop_use is not None:
+                warp_use_plain(res.lane_counts["iters"], loop_use)
+            return torch.stack(chans), res.lane_counts["rays"]
         if dev.type != "cuda":
             raise ValueError(f"no tracer for device {dev}")
-        out, rays, iters, *_ = launch(cam_packed, seed, pass_idx, pix, sub, sample0,
-                                      loop_use=loop_use)
-        counted = loop_use is None or per_item(cfg, "bvh0" in tables[dev][1])
-        return out, rays, None if counted else iters
-
-    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0):
-        return pass_words(cam_packed, seed, pass_idx, pix, sub, sample0)[:2]
+        return launch(cam_packed, seed, pass_idx, pix, sub, sample0, loop_use=loop_use)[:2]
 
     run.words = words
-    run.pass_words = pass_words
     return run
 
 
@@ -1026,9 +1003,7 @@ def _channel_rows(output: str, n_out: int) -> tuple[int, int]:
 
 def accumulate_plain(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int,
                      dst: torch.Tensor, *, add: bool, ray_total: torch.Tensor,
-                     pix: torch.Tensor | None = None, pix0: int = 0,
-                     iters: torch.Tensor | None = None,
-                     loop_use: torch.Tensor | None = None) -> None:
+                     pix: torch.Tensor | None = None, pix0: int = 0) -> None:
     """Plain version of :func:`accumulate`, with its subpixel order; tiled
     lanes (``pix``) go to their film rows by ``index_add_`` or
     ``index_copy_``."""
@@ -1048,14 +1023,11 @@ def accumulate_plain(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int
     else:
         dst.copy_(acc.t().reshape(dst.shape))
     ray_total += rays.sum(dtype=torch.int64)
-    if loop_use is not None:
-        warp_use_plain(iters, loop_use)
 
 
 def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst: torch.Tensor,
                *, add: bool, ray_total: torch.Tensor, pix: torch.Tensor | None = None,
-               pix0: int = 0, iters: torch.Tensor | None = None,
-               loop_use: torch.Tensor | None = None) -> None:
+               pix0: int = 0) -> None:
     """A render pass's subpixel sum, film add and ray count
     (``csrc/accumulate.cu``), in place on the current stream.
 
@@ -1071,10 +1043,7 @@ def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst:
     ``add``, else stored there; the lanes' rays are added to ``ray_total``
     ([1] int64), exactly. At ``nn = 1`` the film equals ``dst +
     pixel_sums(...)`` bit for bit; past it ``torch.sum``'s order may differ
-    by rounding. With ``loop_use`` ([2] int64) and ``iters`` ([B] integers,
-    the loop iterations of a launch of one tracer thread per lane, in the
-    lanes' order) the tracer's warp use (:func:`warp_use_plain`) is added to
-    ``loop_use``. CPU tensors run :func:`accumulate_plain`; CUDA ones launch
+    by rounding. CPU tensors run :func:`accumulate_plain`; CUDA ones launch
     the kernel (adding one to ``accumulate.launches``) or raise."""
     from bendy_tpu_torch import _build
 
@@ -1090,28 +1059,20 @@ def accumulate(out: torch.Tensor, rays: torch.Tensor, output: str, nn: int, dst:
         raise ValueError(f"accumulate: expected contiguous out [n_out, P·nn] f32, rays [P·nn] "
                          f"integers, dst [..., 3] f32 of P pixels, ray_total [1] int64 and "
                          f"optional pix [P·nn] int32 on {dev}")
-    _check_loop_use(loop_use, dev, "accumulate")
-    if loop_use is not None and (iters is None or iters.shape != rays.shape
-                                 or iters.is_floating_point() or iters.device != dev
-                                 or not iters.is_contiguous()):
-        raise ValueError("accumulate: loop_use counts from iters, the lanes' [P·nn] loop "
-                         "iterations beside rays")
     row0, step = _channel_rows(output, out.shape[0])
     if dev.type == "cpu":
         return accumulate_plain(out, rays, output, nn, dst, add=add, ray_total=ray_total,
-                                pix=pix, pix0=pix0, iters=iters, loop_use=loop_use)
+                                pix=pix, pix0=pix0)
     if dev.type != "cuda":
         raise ValueError(f"accumulate runs on CPU or CUDA tensors, got {dev}")
-    if rays.dtype != torch.int32 or (loop_use is not None and iters.dtype != torch.int32):
-        raise ValueError(f"accumulate: the kernel takes int32 rays and iters, got {rays.dtype}")
+    if rays.dtype != torch.int32:
+        raise ValueError(f"accumulate: the kernel takes int32 rays, got {rays.dtype}")
     if pixels == 0:
         return None
     rc = _build.library().bendy_accumulate(
         out.data_ptr(), out.shape[0], out.shape[1], row0, step, rays.data_ptr(), pixels, nn,
         None if pix is None else pix.data_ptr(), pix0, dst.data_ptr(), int(add),
-        ray_total.data_ptr(), None if loop_use is None else iters.data_ptr(),
-        None if loop_use is None else loop_use.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ray_total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _check_launch("bendy_accumulate", dev, rc)
     accumulate.launches += 1
     return None
@@ -1134,8 +1095,8 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
     lanes go in tile-major order (:func:`render_lanes`), which renders the
     same film bit for bit. With ``loop_use`` ([2] int64) the pass adds the
     tracer's warp use to it: the loop iterations of the tracer's threads
-    and the iterations their warps issue (the folds count a per-item
-    launch's, the accumulate a lane-loop launch's; no launch is added).
+    and the iterations their warps issue, counted by the tracer itself (no
+    launch is added).
     The lanes of each (y_offset, device) are built at
     its first pass and kept (8 bytes a lane), so a pass runs no torch op
     besides the tracer's and the accumulate's allocations;
@@ -1158,8 +1119,7 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
         rec = telemetry.ACTIVE  # spans only inside a profiled Renderer.render
         pix, sub, tiled = lanes_of(y_offset, dev)
         t0 = telemetry.now() if rec else 0
-        out, lane_rays, iters = tracer.pass_words(cam_packed, seed, pass_idx, pix, sub,
-                                                  loop_use=loop_use)
+        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, pix, sub, loop_use=loop_use)
         if rec:
             telemetry.span("glue.trace", t0)
         if dst is None:
@@ -1170,8 +1130,7 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
             rays = torch.zeros(1, dtype=torch.int64, device=dev)
         t0 = telemetry.now() if rec else 0
         accumulate(out, lane_rays, output, nn, dst, add=add, ray_total=rays,
-                   pix=pix if tiled else None, pix0=y_offset * width, iters=iters,
-                   loop_use=None if iters is None else loop_use)
+                   pix=pix if tiled else None, pix0=y_offset * width)
         if rec:
             telemetry.span("glue.accumulate", t0)
         return dst, rays

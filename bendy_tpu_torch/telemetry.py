@@ -34,9 +34,10 @@ children.
 
 Counters, like the per-pass spans, are kept only while a profiler records:
 a profiled ``Renderer.render`` hands its pass the renderer's device int64
-pair (:func:`tally`), into which the pass's fold or accumulate kernels add
-the tracer's warp use (the LOOPM tracer, whose threads take items from a
-pool, adds its own), and :func:`counters` sums the pairs:
+pair (:func:`tally`), into which every tracer launch adds its own warp use
+at its end (one count on every path, ``count_warp_use`` in
+``csrc/trace_surface.cu``; the CPU route adds ``ops/trace_kernel.warp_use``
+of its lanes' iterations), and :func:`counters` sums the pairs:
 
 ======================= ================================================
 counter                 what the profiled passes added
@@ -49,8 +50,8 @@ counter                 what the profiled passes added
 ======================= ================================================
 
 Both leave out a launch's trailing partial warp, as
-``tools/perf_report.issued`` does (LOOPM counts its live threads); their
-ratio is the share of the warps' issued loop iterations that a thread used.
+``ops/trace_kernel.warp_use`` does; their ratio is the share of the warps'
+issued loop iterations that a thread used.
 
 The clock anchor: at the first render of a profiling session (the first that
 finds a profiler recording after one that did not), the recorder opens one

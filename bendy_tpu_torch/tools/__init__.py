@@ -186,12 +186,12 @@ def rays_per_warp_issue_slot(rays, iters) -> float:
     ``TraceSums.lane_counts``; a trailing partial warp is left out). The
     GPU counterpart of the reference's rays over issue slots
     (``tools/perf_report.py:239``): 1.0 when every thread of a warp runs
-    as many iterations as the warp, each tracing a ray."""
-    import torch
+    as many iterations as the warp, each tracing a ray. Both sums are
+    ``ops/trace_kernel.warp_use``'s, the rays' thread sum over its issued
+    iterations."""
+    from bendy_tpu_torch.ops.trace_kernel import warp_use
 
-    n = iters.numel() // 32 * 32
-    slots = 32 * int(iters[:n].view(-1, 32).max(dim=1).values.sum(dtype=torch.int64))
-    return int(rays[:n].sum(dtype=torch.int64)) / max(slots, 1)
+    return int(warp_use(rays)[0]) / max(int(warp_use(iters)[1]), 1)
 
 
 def commit() -> str | None:

@@ -262,9 +262,10 @@ def thread_counts(res, lanes: int, spp: int, cfg) -> tuple[torch.Tensor, torch.T
 def issued(iters: torch.Tensor) -> int:
     """Thread-iterations the warps of 32 consecutive threads issue: 32 ×
     the slowest thread's loop length, summed over the warps (a trailing
-    partial warp left out, as ``tools.rays_per_warp_issue_slot`` does)."""
-    n = iters.numel() // 32 * 32
-    return 32 * int(iters[:n].view(-1, 32).max(dim=1).values.sum(dtype=torch.int64))
+    partial warp left out): ``ops/trace_kernel.warp_use``'s second sum."""
+    from bendy_tpu_torch.ops.trace_kernel import warp_use
+
+    return int(warp_use(iters)[1])
 
 
 def measure_iters_per_sec(info: dict, repeats: int = 5, chain: int = 4) -> dict:

@@ -184,11 +184,12 @@ Phases, one line each (any failure exits non-zero):
  20. the tracer's warp-use counter at the benchmark's four cells (cornell
      256x256 2x2 64 spp and 768x512 2x2 1 spp, blackhole 1920x1080 256 spp
      with 2 bounces, mass_cluster 1920x1080 16 spp): one profiled pass each
-     (telemetry.counters()) against tools/perf_report.issued and the
-     iteration sum of the same key's per-thread counts, integer for integer;
-     mass_cluster's LOOPM tracer counts its pooled warps itself: its thread
-     iterations equal the items' sum, it issues a multiple of 32 no fewer,
-     beside one item a thread's count and the pool model's.
+     (telemetry.counters(), which the tracer counts itself) against
+     ops/trace_kernel.warp_use of the same key's per-thread counts, integer
+     for integer; on mass_cluster's LOOPM tracer, whose threads take items
+     from a pool, its thread iterations equal the items' sum and it issues a
+     multiple of 32 no fewer, beside one item a thread's count and the pool
+     model's.
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -630,9 +631,8 @@ def accumulate_vs_plain(dev) -> float:
     store mode, with row-major lanes and with tile-major ones (rows 5-41 of
     the image, ``pass_lanes(tile=True)`` at 128 lanes a block: tiles of 16
     x 8 and 4 x 8 pixels with a ragged right edge and trailing rows), bit
-    for bit, with equal int64 ray counts and equal counts of the tracer's
-    warp use from seeded loop iterations (a ragged last warp left out).
-    Returns the largest |diff| (0 when they agree)."""
+    for bit, with equal int64 ray counts. Returns the largest |diff| (0 when
+    they agree)."""
     import torch
 
     from bendy_tpu_torch.ops.trace_kernel import (accumulate, accumulate_plain, pass_lanes,
@@ -646,7 +646,6 @@ def accumulate_vs_plain(dev) -> float:
         out = torch.randn((10, B), generator=g, device=dev) * 10.0 ** torch.randint(
             -4, 4, (10, B), generator=g, device=dev)
         rays = torch.randint(0, 500, (B,), generator=g, device=dev, dtype=torch.int32)
-        iters = torch.randint(1, 300, (B,), generator=g, device=dev, dtype=torch.int32)
         film = torch.rand((rows, W, 3), generator=g, device=dev)
         tiled, _ = pass_lanes(W, rows, nn, y0, dev, tile=True, lanes_per_block=128)
         tiling = tile_perm(W, rows, nn, 128)[1]
@@ -656,21 +655,18 @@ def accumulate_vs_plain(dev) -> float:
                     got, want = film.clone(), film.clone()
                     rk = torch.full((1,), 5, dtype=torch.int64, device=dev)
                     rp = rk.clone()
-                    uk = torch.full((2,), 7, dtype=torch.int64, device=dev)
-                    up = uk.clone()
                     accumulate(out, rays, output, nn, got, add=add, ray_total=rk, pix=pix,
-                               pix0=y0 * W, iters=iters, loop_use=uk)
+                               pix0=y0 * W)
                     accumulate_plain(out, rays, output, nn, want, add=add, ray_total=rp,
-                                     pix=pix, pix0=y0 * W, iters=iters, loop_use=up)
+                                     pix=pix, pix0=y0 * W)
                     torch.cuda.synchronize()
                     equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
                     err = float((got - want).abs().max())
                     worst = max(worst, err)
                     print(f"phase 3: accumulate {output} nn {nn} {'add' if add else 'store'} "
                           f"at {rows}x{W} pixels, {order} lanes: bit-equal to its plain version "
-                          f"{equal}, rays {int(rk)} vs {int(rp)}, warp use {uk.tolist()} vs "
-                          f"{up.tolist()}")
-                    if not equal or int(rk) != int(rp) or not torch.equal(uk, up):
+                          f"{equal}, rays {int(rk)} vs {int(rp)}")
+                    if not equal or int(rk) != int(rp):
                         fail(f"accumulate disagrees with its plain version ({output}, nn {nn}, "
                              f"{order})")
     return worst
@@ -1229,7 +1225,6 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
                 torch.zeros(1, dtype=torch.int32, device=dev))
 
     got, want, spare = outputs(), outputs(), outputs()
-    use_got, use_want = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
 
     def chunk(c0: int, s: int) -> dict:
         items = lanes * s
@@ -1238,10 +1233,9 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
         cnt = torch.randint(0, 300, (N_COUNTS, items), generator=g, device=dev,
                             dtype=torch.int32)
         kw = dict(first=c0 == 0, max_iters=cap if c0 + s == spp else -1)
-        fold_samples(samp, cnt, s, *got[:3], over_cap=got[3], loop_use=use_got, **kw)
+        fold_samples(samp, cnt, s, *got[:3], over_cap=got[3], **kw)
         _, plain_ms = cuda_ms(lambda: fold_samples_plain(samp, cnt, s, *want[:3],
-                                                         over_cap=want[3], loop_use=use_want,
-                                                         **kw))
+                                                         over_cap=want[3], **kw))
         equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                     for a, b in zip(got, want))
         _, ms, lo, hi = cuda_ms_median(
@@ -1261,19 +1255,17 @@ def fold_alone(phase: int, lanes: int, spp: int, n_out: int, cap: int, dev) -> d
         return sum(r[k] for r in runs) / len(runs)
 
     equal, err = all(r["equal"] for r in runs), max(r["err"] for r in runs)
-    counted = torch.equal(use_got, use_want)
     ms, lo, hi = mean("ms"), min(r["lo"] for r in runs), max(r["hi"] for r in runs)
     print(f"phase {phase}: fold_samples alone median {ms:.4f} ms per launch (min {lo:.4f}, max "
           f"{hi:.4f}) at {lanes} lanes x {spp} samples in {len(runs)} launch(es) of "
           f"{'+'.join(str(r['s']) for r in runs)} samples ({sum(r['ms'] for r in runs):.4f} ms "
           f"in all), {n_out} sums and 2 counts (bound {mean('bound_ms'):.4f} ms per launch by "
-          f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), warp use "
-          f"{use_got.tolist()} vs the plain {use_want.tolist()}, plain "
+          f"bytes); bit-equal to its plain version {equal} (max |diff| {err:.3e}), plain "
           f"{mean('plain_ms'):.3f} ms, torch.sum over the samples {mean('library_ms'):.4f} ms "
           f"per launch; by chunk: " + ", ".join(
               f"{r['s']} samples {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, torch.sum "
               f"{r['library_ms']:.4f})" for r in runs))
-    if not equal or not counted:
+    if not equal:
         fail("fold_samples disagrees with its plain version")
     return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=mean("plain_ms"), max_err=err,
                 bound_ms=mean("bound_ms"), library_ms=mean("library_ms"), launches=len(runs))
@@ -2109,16 +2101,15 @@ WARP_USE_CELLS = (("cornell", {}, 256, 256, 64, 2), ("cornell", {}, 768, 512, 1,
 
 def warp_use_vs_issued(dev) -> list:
     """Phase 20: one pass of each of :data:`WARP_USE_CELLS` under
-    ``torch.profiler`` counts the tracer's warp use
+    ``torch.profiler`` counts the tracer's warp use, each launch its own
     (``telemetry.counters()``); the same key's per-thread counts
     (``make_tracer(..., count_items=True)`` on the Renderer's lanes, in
-    launch order by ``perf_report.thread_counts``) give
-    ``perf_report.issued`` and the thread-iteration sum, which must equal
-    the counters integer for integer. Every cell's lanes, so every launch's
-    threads, are a multiple of 32, so no warp spans two launches. The LOOPM
-    tracer (mass_cluster) counts its own warps, whose threads take items
-    from the pool: its thread iterations must equal the items' iteration
-    sum, and it must issue a multiple of 32 no fewer; ``issued`` (one item a
+    launch order by ``perf_report.thread_counts``) give ``warp_use``'s pair,
+    which must equal the counters integer for integer. Every cell's lanes,
+    so every launch's threads, are a multiple of 32, so no warp spans two
+    launches. On the LOOPM path (mass_cluster) the threads take items from
+    the pool: the thread iterations must equal the items' iteration sum, and
+    the tracer must issue a multiple of 32 no fewer; ``warp_use`` (one item a
     thread) and the pool model (``warp_use_pool_plain`` at the launch's
     threads) are printed beside it. Returns the rows."""
     import torch
@@ -2127,9 +2118,9 @@ def warp_use_vs_issued(dev) -> list:
     from bendy_tpu_torch.bench import renderer_lanes
     from bendy_tpu_torch.film import DeviceFilm
     from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_tracer, pools_items,
-                                                  tracer_table, warp_use_pool_plain)
+                                                  tracer_table, warp_use, warp_use_pool_plain)
     from bendy_tpu_torch.render import Config, RenderConfig, Subsample
-    from bendy_tpu_torch.tools.perf_report import issued, thread_counts
+    from bendy_tpu_torch.tools.perf_report import thread_counts
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     rows = []
@@ -2145,8 +2136,7 @@ def warp_use_vs_issued(dev) -> list:
         res = make_tracer(r.arrays, W, H, spp, n, cfg)(r._cam_packed, seed, 0, pix, sub,
                                                          count_items=True)
         _, iters = thread_counts(res, pix.numel(), spp, cfg)
-        want = {"loop_thread_iters": int(iters.sum(dtype=torch.int64)),
-                "loop_issued_iters": issued(iters)}
+        want = dict(zip(("loop_thread_iters", "loop_issued_iters"), warp_use(iters).tolist()))
         row = dict(cell=f"{name} {W}x{H} {spp}spp {n}x{n}", counters=got, recomputed=want,
                    warp_use=100.0 * got["loop_thread_iters"] / max(got["loop_issued_iters"], 1))
         if pools_items(cfg):
@@ -2169,7 +2159,7 @@ def warp_use_vs_issued(dev) -> list:
                   f"loop_warp_use {row['warp_use']:.4f} %")
             ok = got == want
         if pix.numel() % 32 or not ok or not 0 < got["loop_thread_iters"]:
-            fail(f"the warp-use counter of {row['cell']} disagrees with perf_report.issued")
+            fail(f"the warp-use counter of {row['cell']} disagrees with warp_use")
         rows.append(row)
         del res, iters
         torch.cuda.empty_cache()

@@ -17,6 +17,7 @@ from bendy_tpu.render import Config as RefConfig
 from bendy_tpu_torch import Config, Renderer, RenderConfig, Subsample, bench, load_scene
 from bendy_tpu_torch.film import DeviceFilm
 from bendy_tpu_torch.tools import rays_per_warp_issue_slot
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -34,6 +34,7 @@ from bendy_tpu_torch.ops.trace_kernel import make_tracer, scene_table, tracer_ta
 from bendy_tpu_torch.ops.wavefront import trace_core
 from bendy_tpu_torch.utils.rng import render_key
 from bendy_tpu_torch.utils.v3 import V3
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SCENES = {
     "prim_grid_24": lambda: bt.build_prim_grid(24),

@@ -16,6 +16,7 @@ import torch
 
 from bendy_tpu_torch.cli import main
 from bendy_tpu_torch.film import DeviceFilm, Film
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _args(tmp_path, **over):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from bendy_tpu_torch.tools import fidelity
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLED = {os.path.basename(p)[: -len(".json.gz")] for p in glob.glob("scenes/*.json.gz")}

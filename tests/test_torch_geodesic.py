@@ -65,6 +65,7 @@ from bendy_tpu_torch.ops.wavefront import trace_core
 from bendy_tpu_torch.scene.compiler import scene_arrays_from_numpy
 from bendy_tpu_torch.utils.rng import render_key
 from bendy_tpu_torch.utils.v3 import V3
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W = H = 16
 SEED = 3

@@ -20,6 +20,7 @@ from bendy_tpu.utils.v3 import V3 as JV3
 from bendy_tpu_torch import Renderer, load_scene
 from bendy_tpu_torch.ops import intersect, materials
 from bendy_tpu_torch.utils.v3 import V3
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SCENES = ["cornell", "cornell2", "scene"]
 B = 2048

@@ -1,8 +1,9 @@
-"""The LOOPM tracer's item pool on the CPU: the plain model of its warp use
-(``ops/trace_kernel.warp_use_pool_plain``) against the static count of one
-item a thread (``warp_use_plain``), and the launch glue that hands the
-warp-use pair to the LOOPM tracer, whose folds then count nothing, while
-every other per-item launch's fold keeps counting.
+"""The tracer's warp-use count and the LOOPM tracer's item pool: on the CPU
+the plain model of the pool's warp use (``ops/trace_kernel.warp_use_pool_plain``)
+against the static count of one item a thread (``warp_use_plain``), and the
+launch glue that hands the warp-use pair to every tracer launch (surface, BVH,
+item and LOOPM) and to no fold; on a card (``-m card``) each launch's own
+count against ``warp_use`` of its threads' iterations.
 """
 
 import pytest
@@ -12,6 +13,7 @@ from bendy_tpu_torch.geodesic import GeoParams
 from bendy_tpu_torch.ops import trace_kernel
 from bendy_tpu_torch.ops.trace_kernel import warp_use_plain, warp_use_pool_plain
 from bendy_tpu_torch.ops.wavefront import TraceConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def counts(fn, iters, *args):
@@ -59,42 +61,97 @@ def _cfg(**kw):
     return TraceConfig(max_bounces=2, geo=GeoParams(max_steps=64), **kw)
 
 
+# (config, table counts, launches of a 3-sample call in chunks of one sample)
 GLUE = {
-    "looped_masses": (_cfg(geodesic=True, looped_masses=True), "tracer"),
-    "looped_masses_in_media": (_cfg(geodesic=True, looped_masses=True, has_volumes=True),
-                               "tracer"),
-    "unrolled_masses": (_cfg(geodesic=True), "fold"),
-    "media": (_cfg(has_volumes=True), "fold"),
+    "looped_masses": (_cfg(geodesic=True, looped_masses=True), {}, 3),
+    "looped_masses_in_media": (_cfg(geodesic=True, looped_masses=True, has_volumes=True), {}, 3),
+    "unrolled_masses": (_cfg(geodesic=True), {}, 3),
+    "media": (_cfg(has_volumes=True), {}, 3),
+    "media_bvh": (_cfg(has_volumes=True), {"bvh0": 0}, 1),
+    "surface": (_cfg(), {}, 1),
+    "surface_bvh": (_cfg(), {"bvh0": 0}, 1),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GLUE))
 def test_the_warp_use_pair_goes_to_the_tracer_on_the_loopm_path(monkeypatch, case):
-    """``_traced`` hands ``loop_use`` to a LOOPM launch as its last argument
-    and folds its samples without it; the item launches of unrolled masses
-    and of media pass a null there and count in their folds, in every
-    chunk of samples."""
-    cfg, counter = GLUE[case]
+    """Every tracer launch gets ``loop_use``, the LOOPM one as on every other
+    path: the surface and BVH launches (one thread a lane) and the item and
+    LOOPM launches in every chunk of samples, whose folds take no pair."""
+    cfg, counts, launches = GLUE[case]
     launched, folded = [], []
 
-    def launch(entry, who, table, cts, cam, pix, sub, *args, extra=(), outs=None, **kw):
-        launched.append(extra[-1])
+    def launch(entry, who, table, cts, cam, pix, sub, *args, outs=None, loop_use=None, **kw):
+        launched.append(loop_use)
         return outs
 
-    def fold(*args, loop_use=None, **kw):
-        folded.append(loop_use)
+    def fold(*args, **kw):
+        folded.append(kw)
 
     monkeypatch.setattr(trace_kernel, "_launch", launch)
     monkeypatch.setattr(trace_kernel, "fold_samples", fold)
     monkeypatch.setattr(trace_kernel, "SPLIT_BUDGET_BYTES", 1)  # chunks of one sample
     use = torch.zeros(2, dtype=torch.int64)
     pix = torch.arange(8, dtype=torch.int32)
-    trace_kernel._traced("entry", None, None, {}, None, pix, pix, 4, 2, 3, 3, 1, (0, 0), 0, cfg,
-                         lambda near, vev: (near, vev), loop_use=use)
-    assert len(launched) == len(folded) == 3  # one sample a chunk
-    want = (use, None) if counter == "tracer" else (None, use)
-    assert all(a is want[0] for a in launched) and all(b is want[1] for b in folded)
-    assert trace_kernel.pools_items(cfg) == (counter == "tracer")
+    if cfg.geodesic or cfg.has_volumes:
+        trace_kernel._traced("entry", None, None, counts, None, pix, pix, 4, 2, 3, 3, 1, (0, 0), 0,
+                             cfg, lambda near, vev: (near, vev), loop_use=use)
+    else:
+        trace_kernel.trace_surface(None, counts, None, pix, pix, width=4, height=2, spp=3,
+                                   spp_total=3, subsample=1, key=(0, 0), sample0=0, cfg=cfg,
+                                   loop_use=use)
+    assert len(launched) == launches and all(a is use for a in launched)
+    per_item = trace_kernel.per_item(cfg, "bvh0" in counts)
+    assert len(folded) == (launches if per_item else 0)
+    assert not any("loop_use" in f for f in folded)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the tracer kernel runs only there")
+    return torch.device("cuda")
+
+
+# (scene, width, height, spp): cornell's lane loop with a ragged last warp
+# (80 lanes), blackhole's item launch over unrolled masses, mass_cluster's
+# LOOPM launch with fewer items than its resident grid holds (so no thread
+# takes a second item) and a ragged last warp
+CARD = {
+    "lane_loop": ("cornell", 10, 8, 2),
+    "item": ("blackhole", 16, 16, 4),
+    "loopm": ("mass_cluster", 10, 8, 1),
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", sorted(CARD))
+def test_the_tracers_own_count_is_warp_use_of_its_threads(card, case):
+    """A launch's warp-use pair, counted by the tracer itself, equals
+    ``warp_use`` of the same key's per-thread iterations in launch order,
+    integer for integer."""
+    from bendy_tpu_torch import Renderer, load_scene
+    from bendy_tpu_torch.ops.trace_kernel import make_tracer, per_item, warp_use
+    from bendy_tpu_torch.tools.perf_report import thread_counts
+
+    name, W, H, spp = CARD[case]
+    scene = load_scene(f"scenes/{name}.json.gz")
+    cam = scene.find_by_tag("camera")
+    scene.get_object(cam).inner.aspect_ratio = W / H
+    r = Renderer(scene, device=card)
+    r.camera_params(cam)  # packs the camera the tracer reads
+    cfg = r.trace_config(r.config, cam)
+    assert trace_kernel.pools_items(cfg) == (case == "loopm")
+    assert per_item(cfg) == (case != "lane_loop")
+    tracer = make_tracer(r.arrays, W, H, spp, 1, cfg)
+    pix = torch.arange(W * H, dtype=torch.int32, device=card)
+    sub = torch.zeros_like(pix)
+    use = torch.zeros(2, dtype=torch.int64, device=card)
+    tracer.words(r._cam_packed, 5, 0, pix, sub, loop_use=use)
+    res = tracer(r._cam_packed, 5, 0, pix, sub, count_items=per_item(cfg))
+    _, iters = thread_counts(res, pix.numel(), spp, cfg)
+    assert use.tolist() == warp_use(iters.cpu()).tolist()
+    assert 0 < use[0] <= use[1]
 
 
 @pytest.mark.parametrize("looped", [False, True])

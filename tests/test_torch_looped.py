@@ -73,6 +73,7 @@ from bendy_tpu_torch.ops import camera
 from bendy_tpu_torch.ops.wavefront import trace_core
 from bendy_tpu_torch.utils.rng import render_key
 from bendy_tpu_torch.utils.v3 import sqrt_rn
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 5e-4, 1e-5
 CHANNELS = ("radiance", "aov_albedo", "aov_normal")

@@ -59,6 +59,7 @@ from bendy_tpu_torch.ops.wavefront import TraceConfig, trace_core
 from bendy_tpu_torch.scene.compiler import scene_arrays_from_numpy
 from bendy_tpu_torch.utils.rng import render_key
 from bendy_tpu_torch.utils.v3 import V3
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 5e-4, 1e-5
 B = 512

@@ -7,10 +7,13 @@ warp-use count, on the CPU.
   port's per-lane tolerance; 2 and 8 bounces give the same film and rays,
   since every material of the scene is emissive (why the configuration cuts
   nothing).
-- The plain warp-use count of the fold (per-item launches, item = lane·s +
-  j within each launch of s samples) and of the accumulate (one thread a
-  lane) gives exactly ``tools/perf_report.issued`` and the iteration sum
-  over each launch's full warps, on the plain integrator's own counts.
+- The one host count of the tracer's warp use (``ops/trace_kernel.warp_use``)
+  on each launch's thread iterations in launch order (per-item launches,
+  item = lane·s + j within each launch of s samples; cornell's lane loop,
+  one thread a lane; a ragged last warp) gives, warp by warp, the
+  iteration sum and 32 × the longest loop over the launch's full warps,
+  and ``tools/perf_report.issued`` and ``tools.rays_per_warp_issue_slot``
+  read it.
 - A pass counts only while a profiler records.
 """
 
@@ -25,12 +28,14 @@ from benchmark.check import ATOL, RTOL
 from benchmark.reference import integrate, scene_io
 from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.film import DeviceFilm
-from bendy_tpu_torch.ops.trace_kernel import N_COUNTS, accumulate, fold_samples
+from bendy_tpu_torch.ops.trace_kernel import warp_use, warp_use_plain
 from bendy_tpu_torch.ops.wavefront import trace_core
 from bendy_tpu_torch.render import Config, Output, Renderer, RenderConfig, Subsample
 from bendy_tpu_torch.scene import load_scene
+from bendy_tpu_torch.tools import rays_per_warp_issue_slot
 from bendy_tpu_torch.tools.perf_report import issued
 from bendy_tpu_torch.utils.rng import render_key
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIG = json.loads((ROOT / "benchmark/configs/mass_cluster.json").read_text())
@@ -90,48 +95,56 @@ def item_iters(scene_name, spp, width=10, height=8):
     return res.lane_counts["iters"].to(torch.int32).view(B, spp)
 
 
-def full_warps(iters):
-    """(iteration sum, issued) over a launch's full warps, by perf_report."""
-    return int(iters[:iters.numel() // 32 * 32].sum()), issued(iters)
+def by_warp(rows):
+    """[thread iterations, issued] of launches whose threads' iterations are
+    ``rows`` (one tensor a launch, in launch order), warp by warp: each full
+    warp of 32 consecutive threads adds its sum and 32 × its longest."""
+    use = [0, 0]
+    for row in rows:
+        xs = row.tolist()
+        for w in range(0, len(xs) // 32 * 32, 32):
+            use[0] += sum(xs[w:w + 32])
+            use[1] += 32 * max(xs[w:w + 32])
+    return use
 
 
-def fold_count(scene_name, spp, chunk):
-    """Per-item launches of ``chunk`` samples (the last one shorter), each
-    folded with the count on: the sums of each launch's own warps."""
+def launch_rows(scene_name, spp, chunk):
+    """Per-item launches of ``chunk`` samples (the last one shorter): each
+    launch's threads' iterations in launch order, item = lane·s + j."""
     iters = item_iters(scene_name, spp)
-    B = iters.shape[0]
-    out, rays, lane_iters = torch.zeros(3, B), *torch.zeros(2, B, dtype=torch.int32)
-    loop_use = torch.zeros(2, dtype=torch.int64)
-    want = [0, 0]
-    for c0 in range(0, spp, chunk):
-        s = min(chunk, spp - c0)
-        cnt = torch.zeros(N_COUNTS, B * s, dtype=torch.int32)
-        cnt[1] = iters[:, c0:c0 + s].reshape(-1)  # launch order: item = lane·s + j
-        fold_samples(torch.zeros(3, B * s), cnt, s, out, rays, lane_iters, first=c0 == 0,
-                     loop_use=loop_use)
-        want = [a + b for a, b in zip(want, full_warps(cnt[1]))]
-    assert torch.equal(lane_iters, iters.sum(dim=1, dtype=torch.int32))
-    assert loop_use.tolist() == want and 0 < want[0] <= want[1]
+    return [iters[:, c0:c0 + chunk].reshape(-1) for c0 in range(0, spp, chunk)]
 
 
-def accumulate_count():
+def cornell_lanes():
     """cornell's lane loop: one thread a lane, the lanes' own iterations."""
     width, height, spp, n = 10, 8, 4, 2
     r, cam = _renderer("scenes/cornell.json.gz", {"max_bounces": 8, "output": "full"}, width,
                        height)
-    cfg = r.trace_config(r.config, cam)
     nn = n * n
     local = torch.arange(width * height * nn)
     res = trace_core(r.arrays, r.camera_params(cam), render_key(SEED, 0), local // nn,
-                     local % nn, width, height, spp, n, cfg)
-    lane_iters = res.lane_counts["iters"].to(torch.int32)
-    loop_use = torch.zeros(2, dtype=torch.int64)
-    out = torch.stack([*res.radiance])
-    accumulate(out, res.lane_counts["rays"], "full", nn, torch.zeros(height, width, 3),
-               add=False, ray_total=torch.zeros(1, dtype=torch.int64), iters=lane_iters,
-               loop_use=loop_use)
-    assert loop_use.tolist() == list(full_warps(lane_iters))
-    assert 0 < loop_use[0] < loop_use[1]
+                     local % nn, width, height, spp, n, r.trace_config(r.config, cam))
+    return [res.lane_counts["iters"].to(torch.int32)]
+
+
+def ragged_warp():
+    """Two full warps and a ragged one whose long thread no warp issues."""
+    return [torch.tensor([1, 5] + [2] * 30 + [3] * 32 + [700] * 5, dtype=torch.int32)]
+
+
+def warp_count(rows_of, *args):
+    """The one host count on each launch's rows (``rows_of(*args)``), through
+    ``warp_use_plain`` as the CPU route adds it, against the warps counted
+    one by one, and the readers of its sums."""
+    rows = rows_of(*args)
+    use = torch.zeros(2, dtype=torch.int64)
+    for row in rows:
+        warp_use_plain(row, use)
+    assert use.tolist() == by_warp(rows) and 0 < use[0] <= use[1]
+    assert sum(issued(row) for row in rows) == use[1]
+    for row in rows:
+        got = warp_use(row)
+        assert rays_per_warp_issue_slot(2 * row, row) == 2 * int(got[0]) / int(got[1])
 
 
 def only_while_profiled():
@@ -159,9 +172,10 @@ def only_while_profiled():
 CASES = {
     "reference": reference_match,
     "bounces_2_and_8": bounces_alike,
-    **{f"fold-{s}-spp{spp}-chunk{c}": functools.partial(fold_count, s, spp, c)
+    **{f"items-{s}-spp{spp}-chunk{c}": functools.partial(warp_count, launch_rows, s, spp, c)
        for s in ("mass_cluster", "blackhole") for spp, c in ((1, 1), (4, 4), (4, 3))},
-    "accumulate-cornell": accumulate_count,
+    "lanes-cornell": functools.partial(warp_count, cornell_lanes),
+    "ragged-warp": functools.partial(warp_count, ragged_warp),
     "unprofiled": only_while_profiled,
 }
 

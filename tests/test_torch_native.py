@@ -26,6 +26,7 @@ from bendy_tpu.scene.io import dumps_scene as ref_dumps
 
 import bendy_tpu_torch as bt
 from bendy_tpu_torch import Config, Film, GeoParams, RenderConfig, Renderer, native
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BUNDLED = sorted(os.path.basename(p)[: -len(".json.gz")] for p in glob.glob("scenes/*.json.gz"))
 GENERATED = {

@@ -27,6 +27,7 @@ from bendy_tpu_torch import Config, Renderer, load_scene
 from bendy_tpu_torch.parallel import choose_backend, spawn
 from bendy_tpu_torch.parallel.mesh import render_scene_pass
 from bendy_tpu_torch.render import render_pass
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W = H = 16
 SPP = 4

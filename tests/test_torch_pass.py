@@ -25,6 +25,7 @@ from bendy_tpu_torch.ops.wavefront import TraceSums
 from bendy_tpu_torch.utils import rng
 from bendy_tpu_torch.utils.v3 import V3
 from chip_smoke import sphere_field
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 OUTPUTS = ("full", "albedo", "normal", "depth")
 

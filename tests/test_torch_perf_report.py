@@ -13,6 +13,7 @@ import torch
 
 from bendy_tpu_torch.ops.wavefront import TraceConfig
 from bendy_tpu_torch.tools import block_sweep, perf_report
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 

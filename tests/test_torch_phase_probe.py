@@ -44,6 +44,7 @@ from bendy_tpu_torch import Config, Renderer, _build, load_scene
 from bendy_tpu_torch.ops.wavefront import trace_core
 from bendy_tpu_torch.tools import dispatch_probe, phase_probe, prim_scaling
 from bendy_tpu_torch.utils.rng import render_key
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 

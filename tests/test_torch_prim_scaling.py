@@ -20,6 +20,7 @@ from bendy_tpu_torch.ops.trace_kernel import tracer_table, walks_bvh
 from bendy_tpu_torch.ops.wavefront import trace_core
 from bendy_tpu_torch.tools import dispatch_probe, prim_scaling
 from bendy_tpu_torch.utils.rng import render_key
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N = 256
 W = H = 16

@@ -23,6 +23,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from bendy_tpu_torch.tools import mxu_shape_probe, vpu_peak
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 _TOOLS = Path(__file__).resolve().parent.parent / "tools"
 _PROBES_CU = (Path(__file__).resolve().parent.parent / "bendy_tpu_torch" / "csrc"

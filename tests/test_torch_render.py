@@ -10,6 +10,7 @@ import torch
 import bendy_tpu.film as ref_film
 from bendy_tpu_torch import Config, DeviceFilm, Film, Output, RenderConfig, Renderer, Status, Subsample
 from bendy_tpu_torch import load_scene
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cornell():

@@ -18,6 +18,7 @@ from bendy_tpu.utils import rng as ref_rng
 from bendy_tpu_torch import Renderer, load_scene
 from bendy_tpu_torch.ops import camera
 from bendy_tpu_torch.utils import rng
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N = 4096
 

@@ -53,6 +53,7 @@ from bendy_tpu_torch.ops import trace_kernel
 from bendy_tpu_torch.ops.trace_kernel import N_COUNTS, fold_samples, over_cap_lanes, per_item
 from bendy_tpu_torch.ops.wavefront import TraceConfig, trace_core
 from bendy_tpu_torch.utils.rng import render_key
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 COUNTS = ("rays", "iters", "vol_events", "near_steps")
 

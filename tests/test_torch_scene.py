@@ -15,6 +15,7 @@ import torch
 import bendy_tpu.scene as ref_scene
 import bendy_tpu_torch.scene as port_scene
 from bendy_tpu_torch.scene.compiler import SceneArrays, scene_arrays_from_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SCENES = sorted(glob.glob("scenes/*.json.gz"))
 

@@ -13,6 +13,7 @@ import torch
 from benchmark import program_spans, run, spec, trace
 from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.telemetry import Span
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 DRIFT = 0.01  # the program's clock runs 1 % fast against the trace's
 BASE_NS = 7_000_000_000  # and starts elsewhere

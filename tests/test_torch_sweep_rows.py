@@ -57,6 +57,7 @@ from bendy_tpu_torch.ops.trace_kernel import scene_table
 from bendy_tpu_torch.scene.compiler import compile_scene
 from bendy_tpu_torch.tools import sweep_sass
 from bendy_tpu_torch.utils.v3 import V3
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "bendy_tpu_torch", "csrc", "trace_surface.cu")

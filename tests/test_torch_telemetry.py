@@ -9,6 +9,7 @@ from bendy_tpu_torch import telemetry
 from bendy_tpu_torch.film import DeviceFilm
 from bendy_tpu_torch.render import Config, Renderer, RenderConfig, Subsample
 from bendy_tpu_torch.scene.io import load_scene
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 PER_PASS = {"render", "glue.trace", "glue.accumulate"}
 

@@ -17,6 +17,7 @@ from bendy_tpu_torch.ops.trace_kernel import (accumulate, lanes_per_block, make_
                                               pass_lanes, tile_perm)
 from bendy_tpu_torch.ops.wavefront import TraceConfig
 from bendy_tpu_torch.scene import load_scene
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # tests/test_pallas.py:397-439: (width, rows, nn, lanes per block)
 CASES = [

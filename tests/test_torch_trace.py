@@ -25,6 +25,7 @@ from bendy_tpu_torch import Config, Output, Renderer, load_scene
 from bendy_tpu_torch.ops.trace_kernel import make_tracer, scene_table
 from bendy_tpu_torch.ops.wavefront import TraceConfig, trace_core
 from bendy_tpu_torch.utils.rng import render_key
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W = H = 16
 SPP = 4

@@ -87,6 +87,7 @@ from bendy_tpu_torch.scene.graph import (
 )
 from bendy_tpu_torch.utils.rng import render_key
 from bendy_tpu_torch.utils.v3 import V3
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 W = H = 16
 RTOL, ATOL = 5e-4, 1e-5
