@@ -90,6 +90,8 @@ SIGNATURES = {
     "bendy_staged_floats": ([c_int] * 6, c_int),
     # flags, volumes, want_aovs, table_floats, n_sph, n_rct, n_box, out [3] int32 (host)
     "bendy_item_occupancy": ([c_int] * 7 + [c_void_p], c_int),
+    # flags, want_aovs, table_floats, n_sph, n_rct, n_box, n, spp, out [2] int32 (host)
+    "bendy_lane_pool": ([c_int] * 8 + [c_void_p], c_int),
     # samp, cnt, n, spp, n_out, first, max_iters, out, rays, iters, vevents,
     #   near_steps, over_cap, stream
     "bendy_fold_samples": (
@@ -266,10 +268,12 @@ def trace_block(block: int):
 def trace_label(aovs: int, geo: int, vol: int, loopm: int, gtab: int, bvh: int,
                 stub: int | None = None) -> str:
     """A tracer instantiation's name: its flags (and its stub mask in the
-    stub build), and ITEM for the item instantiations (one thread per (lane,
+    stub build), ITEM for the item instantiations (one thread per (lane,
     sample) without LOOPM: geodesics, and media without the BVH; the
-    kernel's PER_ITEM)."""
-    item = " ITEM" if not loopm and (geo or (vol and not bvh)) else ""
+    kernel's PER_ITEM) and LANE POOL for the lane pool (the surface one in
+    the LOOPM slot; the kernel's LANE_POOL)."""
+    item = (" ITEM" if not loopm and (geo or (vol and not bvh)) else
+            " LANE POOL" if loopm and not geo else "")
     mask = "" if stub is None else f",STUB={stub}"
     return (f"trace_kernel<AOVS={aovs},GEO={geo},VOL={vol},LOOPM={loopm},GTAB={gtab},"
             f"BVH={bvh}{mask}>{item}")

@@ -133,6 +133,35 @@
 //     700.00 W the tracer of a 1920x1080, 256-spp blackhole pass took
 //     620.8 -> 527.2 ms (the benchmark's blackhole.batch, traced).
 //
+// The lane pool (LANE_POOL: the surface instantiation in FULL output with
+// its table staged, in the template's LOOPM slot; chosen by launch<> from
+// the launch's shape, pools_lanes):
+//   - What it cures: at one sample a lane (the interactive loop, 768x512,
+//     2x2, a pass a frame) a thread traces one path, and a warp issues
+//     until its longest path ends: 44.6 % of the iterations its warps
+//     issued did work (loop_warp_use), against 88 % at 64 samples a lane.
+//   - Design: a resident grid (the blocks its SMs hold at once); a thread
+//     starts on lane = its index and, when its lane's samples are done or
+//     the lane is cut at the cap, writes the lane's words at the lane's
+//     index, takes the next lane and starts it afresh in the same loop
+//     iteration. A lane is still traced whole by one thread in sample
+//     order, so out, rays and iters are bit-equal to one thread a lane.
+//   - Draws: a warp claims LANE_RUN lanes with one atomicAdd and hands them
+//     to its threads in rank order (lane_take, the run kept in shared
+//     memory by the warp's thread 0): at one sample about a third of a
+//     warp's threads end a path each iteration, and a draw each would near
+//     the L2's rate of atomics on one address. So every thread of a warp
+//     stays in the loop until all 32 are done (a thread without a lane
+//     waits at the loop's head) and the warp votes with all 32 each
+//     iteration.
+//   - Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6): at
+//     768x512, 2x2, 1 spp the tracer 0.396 -> 0.293 ms, its warps 44.6 ->
+//     86.5 % used; a warp-iteration costs about 43 % more, since the lane's
+//     stores, the next lane's camera ray and the vote now run, diverged,
+//     in most iterations. Hence pools_lanes: where a thread gets fewer than
+//     3 lanes the tail when the pool empties costs what the pool saves, and
+//     past 16 samples a lane the warps already run nearly full.
+//
 // Numerics (held per lane to the plain version at rtol 5e-4, atol 1e-5):
 //   - Trig: the same range-free polynomials as ops/distr.py::sin_cos_tau and
 //     sin_cos_small, not sinf/cosf (frustum trig falls back to sinf/cosf only
@@ -1427,6 +1456,93 @@ __device__ __forceinline__ int& pool_trips() {
   return trips[threadIdx.x];
 }
 
+// The lane pool: the surface instantiation in FULL output with its table
+// staged whose resident threads take the next lane when theirs ends. It
+// takes the LOOPM slot of the template, which no surface instantiation used
+// (LOOPM needs GEO), so every other instantiation keeps its name and code.
+template <bool GEO, bool LOOPM>
+constexpr bool LANE_POOL = LOOPM && !GEO;
+
+// the lanes a warp claims with one draw from the lane pool: a lane a thread
+// (64 left up to two lanes a thread in a warp's hands when the pool emptied,
+// and the launch waited on them)
+constexpr unsigned LANE_RUN = 32;
+
+// The lane pool's draws: the lanes a launch has handed out past each
+// thread's first (lane = thread index), LANE_RUN at a time. The draw whose
+// run reaches the launch's lanes is the pool's last run, and its warp draws
+// no more; every other warp draws until it draws past the lanes, once. So
+// a launch of `lanes` lanes over `threads` threads makes runs + threads / 32
+// - 1 draws (runs = ceil((lanes - threads) / LANE_RUN) > 0; without runs,
+// threads / 32), fewer than lanes / 32, and the draw of the last sets the
+// counter back to 0 for the next launch: no launch or host call between.
+// So lane-pool launches on one device must not overlap: they share the
+// counter (launches on one stream never do). LOOPM's pool_next is another.
+__device__ unsigned int lane_pool_next;
+
+#ifdef BENDY_SWEEP_STATS
+// the measuring build: the lane pool's draws and each thread's loop trips
+// of the last launch (bendy_lane_pool_stats)
+constexpr int LANE_POOL_STATS_THREADS = 1 << 19;
+__device__ unsigned long long lane_pool_draws;
+__device__ int lane_pool_trips[LANE_POOL_STATS_THREADS];
+#endif
+
+// a warp's run of drawn lanes, kept by the warp's thread 0 alone: the next
+// lane, the lanes left, and 1 once the warp may draw no more
+__device__ __forceinline__ unsigned* lane_run() {
+  __shared__ unsigned runs[BLOCK / 32][3];
+  return runs[threadIdx.x >> 5];
+}
+
+// The next lanes of the warp's threads in `need` (all 32 threads call it,
+// `need` the same in each), a launch of `threads` threads over `lanes`
+// lanes: the thread of rank r among them gets the run's next lanes in rank
+// order, drawing a new run where the run holds too few; -1 where the pool
+// is empty.
+__device__ __forceinline__ int lane_take(unsigned need, unsigned threads, unsigned lanes) {
+  const unsigned me = threadIdx.x & 31, v = __popc(need);
+  unsigned next = 0, left = 0, drawn = ~0u, avail = 0;
+  if (me == 0) {
+    unsigned* run = lane_run();
+    next = run[0];
+    left = run[1];
+    if (v <= left) {
+      run[0] = next + v;
+      run[1] = left - v;
+    } else {
+      run[1] = 0;  // the ranks below `left` take what is left
+      if (run[2] == 0u) {
+        const unsigned c = atomicAdd(&lane_pool_next, LANE_RUN);
+#ifdef BENDY_SWEEP_STATS
+        atomicAdd(&lane_pool_draws, 1ull);
+#endif
+        const unsigned runs = (lanes - threads + LANE_RUN - 1) / LANE_RUN;
+        const unsigned draws = runs + threads / 32 - (runs > 0u ? 1u : 0u);
+        if (c == (draws - 1u) * LANE_RUN) atomicExch(&lane_pool_next, 0u);  // the launch's last
+        drawn = threads + c;
+        if (drawn < lanes) {
+          avail = min(LANE_RUN, lanes - drawn);
+          const unsigned rest = min(v - left, avail);
+          run[0] = drawn + rest;
+          run[1] = avail - rest;
+          run[2] = drawn + LANE_RUN >= lanes ? 1u : 0u;  // the pool's last run
+        } else {
+          drawn = ~0u;  // the pool is empty
+          run[2] = 1u;
+        }
+      }
+    }
+  }
+  next = __shfl_sync(0xffffffffu, next, 0);
+  left = __shfl_sync(0xffffffffu, left, 0);
+  drawn = __shfl_sync(0xffffffffu, drawn, 0);
+  avail = __shfl_sync(0xffffffffu, avail, 0);
+  const unsigned r = __popc(need & ((1u << me) - 1u));
+  if (r < left) return (int)(next + r);
+  return drawn != ~0u && r - left < avail ? (int)(drawn + (r - left)) : -1;
+}
+
 // The end of a LOOPM thread's item: its last completed path folded in (a
 // path cut at the cap is not, as the lane loop leaves it) and its words
 // written at `item` of the [n_out, N] sums and the [N] counts (depth_n
@@ -1500,9 +1616,10 @@ constexpr bool PER_ITEM = GEO || (VOL && !BVH);
 // blocks of 128, 64 registers (ptxas spills 16 B), which ran cornell and
 // cornell2 2 % faster than its own 72 registers (7 blocks) and scene.json
 // within its spread; its AOV and GTAB siblings would spill 60-226 B under it
-// (PERF.md §6). Every other instantiation, LOOPM's with its rows among them,
-// gets 0 and keeps __launch_bounds__(BLOCK) alone: a minimum of 0 blocks
-// emits none (a minimum of 1 moves their registers).
+// (PERF.md §6); the lane pool (LANE_POOL) has its budget. Every other
+// instantiation, LOOPM's with its rows among them, gets 0 and keeps
+// __launch_bounds__(BLOCK) alone: a minimum of 0 blocks emits none (a
+// minimum of 1 moves their registers).
 template <bool AOVS, bool GEO, bool VOL, bool LOOPM, bool GTAB, bool BVH>
 constexpr int MIN_BLOCKS =
     !LOOPM && PER_ITEM<GEO, VOL, BVH>              ? (GEO && VOL ? 640 : 768) / BLOCK
@@ -1586,8 +1703,47 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
   int n_near = 0;  // RK4 steps taken (near segments), for the work count
 
   if constexpr (LOOPM) pool_trips() = 0;
+  if constexpr (LANE_POOL<GEO, LOOPM>) {
+    if ((threadIdx.x & 31) == 0) {
+      unsigned* run = lane_run();
+      run[0] = run[1] = run[2] = 0u;
+    }
+  }
   for (; LOOPM || it < P.max_iters; ++it) {
-    if constexpr (LOOPM) {
+    if constexpr (LANE_POOL<GEO, LOOPM>) {
+      // === the lane is done or cut at the cap: its words, the warp's next =
+      // (every thread of the warp stays in the loop until all are done, so
+      // the warp draws with all 32; launch<> pools only launches with more
+      // lanes than threads, so every thread starts on a lane)
+      const bool ends = item >= 0 && (it >= P.max_iters || (!alive && sample + 1 >= P.spp));
+      const unsigned need = __ballot_sync(0xffffffffu, ends);
+      if (need != 0u) {
+        if (ends) {
+          store_item<AOVS, VOL>(P, P.n, item, alive, path_open, rad, aov_alb, aov_nrm, aov_dep,
+                                acc_rad, acc_alb, acc_nrm, acc_dep, rays, it, vev, n_near);
+          pool_trips() += it;
+        }
+        const int next = lane_take(need, gridDim.x * blockDim.x, (unsigned)P.n);
+        if (ends) {
+          item = next;
+          if (next >= 0) {
+            pixv = (uint32_t)P.pix[next];
+            subv = (uint32_t)P.sub[next];
+            const float pxi = (float)(pixv % (uint32_t)P.width);
+            const float pyi = (float)(pixv / (uint32_t)P.width);
+            const float sii = (float)(subv % (uint32_t)n), sji = (float)(subv / (uint32_t)n);
+            u_base = pxi * P.pw - 1.0f + (sii / (float)n) * P.pw;
+            v_base = pyi * P.ph - 1.0f + (sji / (float)n) * P.ph;
+            sample = -1;
+            it = rays = 0;
+            alive = path_open = false;
+            acc_rad = {0.0f, 0.0f, 0.0f};
+          }
+        }
+        if (__all_sync(0xffffffffu, item < 0)) break;  // the warp's lanes are all done
+      }
+      if (item < 0) continue;  // the pool is empty: the thread waits on its warp
+    } else if constexpr (LOOPM) {
       // === the item is done or cut at the cap: its words, the pool's next =
       if (it >= P.max_iters || (!alive && sample >= 0)) {
         const int N = P.n * P.spp;
@@ -1994,6 +2150,16 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
 #endif
   }
 
+  if constexpr (LANE_POOL<GEO, LOOPM>) {
+    // every lane written in the loop; a thread's loop trips are its lanes'
+    // iterations summed
+#ifdef BENDY_SWEEP_STATS
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t < LANE_POOL_STATS_THREADS) lane_pool_trips[t] = pool_trips();
+#endif
+    count_warp_use(P.loop_use, P.n, pool_trips());
+    return;
+  }
   if constexpr (LOOPM) {
     // every item written in the loop; a thread's loop trips are its items'
     // iterations summed
@@ -2195,6 +2361,20 @@ int min_blocks(bool aovs, bool gtab) {
                       : MIN_BLOCKS<false, GEO, VOL, LOOPM, false, false>);
 }
 
+// the blocks of `kernel` with `smem` bytes of dynamic shared memory that
+// the current device holds at once, into `blocks`
+cudaError_t resident_blocks(void (*kernel)(Params), size_t smem, int* blocks) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = per_sm * sms;
+  return e;
+}
+
 // launch `kernel` over `items` threads with `smem` bytes of dynamic shared
 // memory; with `pool` (LOOPM) over no more blocks than the device holds at
 // once, whose threads take the rest of the items from the pool
@@ -2204,14 +2384,11 @@ int launch_kernel(void (*kernel)(Params), int items, size_t smem, const Params& 
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int blocks = (items + BLOCK - 1) / BLOCK;
   if (pool) {
-    int dev = 0, per_sm = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int resident = 0;
+    const cudaError_t e = resident_blocks(kernel, smem, &resident);
     if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    if (blocks > per_sm * sms) blocks = per_sm * sms;
+    if (resident < 1) return (int)cudaErrorLaunchOutOfResources;
+    if (blocks > resident) blocks = resident;
   }
   kernel<<<blocks, BLOCK, smem, s>>>(P);
   // a launch refused for registers or shared memory never runs, and a later
@@ -2219,12 +2396,61 @@ int launch_kernel(void (*kernel)(Params), int items, size_t smem, const Params& 
   return (int)cudaGetLastError();
 }
 
+#ifndef BENDY_PHASE_STUBS  // the stub build launches its masks alone (launch_stub)
+// The lane pool's rule (ops/trace_kernel.pools_lanes is its mirror): a
+// surface launch in FULL output with its table staged runs the lane pool
+// where its lanes are at least LANE_POOL_MIN times the threads the device
+// holds at once of the pooled instantiation, `resident`, and a lane holds
+// at most LANE_POOL_SPP samples; else one thread a lane. Below that many
+// lanes the pool's tail (a lane a thread when it empties) costs what it
+// saves; past that many samples a lane's paths average out, the static
+// warps run nearly full (88 % at 64), and the pool's dearer iteration costs
+// more than it recovers (PERF.md §6).
+constexpr int LANE_POOL_MIN = 3, LANE_POOL_SPP = 16;
+static_assert(LANE_POOL_MIN >= 1, "lane_take counts its draws for at least a lane a thread");
+bool pools_lanes(long long lanes, int spp, long long resident) {
+  return resident > 0 && lanes >= LANE_POOL_MIN * resident && spp <= LANE_POOL_SPP;
+}
+
+// the lane pool's instantiation
+constexpr auto lane_pool_kernel = trace_kernel<false, false, false, true, false, false>;
+
+// the resident threads of the lane pool for a launch of `P` (0 where its
+// output or table rules it out), into `threads`; the occupancy query (1.7
+// us of host time, measured on an H100 machine) is asked once for each
+// device and shared memory in turn
+cudaError_t lane_pool_threads(const Params& P, bool want_aovs, int* threads) {
+  *threads = 0;
+  if (want_aovs || (P.flags & (FLAG_GTAB | FLAG_BVH))) return cudaSuccess;
+  thread_local int last_dev = -1, last_blocks = 0;
+  thread_local size_t last_smem = 0;
+  const size_t smem = dynamic_smem(P, false, true);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev != last_dev || smem != last_smem)) {
+    e = resident_blocks(lane_pool_kernel, smem, &last_blocks);
+    last_dev = e == cudaSuccess ? dev : -1;
+    last_smem = smem;
+  }
+  if (e == cudaSuccess) *threads = last_blocks * BLOCK;
+  return e;
+}
+
 template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
 int launch(const Params& P, bool want_aovs, cudaStream_t s) {
+  const size_t smem = dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>);
+  if constexpr (!GEO && !VOL && !BVH) {
+    int threads = 0;
+    const cudaError_t e = lane_pool_threads(P, want_aovs, &threads);
+    if (e != cudaSuccess) return (int)e;
+    // the resident grid, whose threads take the lanes past their first
+    if (pools_lanes(P.n, P.spp, threads))
+      return launch_kernel(lane_pool_kernel, threads, smem, P, s);
+  }
   return launch_kernel(instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0),
-                       PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n,
-                       dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>), P, s, LOOPM);
+                       PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n, smem, P, s, LOOPM);
 }
+#endif
 
 // the phase stubs' mask rides in a launch's flags above the FLAG_* bits; the
 // default build refuses a launch that carries one
@@ -2532,9 +2758,44 @@ int bendy_item_occupancy(int flags, int volumes, int want_aovs, int table_floats
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&o[2], cudaDevAttrMultiProcessorCount, dev);
   return (int)e;
 }
+
+// The lane pool of a bendy_trace_surface launch of `n` lanes of `spp`
+// samples in FULL output (want_aovs 0) with a table of `table_floats` and
+// these primitive counts, staged unless FLAG_GTAB: out [2] int32 gets
+// whether it runs the lane pool (pools_lanes) and the pool's resident
+// threads on the current device (0 where the output, FLAG_GTAB or FLAG_BVH
+// rule it out). Returns a CUDA error code. Not in the stub build.
+int bendy_lane_pool(int flags, int want_aovs, int table_floats, int n_sph, int n_rct, int n_box,
+                    int n, int spp, void* out) {
+  if (out == nullptr || table_floats < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  Params P = {};
+  P.flags = flags;
+  P.table_floats = table_floats;
+  P.n_sph = n_sph;
+  P.n_rct = n_rct;
+  P.n_box = n_box;
+  int* o = static_cast<int*>(out);
+  const cudaError_t e = lane_pool_threads(P, want_aovs != 0, &o[1]);
+  o[0] = pools_lanes(n, spp, o[1]);
+  return (int)e;
+}
 #endif
 
 #ifdef BENDY_SWEEP_STATS
+// Copy the measuring build's lane-pool counts to host `draws` (1 uint64:
+// the draws since the last call, then zeroed) and `trips` (`threads` int32:
+// each thread's loop trips in the last lane-pool launch, at most
+// LANE_POOL_STATS_THREADS).
+int bendy_lane_pool_stats(void* draws, void* trips, int threads) {
+  if (threads < 0 || threads > LANE_POOL_STATS_THREADS) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemcpyFromSymbol(draws, lane_pool_draws, sizeof(lane_pool_draws));
+  static const unsigned long long zero = 0;
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(lane_pool_draws, &zero, sizeof(zero));
+  if (e == cudaSuccess && threads > 0)
+    e = cudaMemcpyFromSymbol(trips, lane_pool_trips, sizeof(int) * threads);
+  return (int)e;
+}
+
 // Copy the measuring build's sweep counts (3 uint64: rect tests, lane
 // skips, warp skips) to host `out` and zero them.
 int bendy_sweep_stats(void* out) {

@@ -22,7 +22,9 @@ sample) item instead (the LOOPM and the item instantiations), so that a
 lane's long samples spread over threads and no thread carries a quota of
 samples, under a register budget that fits more warps per SM (the LOOPM
 ones start a resident grid whose threads take the next item from a pool
-when their path ends, :func:`pools_items`); a second
+when their path ends, :func:`pools_items`, and so does the surface tracer
+where a launch holds several lanes a resident thread, the lane pool,
+:func:`pools_lanes`); a second
 kernel (:func:`fold_samples`) adds each lane's samples in sample order,
 bit-equal to one thread per lane. A render pass (:func:`make_render_pass`)
 then runs one more kernel, :func:`accumulate` (``csrc/accumulate.cu``),
@@ -263,6 +265,49 @@ def pools_items(cfg: TraceConfig) -> bool:
     over looped masses), whose resident threads take their (lane, sample)
     items from a pool."""
     return cfg.geodesic and cfg.looped_masses
+
+
+# the lane pool's rule (csrc/trace_surface.cu LANE_POOL_MIN, LANE_POOL_SPP,
+# pools_lanes): a surface launch in FULL output with its table staged runs
+# the lane pool where its lanes are at least LANE_POOL_MIN times the pool's
+# resident threads and a lane holds at most LANE_POOL_SPP samples
+LANE_POOL_MIN, LANE_POOL_SPP = 3, 16
+
+
+def pools_lanes(cfg: TraceConfig, lanes: int, spp: int, threads: int, bvh: bool = False,
+                gtab: bool = False) -> bool:
+    """Whether a launch of ``lanes`` lanes of ``spp`` samples of ``cfg``
+    (``bvh``: its table has a node block; ``gtab``: its table stays in
+    global memory) runs the lane pool, the surface tracer whose ``threads``
+    resident threads (the blocks the card holds at once of that
+    instantiation, :func:`lane_pool`) take the next lane when theirs ends:
+    the mirror of the kernel's rule, which the C launch applies itself.
+    Never with geodesics, media, the BVH, a table in global memory or the
+    AOVs."""
+    return (not (cfg.geodesic or cfg.has_volumes or cfg.want_aovs or bvh or gtab)
+            and threads > 0 and lanes >= LANE_POOL_MIN * threads and spp <= LANE_POOL_SPP)
+
+
+def lane_pool(cfg: TraceConfig, table_floats: int, counts: dict, lanes: int,
+              spp: int) -> tuple[bool, int]:
+    """(whether the C launch of ``lanes`` lanes of ``spp`` samples of ``cfg``
+    with a table of ``table_floats`` and the ``counts`` of
+    :func:`tracer_table` runs the lane pool, its resident threads on the
+    current card: 0 where its output or table rule it out), as the library
+    decides it (``bendy_lane_pool``)."""
+    from bendy_tpu_torch import _build
+
+    if cfg.geodesic or cfg.has_volumes:
+        return False, 0
+    lib = _build.library()
+    out = (ctypes.c_int * 2)()
+    flags = (_flags(cfg) | (FLAG_GTAB if stays_in_global(lib, cfg, table_floats, counts) else 0)
+             | (FLAG_BVH if counts.get("bvh0", -1) >= 0 else 0))
+    rc = lib.bendy_lane_pool(flags, int(cfg.want_aovs), table_floats,
+                             *(counts.get(k, 0) for k in ("n_sph", "n_rct", "n_box")), lanes, spp,
+                             ctypes.addressof(out))
+    _check_launch("bendy_lane_pool", torch.device("cuda"), rc)
+    return bool(out[0]), out[1]
 
 
 def per_item(cfg: TraceConfig, bvh: bool = False) -> bool:
@@ -518,16 +563,19 @@ def warp_use_plain(iters: torch.Tensor, loop_use: torch.Tensor) -> None:
 
 
 def warp_use_pool_plain(iters: torch.Tensor, loop_use: torch.Tensor, threads: int) -> None:
-    """Plain model of the LOOPM tracer's own warp-use count: ``iters``, the
-    loop iterations of a launch's items in item order, traced by ``threads``
-    threads (the resident grid) that each start on item = its index and,
-    when their item's iterations run out, take the next unclaimed index
-    (the earliest free thread first, ties in thread order, every thread at
-    one iteration a step). Adds to ``loop_use`` ([2] int64) the
-    :func:`warp_use` of the threads' loop trips (each its items' iterations
-    summed). Items of equal length issue what :func:`warp_use_plain` counts
-    for one item a thread; the kernel's warps drift apart, so its count is
-    the measure."""
+    """Plain model of a pool's own warp-use count, the LOOPM tracer's over
+    (lane, sample) items and the lane pool's over lanes of several samples
+    (a lane cut at the cap counts its iterations up to the cap): ``iters``,
+    the loop iterations of a launch's items in item order, traced by
+    ``threads`` threads (the resident grid) that each start on item = its
+    index and, when their item's iterations run out, take the next
+    unclaimed index (the earliest free thread first, ties in thread order,
+    every thread at one iteration a step). Adds to ``loop_use`` ([2] int64)
+    the :func:`warp_use` of the threads' loop trips (each its items'
+    iterations summed). Items of equal length issue what
+    :func:`warp_use_plain` counts for one item a thread; the kernel's warps
+    drift apart and the lane pool hands out runs of lanes a warp at a time,
+    so its count is the measure."""
     its = iters.reshape(-1).to(torch.int64)
     n = its.numel()
     t = min(threads, n)

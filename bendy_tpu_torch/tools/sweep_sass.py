@@ -49,6 +49,8 @@ from pathlib import Path
 SURFACE = "trace_kernelILb0ELb0ELb0ELb0ELb0ELb0EEEvNS_6ParamsE"
 # the geodesic item instantiation (kernel 1d): GEO=1, the rest 0
 GEODESIC = "trace_kernelILb0ELb1ELb0ELb0ELb0ELb0EEEvNS_6ParamsE"
+# the lane pool: the surface instantiation in the LOOPM slot
+LANE_POOL = "trace_kernelILb0ELb0ELb0ELb1ELb0ELb0EEEvNS_6ParamsE"
 # skip_shares' scenes at their main paths (chip_smoke.py phases 4 and 5):
 # width, height, spp, subsample and the Config's keywords
 SKIP_PATHS = {"cornell": (256, 256, 64, 2, {}), "blackhole": (512, 512, 32, 1, {"max_bounces": 2})}
@@ -59,6 +61,8 @@ LOOPS = {
     "rect": r"for \(int k = 0; k < n_rct;",
     "box": r"for \(int k = 0; k < n_box;",
     "light_pdf": r"for \(int f = 0; f < n_face;",
+    # the tracer's thread loop, each of its back edges a natural loop
+    "thread": r"for \(; LOOPM \|\| it < P\.max_iters; \+\+it\)",
 }
 # the counted classes: shared loads by width, then each class of opcode
 GROUPS = ("LDS", "LDS.64", "LDS.128", "FFMA", "FMUL", "FADD", "FSETP", "FSEL", "FMNMX", "MUFU",
@@ -328,10 +332,13 @@ def sass_counts(root: Path | None = None, lib: Path | None = None, listing=None)
     library = None if lib is None else library_listing(lib)
     match = None if library is None else all(same_code(listing, library, name)
                                              for name in (SURFACE, GEODESIC))
+    pool = LANE_POOL if any(k.endswith(LANE_POOL) for k in functions(listing)) else None
     return {"instantiation": _build.trace_label(0, 0, 0, 0, 0, 0),
             "lineinfo_matches_library": match, "loops": sweep_counts(listing, source),
             "geodesic": {"instantiation": _build.trace_label(0, 1, 0, 0, 0, 0),
-                         "loops": sweep_counts(listing, source, GEODESIC)}}
+                         "loops": sweep_counts(listing, source, GEODESIC)},
+            "lane_pool": pool and {"instantiation": _build.trace_label(0, 0, 0, 1, 0, 0),
+                                   "loops": sweep_counts(listing, source, LANE_POOL)}}
 
 
 # --- how often a warp could skip ------------------------------------------
@@ -339,8 +346,9 @@ def sass_counts(root: Path | None = None, lib: Path | None = None, listing=None)
 def stats_library() -> ctypes.CDLL:
     """The measuring build of the tracer's source (``-DBENDY_SWEEP_STATS``),
     built at first use into ``_build/stats-<hash>/``, with the surface and
-    geodesic entries', ``bendy_staged_floats``', the error string's and
-    ``bendy_sweep_stats``'s signatures."""
+    geodesic entries', ``bendy_staged_floats``', the error string's,
+    ``bendy_sweep_stats``' and ``bendy_lane_pool_stats``' (the lane pool's
+    draws and its threads' loop trips) signatures."""
     from bendy_tpu_torch import _build
 
     flags = [*_build.nvcc_flags(_build.TRACE_BLOCK), STATS_FLAG]
@@ -360,6 +368,8 @@ def stats_library() -> ctypes.CDLL:
                  "bendy_cuda_error_string"):
         getattr(cdll, name).argtypes, getattr(cdll, name).restype = _build.SIGNATURES[name]
     cdll.bendy_sweep_stats.argtypes, cdll.bendy_sweep_stats.restype = SIGNATURE_STATS
+    cdll.bendy_lane_pool_stats.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    cdll.bendy_lane_pool_stats.restype = ctypes.c_int
     return cdll
 
 

@@ -189,7 +189,12 @@ Phases, one line each (any failure exits non-zero):
      for integer; on mass_cluster's LOOPM tracer, whose threads take items
      from a pool, its thread iterations equal the items' sum and it issues a
      multiple of 32 no fewer, beside one item a thread's count and the pool
-     model's.
+     model's; so on cornell's 768x512 pass, which runs the lane pool.
+ 21. the lane pool: tests/test_torch_lane_pool.py's card tests in a
+     subprocess (pooled launches bit-equal to one thread a lane at 1, 4 and
+     16 spp and at a ragged lane count, the counter reset past a LOOPM
+     launch, the pool's own warp-use count and its draws through the
+     measuring build, the library's shape rule against its Python mirror).
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -2108,8 +2113,9 @@ def warp_use_vs_issued(dev) -> list:
     which must equal the counters integer for integer. Every cell's lanes,
     so every launch's threads, are a multiple of 32, so no warp spans two
     launches. On the LOOPM path (mass_cluster) the threads take items from
-    the pool: the thread iterations must equal the items' iteration sum, and
-    the tracer must issue a multiple of 32 no fewer; ``warp_use`` (one item a
+    the pool, and on the lane pool (cornell 768x512 at 1 spp) lanes: the
+    thread iterations must equal the items' (lanes') iteration sum, and the
+    tracer must issue a multiple of 32 no fewer; ``warp_use`` (one item a
     thread) and the pool model (``warp_use_pool_plain`` at the launch's
     threads) are printed beside it. Returns the rows."""
     import torch
@@ -2117,8 +2123,9 @@ def warp_use_vs_issued(dev) -> list:
     from bendy_tpu_torch import _build, telemetry
     from bendy_tpu_torch.bench import renderer_lanes
     from bendy_tpu_torch.film import DeviceFilm
-    from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, make_tracer, pools_items,
-                                                  tracer_table, warp_use, warp_use_pool_plain)
+    from bendy_tpu_torch.ops.trace_kernel import (item_occupancy, lane_pool, make_tracer,
+                                                  pools_items, tracer_table, warp_use,
+                                                  warp_use_pool_plain)
     from bendy_tpu_torch.render import Config, RenderConfig, Subsample
     from bendy_tpu_torch.tools.perf_report import thread_counts
 
@@ -2139,10 +2146,14 @@ def warp_use_vs_issued(dev) -> list:
         want = dict(zip(("loop_thread_iters", "loop_issued_iters"), warp_use(iters).tolist()))
         row = dict(cell=f"{name} {W}x{H} {spp}spp {n}x{n}", counters=got, recomputed=want,
                    warp_use=100.0 * got["loop_thread_iters"] / max(got["loop_issued_iters"], 1))
-        if pools_items(cfg):
-            table_np, counts = tracer_table(r.arrays.host_copy(), cfg)
-            _, per_sm, sms = item_occupancy(cfg, table_np.size, counts)
-            threads = min(per_sm * sms * _build.TRACE_BLOCK, iters.numel())
+        table_np, counts = tracer_table(r.arrays.host_copy(), cfg)
+        lanes_pooled, lane_threads = lane_pool(cfg, table_np.size, counts, pix.numel(), spp)
+        if pools_items(cfg) or lanes_pooled:
+            if lanes_pooled:
+                threads = lane_threads
+            else:
+                _, per_sm, sms = item_occupancy(cfg, table_np.size, counts)
+                threads = min(per_sm * sms * _build.TRACE_BLOCK, iters.numel())
             model = torch.zeros(2, dtype=torch.int64)
             warp_use_pool_plain(iters.cpu(), model, threads)
             row.update(threads=threads, pool_model=model.tolist())
@@ -2167,11 +2178,26 @@ def warp_use_vs_issued(dev) -> list:
     return rows
 
 
+def lane_pool_tests() -> None:
+    """Phase 21: the lane pool's card tests (``python -m pytest --noconftest -m
+    card tests/test_torch_lane_pool.py``) in a subprocess."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "card", "-q",
+           "-p", "no:cacheprovider", "tests/test_torch_lane_pool.py"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()
+    print(f"phase 21: the lane pool's card tests in {time.perf_counter() - t0:.1f} s: "
+          + (tail[-1] if tail else "no output"))
+    if proc.returncode:
+        print("\n".join(tail[-60:]))
+        fail("the lane pool's card tests failed")
+
+
 def parent_code(lib_path, parent_build) -> None:
     """Phase 2 with a parent checkout: every tracer instantiation's opcodes
     (``sweep_sass.same_tracers``) and every ptxas line against the parent's
-    library. Only the LOOPM instantiations may differ; their lines are
-    printed beside the parent's."""
+    library. Only the lane pool (``LANE POOL``, which the parent lacks) may
+    differ; its line is printed."""
     from bendy_tpu_torch import _build
     from bendy_tpu_torch.tools import sweep_sass
 
@@ -2180,16 +2206,15 @@ def parent_code(lib_path, parent_build) -> None:
                                    sweep_sass.library_listing(plib))
     mine, theirs = ({ln.split(": ")[0]: ln for ln in ptxas_report(log)}
                     for log in (_build.build_log(), plog))
-    others = [k for k in same if "LOOPM=1" not in k]
+    others = [k for k in same if "LANE POOL" not in k]
     code_off = [k for k in others if not same[k]]
-    lines_off = [k for k in mine if "LOOPM=1" not in k and mine[k] != theirs.get(k)]
+    lines_off = [k for k in mine if "LANE POOL" not in k and mine[k] != theirs.get(k)]
     print(f"phase 2: opcodes equal to the parent's library: {len(others) - len(code_off)} of "
-          f"{len(others)} instantiations without LOOPM, LOOPM " + ", ".join(
-              f"{k} {same[k]}" for k in same if "LOOPM=1" in k)
-          + f"; ptxas lines equal but LOOPM's: {not lines_off}; LOOPM, change | parent: "
-          + " | ".join(f"{mine[k]} | {theirs.get(k)}" for k in mine if "LOOPM=1" in k))
+          f"{len(others)} instantiations but the lane pool; ptxas lines equal: {not lines_off}; "
+          "the lane pool: " + " | ".join(mine[k] for k in mine if "LANE POOL" in k))
     if code_off or lines_off:
-        fail(f"instantiations without LOOPM differ from the parent's: {code_off + lines_off}")
+        fail(f"instantiations other than the lane pool differ from the parent's: "
+             f"{code_off + lines_off}")
 
 
 def run(phases=None, phase3_names=None, parent=None) -> int:
@@ -2238,6 +2263,9 @@ def run(phases=None, phase3_names=None, parent=None) -> int:
           f"({sweep['instantiation']}; tools/sweep_sass.py): {json.dumps(sweep['loops'])}")
     print(f"phase 2: SASS of the geodesic chords' sweep per loop iteration "
           f"({sweep['geodesic']['instantiation']}): {json.dumps(sweep['geodesic']['loops'])}")
+    if sweep["lane_pool"]:
+        print(f"phase 2: SASS of the lane pool's sweep per loop iteration "
+              f"({sweep['lane_pool']['instantiation']}): {json.dumps(sweep['lane_pool']['loops'])}")
     if not sweep["lineinfo_matches_library"]:
         fail("the sweep's lineinfo build does not hold the library's instructions")
     if parent_build is not None:
@@ -2380,6 +2408,9 @@ def run(phases=None, phase3_names=None, parent=None) -> int:
 
     if phases is None or 20 in phases:
         warp_use_vs_issued(dev)
+
+    if phases is None or 21 in phases:
+        lane_pool_tests()
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -417,7 +417,9 @@ template <int I = 0>
 void rows() {
   if constexpr (I < 64) {
     constexpr bool A = I & 1, G = I & 2, V = I & 4, L = I & 8, T = I & 16, B = I & 32;
-    if constexpr (!(L && !G) && !(B && G)) row<A, G, V, L, T, B>();  // the instantiations
+    // the instantiations: LOOPM with geodesics, and the lane pool (LOOPM's slot
+    // without them) in FULL output with the table staged
+    if constexpr ((!(L && !G) || (!A && !V && !T && !B)) && !(B && G)) row<A, G, V, L, T, B>();
     rows<I + 1>();
   }
 }
@@ -466,14 +468,17 @@ def test_staging_rule(tmp_path, block):
     instantiation sweeps the flat table in place. The register budgets
     (MIN_BLOCKS) stay as they were: the item instantiations 768 / BLOCK
     (640 with media), the surface one in FULL output with its table staged
-    1024 / BLOCK, LOOPM and every other 0."""
+    1024 / BLOCK and the lane pool with it, LOOPM and every other 0."""
     table = staging_rule(tmp_path, block)
-    assert len(table) == 2 * 2 * 8  # AOVS x GTAB x the eight (GEO, VOL, LOOPM, BVH) routes
+    # AOVS x GTAB x the eight (GEO, VOL, LOOPM, BVH) routes, and the lane pool
+    assert len(table) == 2 * 2 * 8 + 1
     for (aovs, geo, vol, loopm, gtab, bvh), (budget, rows, staged, occ) in table.items():
         want_rows = not vol and not bvh
         assert staged == want_rows and occ == (not vol), (geo, vol, loopm, gtab, bvh)
         assert rows == (want_rows and not gtab), (geo, vol, loopm, gtab, bvh)
-        if loopm:
+        if loopm and not geo:  # the lane pool: the surface one's budget
+            want = 1024 // block
+        elif loopm:
             want = 0
         elif geo or (vol and not bvh):  # the item instantiations
             want = (640 if geo and vol else 768) // block
@@ -486,6 +491,7 @@ def test_staging_rule(tmp_path, block):
     # rows under the item budget; LOOPM sweeps rows with none
     assert table[False, True, False, False, False, False] == (768 // block, 1, 1, 1)
     assert table[False, True, False, True, False, False] == (0, 1, 1, 1)
+    assert table[False, False, False, True, False, False] == (1024 // block, 1, 1, 1)
 
 
 def test_sweep_rows_floats_and_layout(tmp_path):
@@ -676,6 +682,10 @@ def test_same_tracers_finds_each_instantiation_in_another_library():
     surface, looped = (trace_label(0, g, 0, g, 0, 0) for g in (0, 1))
     assert sweep_sass.same_tracers(mine, theirs) == {surface: True, looped: False}
     assert sweep_sass.same_tracers(mine, LISTING) == {surface: True, looped: None}
+    # the lane pool, in the LOOPM slot without geodesics, is named apart
+    pool = LISTING.replace("ILb0ELb0ELb0ELb0ELb0ELb0E", "ILb0ELb0ELb0ELb1ELb0ELb0E")
+    assert sweep_sass.same_tracers(LISTING + pool, LISTING) == {
+        surface: True, trace_label(0, 0, 0, 1, 0, 0): None}
 
 
 def test_sweep_sass_counts_the_geodesic_instantiation(monkeypatch, tmp_path):
