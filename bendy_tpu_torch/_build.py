@@ -71,7 +71,8 @@ _TRACE_ARGS = [
     c_int, c_int, c_void_p, c_void_p,  # ... want_aovs, bvh0, bvh_tests, loop_use
 ]
 SIGNATURES = {
-    "bendy_trace_surface": (_TRACE_ARGS + [c_void_p], c_int),
+    # + lane_next (one word: the lane pool's draws)
+    "bendy_trace_surface": (_TRACE_ARGS + [c_void_p, c_void_p], c_int),
     # + n_mass, eta, min_step, max_step, far, max_steps, growth, near_steps
     "bendy_trace_geodesic": (
         _TRACE_ARGS + [c_int, c_float, c_float, c_float, c_float, c_int, c_float,

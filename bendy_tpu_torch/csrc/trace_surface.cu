@@ -146,7 +146,8 @@
 //     index, takes the next lane and starts it afresh in the same loop
 //     iteration. A lane is still traced whole by one thread in sample
 //     order, so out, rays and iters are bit-equal to one thread a lane.
-//   - Draws: a warp claims LANE_RUN lanes with one atomicAdd and hands them
+//   - Draws: a warp claims LANE_RUN lanes with one atomicAdd on the
+//     launch's own counter (zeroed on its stream by launch<>) and hands them
 //     to its threads in rank order (lane_take, the run kept in shared
 //     memory by the warp's thread 0): at one sample about a third of a
 //     warp's threads end a path each iteration, and a draw each would near
@@ -437,6 +438,7 @@ struct Params {
   int bvh0;                                      // BVH only: the node block's offset in the table
   int32_t* bvh_tests;                            // BVH only, optional: [2, n] node, prim tests
   unsigned long long* loop_use;                  // optional: [2] warp use (count_warp_use)
+  unsigned* lane_next;  // the lane pool only: its draws' counter, zeroed on the launch's stream
 };
 
 // ---- RNG (utils/rng.py) -------------------------------------------------
@@ -1469,16 +1471,12 @@ constexpr bool LANE_POOL = LOOPM && !GEO;
 constexpr unsigned LANE_RUN = 32;
 
 // The lane pool's draws: the lanes a launch has handed out past each
-// thread's first (lane = thread index), LANE_RUN at a time. The draw whose
-// run reaches the launch's lanes is the pool's last run, and its warp draws
-// no more; every other warp draws until it draws past the lanes, once. So
-// a launch of `lanes` lanes over `threads` threads makes runs + threads / 32
-// - 1 draws (runs = ceil((lanes - threads) / LANE_RUN) > 0; without runs,
-// threads / 32), fewer than lanes / 32, and the draw of the last sets the
-// counter back to 0 for the next launch: no launch or host call between.
-// So lane-pool launches on one device must not overlap: they share the
-// counter (launches on one stream never do). LOOPM's pool_next is another.
-__device__ unsigned int lane_pool_next;
+// thread's first (lane = thread index), LANE_RUN at a time, counted in the
+// launch's own word (Params::lane_next, zeroed on the launch's stream by
+// launch<>), so two launches never share a counter, on one stream or two.
+// The draw whose run reaches the launch's lanes is the pool's last run, and
+// its warp draws no more; every other warp draws until it draws past the
+// lanes, once: fewer draws than lanes / 32. LOOPM's pool_next is another.
 
 #ifdef BENDY_SWEEP_STATS
 // the measuring build: the lane pool's draws and each thread's loop trips
@@ -1497,10 +1495,11 @@ __device__ __forceinline__ unsigned* lane_run() {
 
 // The next lanes of the warp's threads in `need` (all 32 threads call it,
 // `need` the same in each), a launch of `threads` threads over `lanes`
-// lanes: the thread of rank r among them gets the run's next lanes in rank
-// order, drawing a new run where the run holds too few; -1 where the pool
-// is empty.
-__device__ __forceinline__ int lane_take(unsigned need, unsigned threads, unsigned lanes) {
+// lanes drawing from its counter `drawn_runs`: the thread of rank r among
+// them gets the run's next lanes in rank order, drawing a new run where the
+// run holds too few; -1 where the pool is empty.
+__device__ __forceinline__ int lane_take(unsigned need, unsigned threads, unsigned lanes,
+                                         unsigned* drawn_runs) {
   const unsigned me = threadIdx.x & 31, v = __popc(need);
   unsigned next = 0, left = 0, drawn = ~0u, avail = 0;
   if (me == 0) {
@@ -1513,13 +1512,10 @@ __device__ __forceinline__ int lane_take(unsigned need, unsigned threads, unsign
     } else {
       run[1] = 0;  // the ranks below `left` take what is left
       if (run[2] == 0u) {
-        const unsigned c = atomicAdd(&lane_pool_next, LANE_RUN);
+        const unsigned c = atomicAdd(drawn_runs, LANE_RUN);
 #ifdef BENDY_SWEEP_STATS
         atomicAdd(&lane_pool_draws, 1ull);
 #endif
-        const unsigned runs = (lanes - threads + LANE_RUN - 1) / LANE_RUN;
-        const unsigned draws = runs + threads / 32 - (runs > 0u ? 1u : 0u);
-        if (c == (draws - 1u) * LANE_RUN) atomicExch(&lane_pool_next, 0u);  // the launch's last
         drawn = threads + c;
         if (drawn < lanes) {
           avail = min(LANE_RUN, lanes - drawn);
@@ -1723,7 +1719,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS<AOVS, GEO, VOL, LOOPM, GTAB,
                                 acc_rad, acc_alb, acc_nrm, acc_dep, rays, it, vev, n_near);
           pool_trips() += it;
         }
-        const int next = lane_take(need, gridDim.x * blockDim.x, (unsigned)P.n);
+        const int next = lane_take(need, gridDim.x * blockDim.x, (unsigned)P.n, P.lane_next);
         if (ends) {
           item = next;
           if (next >= 0) {
@@ -2407,7 +2403,6 @@ int launch_kernel(void (*kernel)(Params), int items, size_t smem, const Params& 
 // warps run nearly full (88 % at 64), and the pool's dearer iteration costs
 // more than it recovers (PERF.md §6).
 constexpr int LANE_POOL_MIN = 3, LANE_POOL_SPP = 16;
-static_assert(LANE_POOL_MIN >= 1, "lane_take counts its draws for at least a lane a thread");
 bool pools_lanes(long long lanes, int spp, long long resident) {
   return resident > 0 && lanes >= LANE_POOL_MIN * resident && spp <= LANE_POOL_SPP;
 }
@@ -2436,16 +2431,24 @@ cudaError_t lane_pool_threads(const Params& P, bool want_aovs, int* threads) {
   return e;
 }
 
+// launch `P` on `s`; a surface launch that pools (pools_lanes) counts its
+// draws in `lane_next`, one device word of its own, zeroed here on `s`
 template <bool GEO, bool VOL, bool LOOPM = false, bool BVH = false>
-int launch(const Params& P, bool want_aovs, cudaStream_t s) {
+int launch(const Params& P, bool want_aovs, cudaStream_t s, void* lane_next = nullptr) {
   const size_t smem = dynamic_smem(P, BVH, SWEEP_ROWS<VOL, false, BVH>);
   if constexpr (!GEO && !VOL && !BVH) {
     int threads = 0;
-    const cudaError_t e = lane_pool_threads(P, want_aovs, &threads);
+    cudaError_t e = lane_pool_threads(P, want_aovs, &threads);
     if (e != cudaSuccess) return (int)e;
     // the resident grid, whose threads take the lanes past their first
-    if (pools_lanes(P.n, P.spp, threads))
-      return launch_kernel(lane_pool_kernel, threads, smem, P, s);
+    if (pools_lanes(P.n, P.spp, threads)) {
+      if (lane_next == nullptr) return (int)cudaErrorInvalidValue;
+      e = cudaMemsetAsync(lane_next, 0, sizeof(unsigned), s);
+      if (e != cudaSuccess) return (int)e;
+      Params Q = P;
+      Q.lane_next = static_cast<unsigned*>(lane_next);
+      return launch_kernel(lane_pool_kernel, threads, smem, Q, s);
+    }
   }
   return launch_kernel(instance<GEO, VOL, LOOPM, BVH>(want_aovs, (P.flags & FLAG_GTAB) != 0),
                        PER_ITEM<GEO, VOL, BVH> ? P.n * P.spp : P.n, smem, P, s, LOOPM);
@@ -2569,9 +2572,13 @@ extern "C" {
 // and primitive test counts to it ([2, n] int32); without, both are ignored.
 // A non-null `loop_use` [2] int64 gets the launch's warp use added to it
 // (count_warp_use: its threads' loop iterations and the iterations its warps
-// issued), in every entry and instantiation. The stub build launches the instantiation of the stub mask in `flags`
-// (FULL output, table in shared memory only).
-int bendy_trace_surface(TRACE_ARGS, void* stream) {
+// issued), in every entry and instantiation. `lane_next` is one device word
+// (4 bytes) of the caller's: a launch that runs the lane pool (pools_lanes;
+// bendy_lane_pool says which) zeroes it on `stream` and counts its draws in
+// it, and is refused without it; a launch that does not leaves it alone.
+// The stub build launches the instantiation of the stub mask in `flags`
+// (FULL output, table in shared memory only) and ignores `lane_next`.
+int bendy_trace_surface(TRACE_ARGS, void* lane_next, void* stream) {
   if ((flags & (FLAG_GEO | FLAG_LOOPM)) || !bvh_args_ok(flags, bvh0, table_floats))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -2583,7 +2590,7 @@ int bendy_trace_surface(TRACE_ARGS, void* stream) {
 #else
   if (flags >> STUB_SHIFT) return (int)cudaErrorInvalidValue;
   if (flags & FLAG_BVH) return launch<false, false, false, true>(TRACE_PARAMS, want_aovs != 0, s);
-  return launch<false, false>(TRACE_PARAMS, want_aovs != 0, s);
+  return launch<false, false>(TRACE_PARAMS, want_aovs != 0, s, lane_next);
 #endif
 }
 

@@ -675,7 +675,8 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     on the current stream; the BVH one for a table of :func:`tracer_table`
     with a node block, whose per-lane node and primitive test counts go to
     ``bvh_tests`` ([2, B] int32) when it is given. ``loop_use`` as for
-    :func:`_launch`.
+    :func:`_launch`. Each launch gets a word of its own in which a launch
+    that runs the lane pool (:func:`pools_lanes`) counts its draws.
 
     Returns (out [3 or 10, B] f32 channel sums, rays [B] int32, iters
     [B] int32). Adds one to ``trace_surface.launches`` per launch. Raises
@@ -684,9 +685,10 @@ def trace_surface(table: torch.Tensor, counts: dict, cam_packed: torch.Tensor,
     if cfg.geodesic or cfg.has_volumes:
         raise ValueError("a geodesic configuration launches trace_geodesic, one with "
                          "volumes trace_volume")
+    lane_next = torch.empty(1, dtype=torch.int32, device=pix.device)
     return _launch("bendy_trace_surface", trace_surface, table, counts, cam_packed, pix, sub,
                    width, height, spp, spp_total, subsample, key, sample0, cfg,
-                   bvh_tests=bvh_tests, loop_use=loop_use)
+                   extra=(lane_next,), bvh_tests=bvh_tests, loop_use=loop_use)
 
 
 trace_surface.launches = 0

@@ -190,11 +190,19 @@ Phases, one line each (any failure exits non-zero):
      from a pool, its thread iterations equal the items' sum and it issues a
      multiple of 32 no fewer, beside one item a thread's count and the pool
      model's; so on cornell's 768x512 pass, which runs the lane pool.
- 21. the lane pool: tests/test_torch_lane_pool.py's card tests in a
+ 21. the lane pool: (a) its main path, cornell 768x512, 2x2, 1 spp (the
+     CLI's and the app's loop), which the library must pool
+     (bendy_lane_pool): phase 4's Renderer checks, then the lanes of the
+     Renderer's first pass, traced by the pooled kernel, against the plain
+     integrator's on the same seed (per lane rtol 5e-4 / atol 1e-5, equal
+     rays and iterations), and the pooled tracer alone timed beside the
+     same lanes in launches too small to pool (one thread a lane), both in
+     the kernel line; (b) tests/test_torch_lane_pool.py's card tests in a
      subprocess (pooled launches bit-equal to one thread a lane at 1, 4 and
-     16 spp and at a ragged lane count, the counter reset past a LOOPM
-     launch, the pool's own warp-use count and its draws through the
-     measuring build, the library's shape rule against its Python mirror).
+     16 spp and at a ragged lane count, two pooled launches at once on two
+     streams, a pooled launch past a LOOPM launch, the pool's own warp-use
+     count and its draws through the measuring build, the library's shape
+     rule against its Python mirror).
 It prints the card's name and power limit, the kernel table as one JSON
 line, then the result line {"ok": true, "device": {...}} last. On an H100
 the whole run takes several minutes, most of it the plain passes and the
@@ -2178,8 +2186,84 @@ def warp_use_vs_issued(dev) -> list:
     return rows
 
 
+LANE_POOL_PATH = ("cornell", 768, 512, 1, 2)  # phase 21(a): scene, W, H, spp, subsample
+
+
+def lane_pool_path(dev) -> dict:
+    """Phase 21(a): the lane pool on its main path (:data:`LANE_POOL_PATH`):
+    fails unless the library pools the launch (``bendy_lane_pool``);
+    :func:`main_path` (4 chained Renderer passes, launch counts, the film
+    against the tracer's lanes through the parent's route); then the lanes
+    of the Renderer's first pass (its seed, pass 0, in its lane order)
+    traced by the pooled kernel against the plain integrator's
+    (:func:`compare_lanes`); then the pooled tracer alone (the median of
+    REPEATS seeds) beside the same lanes in launches of LANE_POOL_MIN x the
+    resident threads less one lanes, each too small to pool, so one thread
+    a lane. Returns the kernel line's entry."""
+    import torch
+
+    from bendy_tpu_torch import Config
+    from bendy_tpu_torch.bench import renderer_lanes
+    from bendy_tpu_torch.ops import trace_kernel
+    from bendy_tpu_torch.ops.trace_kernel import lane_pool, make_tracer, tracer_table
+    from bendy_tpu_torch.ops.wavefront import trace_core
+    from bendy_tpu_torch.utils.rng import render_key
+
+    name, W, H, spp, n = LANE_POOL_PATH
+    launch = trace_kernel.trace_surface
+    path = main_path(21, name, Config(), W, H, spp, n, dev, launch)
+    r, cam, seed = path["r"], path["cam"], path["seed"]
+    cfg = r.trace_config(r.config, cam)
+    pix, sub = renderer_lanes(r, cfg, W, H, spp, n)
+    table_np, counts = tracer_table(r.arrays.host_copy(), cfg)
+    pooled, threads = lane_pool(cfg, table_np.size, counts, pix.numel(), spp)
+    print(f"phase 21: {name} {W}x{H} {spp} spp {n}x{n}: {pix.numel()} lanes over the lane "
+          f"pool's {threads} resident threads ({pix.numel() / max(threads, 1):.2f} a thread): "
+          f"pooled {pooled}")
+    if not pooled:
+        fail(f"the library does not pool {name}'s {W}x{H} launch")
+    kern = make_tracer(r.arrays, W, H, spp, n, cfg)(r._cam_packed, seed, 0, pix, sub)
+    t0 = time.perf_counter()
+    plain = trace_core(r.arrays, r.camera_params(cam), render_key(seed, 0), pix, sub, W, H, spp,
+                       n, cfg)
+    plain_s = time.perf_counter() - t0
+    err = compare_lanes(f"{name} {W}x{H} {spp} spp {n}x{n}, the Renderer's first pass, pooled "
+                        f"(plain {plain_s:.1f} s)", kern, plain, cfg, phase=21)
+
+    table = torch.from_numpy(table_np).to(dev)
+    step = trace_kernel.LANE_POOL_MIN * threads - 1
+    keys = [render_key(seed + i, 0) for i in range(REPEATS + 1)]
+
+    def call(i, lo=0, hi=pix.numel()):
+        return launch(table, counts, r._cam_packed.reshape(-1), pix[lo:hi], sub[lo:hi], width=W,
+                      height=H, spp=spp, spp_total=spp, subsample=n, key=keys[i], sample0=0,
+                      cfg=cfg)
+
+    def static(i):
+        return [call(i, lo, lo + step) for lo in range(0, pix.numel(), step)]
+
+    _, ms, lo, hi = cuda_ms_median(call, REPEATS)
+    _, static_ms, static_lo, static_hi = cuda_ms_median(static, REPEATS)
+    parts = -(-pix.numel() // step)
+    print(f"phase 21: {launch.__name__} alone, pooled: median {ms:.4f} ms (min {lo:.4f}, max "
+          f"{hi:.4f}, {REPEATS} seeds); the same lanes in {parts} launches of at most {step} "
+          f"lanes, one thread a lane: {static_ms:.4f} ms ({static_lo:.4f}-{static_hi:.4f}); "
+          f"pooled over static {ms / static_ms:.3f}; SM clock, power after it {sm_clock()}")
+    return {
+        "name": launch.__name__, "route": "cuda", "source": "bendy_tpu_torch/csrc/trace_surface.cu",
+        "replaces": f"{PALLAS} (1a, the lane pool)", "launches": path["launches"],
+        "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi, "plain_ms": plain_s * 1e3,
+        "plain_form": "trace_core over the pass's lanes", "library_ms": None,
+        "path": f"{name} {W}x{H} {spp}spp {n}x{n} (lane pool)", "lane_pool_threads": threads,
+        "static_ms": static_ms, "static_ms_min": static_lo, "static_ms_max": static_hi,
+        "static_form": f"the same lanes in {parts} launches of at most {step}, one thread a lane",
+        "mrays_per_s": path["rays"] / path["dt"] / 1e6, "s_per_pass": path["dt"] / 4,
+        "host_ms_per_pass": path["host_s"] / 4 * 1e3,
+    }
+
+
 def lane_pool_tests() -> None:
-    """Phase 21: the lane pool's card tests (``python -m pytest --noconftest -m
+    """Phase 21(b): the lane pool's card tests (``python -m pytest --noconftest -m
     card tests/test_torch_lane_pool.py``) in a subprocess."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "card", "-q",
            "-p", "no:cacheprovider", "tests/test_torch_lane_pool.py"]
@@ -2410,6 +2494,7 @@ def run(phases=None, phase3_names=None, parent=None) -> int:
         warp_use_vs_issued(dev)
 
     if phases is None or 21 in phases:
+        kernels.append(lane_pool_path(dev))
         lane_pool_tests()
 
     print(smi)

@@ -2,9 +2,10 @@
 (``ops/trace_kernel.pools_lanes``) against the kernel's, the pool model's
 warp use (``warp_use_pool_plain``) over lanes of several samples against a
 lane-loop pool stepped one iteration at a time, and the launch glue that
-hands the warp-use pair to a pooled launch; on a card (``-m card``) the
-pooled launch bit-equal to one thread a lane, its counter reset between
-launches, its own warp-use count and its draws (the measuring build).
+hands a pooled launch the warp-use pair and a counter of its own; on a card
+(``-m card``) the pooled launch bit-equal to one thread a lane, alone, two
+at once on two streams and past a LOOPM launch, its own warp-use count and
+its draws (the measuring build).
 """
 
 import math
@@ -113,22 +114,30 @@ def test_the_pool_model_counts_a_lane_loop_pool(threads):
 
 def test_the_glue_hands_the_pair_to_a_pooled_launch(monkeypatch):
     """A surface launch at cornell.progressive's shape, which the kernel
-    pools, gets the pass's warp-use pair like any other launch, once."""
+    pools, gets the pass's warp-use pair like any other launch, once, and a
+    one-word int32 counter on the lanes' device for the pool's draws, a new
+    one each launch, so no two launches share it."""
     cfg = _cfg()
     launched = []
 
-    def launch(entry, who, table, cts, cam, pix, sub, *args, outs=None, loop_use=None, **kw):
-        launched.append((entry, pix.numel(), loop_use))
+    def launch(entry, who, table, cts, cam, pix, sub, *args, extra=(), outs=None,
+               loop_use=None, **kw):
+        launched.append((entry, pix.numel(), loop_use, extra))
 
     monkeypatch.setattr(trace_kernel, "_launch", launch)
     use = torch.zeros(2, dtype=torch.int64)
     pix = torch.zeros(PROGRESSIVE_LANES, dtype=torch.int32)
     assert pools_lanes(cfg, pix.numel(), 1, H100_THREADS)
-    trace_kernel.trace_surface(None, {}, None, pix, pix, width=768, height=512, spp=1,
-                               spp_total=1, subsample=2, key=(0, 0), sample0=0, cfg=cfg,
-                               loop_use=use)
-    assert len(launched) == 1 and launched[0][:2] == ("bendy_trace_surface", PROGRESSIVE_LANES)
-    assert launched[0][2] is use
+    for _ in range(2):
+        trace_kernel.trace_surface(None, {}, None, pix, pix, width=768, height=512, spp=1,
+                                   spp_total=1, subsample=2, key=(0, 0), sample0=0, cfg=cfg,
+                                   loop_use=use)
+    assert [x[:2] for x in launched] == [("bendy_trace_surface", PROGRESSIVE_LANES)] * 2
+    assert all(x[2] is use for x in launched)
+    counters = [x[3] for x in launched]
+    for (c,) in counters:
+        assert c.shape == (1,) and c.dtype == torch.int32 and c.device == pix.device
+    assert counters[0][0].data_ptr() != counters[1][0].data_ptr()
 
 
 # --- on a card ----------------------------------------------------------------
@@ -198,10 +207,34 @@ def test_pooled_launch_is_bit_equal_to_one_thread_a_lane(cornell, spp, ragged):
 
 
 @pytest.mark.card
+def test_two_pooled_launches_at_once_on_two_streams(cornell):
+    """Two pooled launches running at once on two streams, each over the
+    whole frame at its own seed, give the words each gives alone: each
+    launch draws its lanes from a counter of its own."""
+    make, pix, sub, r, cfg, threads = cornell
+    tracer = make(1)
+    alone = [words(tracer, r, pix, sub, seed) for seed in (11, 12)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    main = torch.cuda.current_stream()
+    for s in streams:
+        s.wait_stream(main)
+    both = []
+    for s, seed in zip(streams, (11, 12)):
+        with torch.cuda.stream(s):
+            both.append(words(tracer, r, pix, sub, seed))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    for a, b in zip(alone, both):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.card
 def test_the_pool_resets_for_the_next_launch_past_a_loopm_launch(cornell):
     """Two pooled launches with a LOOPM launch between (its own item pool)
-    give the same words: each pool's counter is back at 0 for its next
-    launch."""
+    give the same words: each pooled launch starts its own counter at 0,
+    and LOOPM's pool is back at 0 for its next launch."""
     from bendy_tpu_torch import Renderer, load_scene
     from bendy_tpu_torch.ops.trace_kernel import make_tracer, pools_items
 
