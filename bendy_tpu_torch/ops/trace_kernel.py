@@ -828,14 +828,16 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
     ``item_iters``: [B, spp] int32, the counts of the launch's threads).
 
     ``fn.words(cam_packed, seed, pass_idx, pix, sub, sample0=0,
-    loop_use=None)`` traces the same lanes and returns only the per-lane
-    words a render pass accumulates (:func:`accumulate`): the channel sums
-    [3 or 10, B] f32 and each lane's traced rays [B] (int32 from the kernel,
-    int64 from the plain version), with none of the reductions of
-    ``TraceSums``. With ``loop_use`` ([2] int64) the tracer's warp use is
-    added to it: by every kernel launch itself (:func:`_launch`), and on the
-    CPU route, whose loop is per lane, by :func:`warp_use_plain` of the
-    lanes' iterations.
+    loop_use=None, vol_use=None)`` traces the same lanes and returns only
+    the per-lane words a render pass accumulates (:func:`accumulate`): the
+    channel sums [3 or 10, B] f32 and each lane's traced rays [B] (int32
+    from the kernel, int64 from the plain version), with none of the
+    reductions of ``TraceSums``. With ``loop_use`` ([2] int64) the tracer's
+    warp use is added to it: by every kernel launch itself (:func:`_launch`),
+    and on the CPU route, whose loop is per lane, by :func:`warp_use_plain`
+    of the lanes' iterations. With ``vol_use`` ([1] int64) the lanes' volume
+    events are added to it, one ``sum`` of the per-lane counts (none without
+    media).
     """
     spp_total = spp if spp_total is None else spp_total
     check_trace_args(width, height, spp_total, subsample, cfg)
@@ -914,7 +916,8 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
         return TraceSums(rad, V3(out[3], out[4], out[5]), V3(out[6], out[7], out[8]),
                          out[9], *sums, lane_counts=lane_counts)
 
-    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0, loop_use=None):
+    def words(cam_packed, seed, pass_idx, pix, sub, sample0: int = 0, loop_use=None,
+              vol_use=None):
         dev = pix.device
         if dev.type == "cpu":
             res = plain(cam_packed, seed, pass_idx, pix, sub, sample0)
@@ -923,13 +926,25 @@ def make_tracer(scn: SceneArrays, width: int, height: int, spp: int,
                 chans += [*res.aov_albedo, *res.aov_normal, res.aov_depth]
             if loop_use is not None:
                 warp_use_plain(res.lane_counts["iters"], loop_use)
+            if vol_use is not None:
+                vol_use += res.vol_events
             return torch.stack(chans), res.lane_counts["rays"]
         if dev.type != "cuda":
             raise ValueError(f"no tracer for device {dev}")
-        return launch(cam_packed, seed, pass_idx, pix, sub, sample0, loop_use=loop_use)[:2]
+        out, rays, _, vol = launch(cam_packed, seed, pass_idx, pix, sub, sample0,
+                                   loop_use=loop_use)[:4]
+        if vol_use is not None and vol is not None:
+            add_vol_events(vol, vol_use)
+        return out, rays
 
     run.words = words
     return run
+
+
+def add_vol_events(vol: torch.Tensor, vol_use: torch.Tensor) -> None:
+    """Adds the lanes' volume events ``vol`` ([B] int32, as ``trace_volume``
+    returns them) to ``vol_use`` ([1] int64): one ``sum``."""
+    vol_use += vol.sum(dtype=torch.int64)
 
 
 def tile_perm(width: int, rows: int, nn: int, lanes_per_block: int):
@@ -1136,7 +1151,8 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
                      tile: bool = TILE):
     """Counterpart of ``render.render_pass`` on the tracer (the reference's
     ``make_pallas_render_pass``): returns ``fn(cam_packed, seed, pass_idx,
-    y_offset, dst=None, add=False, rays=None, loop_use=None) -> (dst, rays)`` over image
+    y_offset, dst=None, add=False, rays=None, loop_use=None, vol_use=None)
+    -> (dst, rays)`` over image
     rows [y_offset, y_offset+rows), on ``cam_packed``'s device: one tracer
     call (:func:`make_tracer`'s ``words``), then one :func:`accumulate` of
     its pixel sums into ``dst`` ([rows, W, 3] f32; allocated when None),
@@ -1146,10 +1162,13 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
     same film bit for bit. With ``loop_use`` ([2] int64) the pass adds the
     tracer's warp use to it: the loop iterations of the tracer's threads
     and the iterations their warps issue, counted by the tracer itself (no
-    launch is added).
+    launch is added); with ``vol_use`` ([1] int64) the tracer's volume
+    events (``make_tracer``'s ``words``).
     The lanes of each (y_offset, device) are built at
     its first pass and kept (8 bytes a lane), so a pass runs no torch op
-    besides the tracer's and the accumulate's allocations;
+    besides the tracer's and the accumulate's allocations (a profiled pass
+    with media: the volume events' ``sum``, whose kernels that first pass
+    loads);
     ``fn.lanes(y_offset, device)`` gives them as (pix, sub).
     """
     nn = max(subsample, 1) ** 2
@@ -1161,15 +1180,22 @@ def make_render_pass(scn: SceneArrays, width: int, height: int, rows: int,
             with telemetry.one_off("pass.build"):
                 lanes[y_offset, dev] = render_lanes(scn, cfg, width, rows, spp, nn, y_offset,
                                                     dev, tile)
+                if cfg.has_volumes and dev.type == "cuda":
+                    # the volume-event count loads its kernels here, at set-up,
+                    # and not in the first profiled pass
+                    add_vol_events(torch.zeros(lanes[y_offset, dev][0].numel(), dtype=torch.int32,
+                                               device=dev),
+                                   torch.zeros(1, dtype=torch.int64, device=dev))
         return lanes[y_offset, dev]
 
     def run(cam_packed, seed, pass_idx, y_offset, dst=None, add=False, rays=None,
-            loop_use=None):
+            loop_use=None, vol_use=None):
         dev = cam_packed.device
         rec = telemetry.ACTIVE  # spans only inside a profiled Renderer.render
         pix, sub, tiled = lanes_of(y_offset, dev)
         t0 = telemetry.now() if rec else 0
-        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, pix, sub, loop_use=loop_use)
+        out, lane_rays = tracer.words(cam_packed, seed, pass_idx, pix, sub, loop_use=loop_use,
+                                      vol_use=vol_use)
         if rec:
             telemetry.span("glue.trace", t0)
         if dst is None:

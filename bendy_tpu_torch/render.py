@@ -178,9 +178,11 @@ class Renderer:
         self.scene = scene
         self.max_lanes = max_lanes
         # every pass adds its rays here on the device (int64: exact), and a
-        # profiled pass the tracer's warp use (telemetry.counters)
+        # profiled pass the tracer's warp use and volume events
+        # (telemetry.counters)
         self._rays = torch.zeros(1, dtype=torch.int64, device=self.device)
-        self._warp_use = torch.zeros(2, dtype=torch.int64, device=self.device)
+        # words in the order of telemetry.COUNTERS
+        self._counts = torch.zeros(3, dtype=torch.int64, device=self.device)
         self._pass_cache: dict = {}
         self._cam_key = None
         self.has_volumes = any(
@@ -300,7 +302,7 @@ class Renderer:
         them into one pass image that ``add_pass`` takes (a host
         :class:`Film`, a film elsewhere); the rays go to the device counter
         behind :attr:`rays_traced`. While a profiler records, the pass also
-        counts the tracer's warp use (``telemetry.counters``).
+        counts the tracer's warp use and volume events (``telemetry.counters``).
         """
         span = telemetry.begin_render(film.passes)
         try:
@@ -316,7 +318,8 @@ class Renderer:
             in_place = isinstance(film, DeviceFilm) and film.sum.device == self.device
             dst = film.sum if in_place else torch.empty((H, W, 3), dtype=torch.float32,
                                                         device=self.device)
-            warp_use = telemetry.tally(self._warp_use) if telemetry.ACTIVE else None
+            counts = telemetry.tally(self._counts) if telemetry.ACTIVE else None
+            warp_use, vol_events = (None, None) if counts is None else (counts[:2], counts[2:])
             for y0 in range(0, H, rows_chunk):
                 rows = min(rows_chunk, H - y0)
                 key = (W, H, rows, render_config.samples, n, tcfg, cfg.output.value)
@@ -327,7 +330,8 @@ class Renderer:
                             cfg.output.value,
                         )
                 self._pass_cache[key](self._cam_packed, seed, film.passes, y0, dst[y0:y0 + rows],
-                                      add=in_place, rays=self._rays, loop_use=warp_use)
+                                      add=in_place, rays=self._rays, loop_use=warp_use,
+                                      vol_use=vol_events)
             if in_place:
                 film.count_pass(render_config.samples * nn)
             else:

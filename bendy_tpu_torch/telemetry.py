@@ -33,11 +33,14 @@ A render's front-end self time is its ``render`` span less its ``glue.*``
 children.
 
 Counters, like the per-pass spans, are kept only while a profiler records:
-a profiled ``Renderer.render`` hands its pass the renderer's device int64
-pair (:func:`tally`), into which every tracer launch adds its own warp use
-at its end (one count on every path, ``count_warp_use`` in
-``csrc/trace_surface.cu``; the CPU route adds ``ops/trace_kernel.warp_use``
-of its lanes' iterations), and :func:`counters` sums the pairs:
+a profiled ``Renderer.render`` hands its pass the renderer's device [3]
+int64 tally (:func:`tally`). Every tracer launch adds its own warp use to
+its first two words at its end (one count on every path, ``count_warp_use``
+in ``csrc/trace_surface.cu``; the CPU route adds ``ops/trace_kernel.warp_use``
+of its lanes' iterations), and the tracer's call adds its lanes' volume
+events to the third (``ops/trace_kernel.add_vol_events``, one ``sum`` of
+the per-lane counts the tracer returns; nothing without media).
+:func:`counters` sums the tallies:
 
 ======================= ================================================
 counter                 what the profiled passes added
@@ -47,9 +50,11 @@ counter                 what the profiled passes added
                         or LOOPM's: the items a thread took, summed)
 ``loop_issued_iters``   the iterations the warps of 32 consecutive
                         threads issue: 32 × each warp's longest loop
+``vol_events``          the tracer's volume events (density lookups),
+                        over its lanes; 0 in a scene without media
 ======================= ================================================
 
-Both leave out a launch's trailing partial warp, as
+The first two leave out a launch's trailing partial warp, as
 ``ops/trace_kernel.warp_use`` does; their ratio is the share of the warps'
 issued loop iterations that a thread used.
 
@@ -86,7 +91,8 @@ _ints: list = []
 _open: list = []  # indices of the open spans, innermost last
 _pass = -1  # the pass of the render under way
 _profiling = False  # whether the last render found a profiler recording
-_tallies: list = []  # the device [2] int64 pairs that profiled passes counted into
+_tallies: list = []  # the device [3] int64 tallies that profiled passes counted into
+COUNTERS = ("loop_thread_iters", "loop_issued_iters", "vol_events")  # a tally's words
 
 ACTIVE = False  # per-pass spans are recorded in the render under way
 
@@ -108,34 +114,32 @@ def spans() -> list[Span]:
 
 
 def counters() -> dict:
-    """The counters (table above), summed over every pair that profiled
+    """The counters (table above), summed over every tally that profiled
     passes counted into since :func:`clear`; reading them waits for those
     passes. Zero where no profiled pass ran."""
-    total = [0, 0]
-    for pair in _tallies:
-        a, b = pair.tolist()
-        total[0] += a
-        total[1] += b
-    return {"loop_thread_iters": total[0], "loop_issued_iters": total[1]}
+    total = [0] * len(COUNTERS)
+    for counts in _tallies:
+        total = [a + b for a, b in zip(total, counts.tolist())]
+    return dict(zip(COUNTERS, total))
 
 
 def clear() -> None:
     """Forget every span, zero the counters, and start a fresh record."""
     global ACTIVE, _pass, _profiling
-    for pair in _tallies:
-        pair.zero_()
+    for counts in _tallies:
+        counts.zero_()
     for a in (_names, _ints, _open, _tallies):
         del a[:]
     ACTIVE, _pass, _profiling = False, -1, False
 
 
-def tally(pair: torch.Tensor) -> torch.Tensor:
-    """At a profiled render (:data:`ACTIVE`): ``pair``, the renderer's
-    device [2] int64 counter that its pass adds to, kept for
-    :func:`counters`."""
-    if not any(pair is t for t in _tallies):
-        _tallies.append(pair)
-    return pair
+def tally(counts: torch.Tensor) -> torch.Tensor:
+    """At a profiled render (:data:`ACTIVE`): ``counts``, the renderer's
+    device [3] int64 counter (:data:`COUNTERS`) that its pass adds to, kept
+    for :func:`counters`."""
+    if not any(counts is t for t in _tallies):
+        _tallies.append(counts)
+    return counts
 
 
 def _record(name: str, t0: int, t1: int) -> int:

@@ -181,15 +181,18 @@ Phases, one line each (any failure exits non-zero):
      graph's film bit-equal to the chain's. Each writes its JSON into
      smoke_out/; the phase split joins its main path's tracer entry in the
      kernel line.
- 20. the tracer's warp-use counter at the benchmark's four cells (cornell
-     256x256 2x2 64 spp and 768x512 2x2 1 spp, blackhole 1920x1080 256 spp
-     with 2 bounces, mass_cluster 1920x1080 16 spp): one profiled pass each
+ 20. the tracer's warp-use and volume-event counters at the benchmark's
+     five cells (cornell 256x256 2x2 64 spp and 768x512 2x2 1 spp,
+     blackhole 1920x1080 256 spp with 2 bounces, mass_cluster 1920x1080 16
+     spp, and dense_cloud's scene, upstream's cloud, 1920x1080 256 spp): one
+     profiled pass each
      (telemetry.counters(), which the tracer counts itself) against
      ops/trace_kernel.warp_use of the same key's per-thread counts, integer
-     for integer; on mass_cluster's LOOPM tracer, whose threads take items
-     from a pool, its thread iterations equal the items' sum and it issues a
-     multiple of 32 no fewer, beside one item a thread's count and the pool
-     model's; so on cornell's 768x512 pass, which runs the lane pool.
+     for integer, and the volume events against the trace's; on
+     mass_cluster's LOOPM tracer, whose threads take items from a pool, its
+     thread iterations equal the items' sum and it issues a multiple of 32
+     no fewer, beside one item a thread's count and the pool model's; so on
+     cornell's 768x512 pass, which runs the lane pool.
  21. the lane pool: (a) its main path, cornell 768x512, 2x2, 1 spp (the
      CLI's and the app's loop), which the library must pool
      (bendy_lane_pool): phase 4's Renderer checks, then the lanes of the
@@ -2109,7 +2112,8 @@ def probes_phase(dev, stub_build) -> dict:
 # the benchmark's cells (BENCHMARK.json): scene, Config, width, height, spp, subsample
 WARP_USE_CELLS = (("cornell", {}, 256, 256, 64, 2), ("cornell", {}, 768, 512, 1, 2),
                   ("blackhole", {"max_bounces": 2}, 1920, 1080, 256, 1),
-                  ("mass_cluster", {}, 1920, 1080, 16, 1))
+                  ("mass_cluster", {}, 1920, 1080, 16, 1),
+                  ("cloud", {}, 1920, 1080, 256, 1))  # the dense_cloud cell's scene
 
 
 def warp_use_vs_issued(dev) -> list:
@@ -2118,7 +2122,8 @@ def warp_use_vs_issued(dev) -> list:
     (``telemetry.counters()``); the same key's per-thread counts
     (``make_tracer(..., count_items=True)`` on the Renderer's lanes, in
     launch order by ``perf_report.thread_counts``) give ``warp_use``'s pair,
-    which must equal the counters integer for integer. Every cell's lanes,
+    which must equal the counters integer for integer, and the trace's
+    volume events the ``vol_events`` counter. Every cell's lanes,
     so every launch's threads, are a multiple of 32, so no warp spans two
     launches. On the LOOPM path (mass_cluster) the threads take items from
     the pool, and on the lane pool (cornell 768x512 at 1 spp) lanes: the
@@ -2151,7 +2156,8 @@ def warp_use_vs_issued(dev) -> list:
         res = make_tracer(r.arrays, W, H, spp, n, cfg)(r._cam_packed, seed, 0, pix, sub,
                                                          count_items=True)
         _, iters = thread_counts(res, pix.numel(), spp, cfg)
-        want = dict(zip(("loop_thread_iters", "loop_issued_iters"), warp_use(iters).tolist()))
+        want = dict(zip(("loop_thread_iters", "loop_issued_iters"), warp_use(iters).tolist()),
+                    vol_events=int(res.vol_events))
         row = dict(cell=f"{name} {W}x{H} {spp}spp {n}x{n}", counters=got, recomputed=want,
                    warp_use=100.0 * got["loop_thread_iters"] / max(got["loop_issued_iters"], 1))
         table_np, counts = tracer_table(r.arrays.host_copy(), cfg)
@@ -2172,7 +2178,8 @@ def warp_use_vs_issued(dev) -> list:
                   f"({100 * model[0] / model[1]:.4f} %)")
             issued_ok = (got["loop_issued_iters"] % 32 == 0
                          and got["loop_issued_iters"] >= got["loop_thread_iters"])
-            ok = got["loop_thread_iters"] == want["loop_thread_iters"] and issued_ok
+            ok = (got["loop_thread_iters"] == want["loop_thread_iters"] and issued_ok
+                  and got["vol_events"] == want["vol_events"])
         else:
             print(f"phase 20: {row['cell']}: counters {got}, from the per-thread counts {want}: "
                   f"loop_warp_use {row['warp_use']:.4f} %")

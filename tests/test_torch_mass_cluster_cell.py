@@ -148,25 +148,27 @@ def warp_count(rows_of, *args):
 
 
 def only_while_profiled():
-    """An unprofiled pass leaves the renderer's pair and the counters as
+    """An unprofiled pass leaves the renderer's tally and the counters as
     they were; a profiled one adds what its lanes ran."""
     telemetry.clear()
     r, cam = _renderer("scenes/cornell.json.gz", {"max_bounces": 8, "output": "full"}, 8, 8)
     film = DeviceFilm(8, 8, device="cpu")
     rc = RenderConfig(samples=1, subsample=Subsample(1))
     r.render(cam, rc, film, seed=3)
-    assert r._warp_use.tolist() == [0, 0]
-    assert telemetry.counters() == {"loop_thread_iters": 0, "loop_issued_iters": 0}
+    assert r._counts.tolist() == [0, 0, 0]
+    assert telemetry.counters() == {"loop_thread_iters": 0, "loop_issued_iters": 0,
+                                    "vol_events": 0}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         r.render(cam, rc, film, seed=4)
     counted = telemetry.counters()
-    assert r._warp_use.tolist() == [counted["loop_thread_iters"], counted["loop_issued_iters"]]
+    assert r._counts.tolist() == [counted["loop_thread_iters"], counted["loop_issued_iters"], 0]
     assert 0 < counted["loop_thread_iters"] <= counted["loop_issued_iters"]
     r.render(cam, rc, film, seed=5)
     assert telemetry.counters() == counted
-    telemetry.clear()  # forgets the pair and zeroes it, so a later session starts at 0
-    assert telemetry.counters() == {"loop_thread_iters": 0, "loop_issued_iters": 0}
-    assert r._warp_use.tolist() == [0, 0]
+    telemetry.clear()  # forgets the tally and zeroes it, so a later session starts at 0
+    assert telemetry.counters() == {"loop_thread_iters": 0, "loop_issued_iters": 0,
+                                    "vol_events": 0}
+    assert r._counts.tolist() == [0, 0, 0]
 
 
 CASES = {
